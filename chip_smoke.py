@@ -6,39 +6,68 @@ Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from dctseg_torch/csrc/ (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it;
-  4. main path at full width (img_dim=128, base_channels=16, random seeded
-     weights): fp32 seg_probs on the 8 crops of a volume through the
-     kernels vs through the plain path, bf16 tta_probs on one 128^3 volume,
-     then the main path, bf16 Predictor.tiled_probs on 3 seeded
-     240x240x160x4 volumes, with the kernels' launch counters set to 0
-     just before and read just after;
-  5. time the engine, each kernel, its plain version and a PyTorch library
-     call that computes the same function (CUDA events);
+     shapes the main paths give it: fusednorm, attention, the min-plus EDT
+     pass (torch.equal, on the EDTs of synthetic label volumes at
+     240x240x155 and 128^3, odd extents and an all-False mask) and the
+     order-statistic count and search (exact, on the pooled distances of
+     those volumes, against count_leq_plain and the binary search);
+  4. the main paths at full width (img_dim=128, base_channels=16, random
+     seeded weights), each with the launch counters set to 0 just before
+     and read just after:
+       - serving: fp32 seg_probs on the 8 crops of a volume through the
+         kernels vs through the plain path, bf16 tta_probs on one 128^3
+         volume, then bf16 Predictor.tiled_probs on 3 seeded 240x240x160x4
+         volumes;
+       - evaluation: DeviceMetrics on the card against the host scipy
+         metrics (exact) on 2 synthetic 128^3 label pairs in both HD95
+         modes, then the evaluate CLI (dctseg_torch.cli.evaluate:
+         BraTSDataset, PrefetchLoader, validate_softmax with
+         strategy='tiling' and hd95 'reference', DeviceMetrics) over 2
+         synthetic 240x240x155 volumes in bf16;
+  5. time the engines, each kernel, its plain version and a PyTorch library
+     call that computes the same function (CUDA events), and the host
+     scipy HD95 of one volume (host clock);
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dctseg_torch.config import ModelConfig
+from dctseg_torch import metrics
+from dctseg_torch.cli import evaluate
+from dctseg_torch.config import DataConfig, ModelConfig
+from dctseg_torch.data import synthetic
+from dctseg_torch.data.brats import BraTSDataset
 from dctseg_torch.infer.engine import Predictor
 from dctseg_torch.models import clswiseformer as cwf
 from dctseg_torch.ops import _build
 from dctseg_torch.ops import attention as attn
-from dctseg_torch.ops import fusednorm
+from dctseg_torch.ops import edt, fusednorm, minplus, orderstats
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
+# f32 instructions per second outside the tensor cores: 16,896 FP32 lanes
+# x 1.98 GHz (67 TFLOP/s counts an fma as two)
+F32_INSTR = 16896 * 1.98e9
+FULL = (240, 240, 155)           # a BraTS volume
+VALID_SEED = DataConfig().synthetic_valid_seed_offset
+EVAL_VOLUMES = 2
+EDT_LAUNCHES = 3                 # per volume: both EDTs as one (6, ...) call
+ENVELOPE_INSTR = 32              # f32 instructions per element and EDT pass
+SEARCH_LAUNCHES = 7              # per volume: fanout 8 at BraTS vmax
 # UNet widths of the direct path at img_dim=128 (spatial edge, channels)
 NORM_WIDTHS = [(128, 16), (64, 32), (32, 64), (16, 128)]
 # calls per B=8 forward at each width: encoder 2 blocks x 2 relu norms,
@@ -166,6 +195,113 @@ def check_attention(dev, shape=ATTN_SHAPE):
     return worst_bf16
 
 
+@contextlib.contextmanager
+def plain_route(module, name, plain_fn):
+    """Run ``module.name`` as its plain version inside the block (the
+    callers look the kernel wrapper up in the module at call time)."""
+    orig = getattr(module, name)
+    setattr(module, name, plain_fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def synthetic_labels(seed, shape=FULL) -> np.ndarray:
+    """The label volume of synthetic sample ``seed`` after the 4 -> 3 remap
+    (the dataset's generator call, so its cache serves both)."""
+    label = synthetic.make_volume_channels(seed, shape, 4,
+                                           hardness="simple")[1]
+    return np.where(label == 4, 3, label).astype(np.uint8)
+
+
+def check_minplus(dev, out_lbl, tgt_lbl):
+    """K4: squared_edt through the kernel vs through the plain passes,
+    torch.equal.  Cases: the two EDTs of a volume pair as the metric stacks
+    them (6, 240, 240, 155), the surfaces of a 128^3 crop, odd extents
+    (D = 1, B not a multiple of the 32-column tile, D = 256) and an
+    all-False mask, where INF must survive all three passes."""
+    o = metrics.composite_masks(out_lbl)
+    t = metrics.composite_masks(tgt_lbl)
+    crop = (slice(None), slice(56, 184), slice(56, 184), slice(13, 141))
+    g = gen(dev, SEED + 6)
+    cases = [("pair", torch.cat([t, o])),
+             ("surface_128", edt.surface(t[crop].contiguous())),
+             ("d1", torch.rand((2, 1, 7, 5), device=dev, generator=g) < 0.3),
+             ("ragged", torch.rand((2, 13, 17, 33), device=dev,
+                                   generator=g) < 0.1),
+             ("d256", torch.rand((1, 256, 3, 40), device=dev,
+                                 generator=g) < 0.05),
+             ("all_false", torch.zeros((1, 20, 30, 40), dtype=torch.bool,
+                                       device=dev))]
+    worst = 0.0
+    for name, mask in cases:
+        got = edt.squared_edt(mask)
+        with plain_route(minplus, "minplus_pass", minplus.minplus_pass_plain):
+            want = edt.squared_edt(mask)
+        err = (got - want).abs().max().item()
+        ok = torch.equal(got, want)
+        if name == "all_false":
+            ok = ok and bool((got == edt.INF).all())
+        worst = max(worst, err)
+        log(check="minplus", case=name, shape=list(mask.shape),
+            max_abs_err=err, tol="torch.equal", ok=ok)
+        if not ok:
+            raise AssertionError(f"min-plus kernel disagrees: {name}")
+    return worst
+
+
+def check_orderstats(dev, pools):
+    """K5: the count kernel vs count_leq_plain, and the whole m-ary search
+    vs the binary search, exact, on the pooled distances of real EDTs
+    (ranks from percentile_ranks) and on small value ranges, one with a row
+    length that is not a multiple of 4 (the scalar-load path)."""
+    g = np.random.default_rng(SEED + 7)
+    cases = list(pools)
+    for hi, m in ((5, 3001), (2500, 1 << 20), (195075, 2999)):
+        vals = np.where(g.random((3, m)) < 0.4,
+                        g.integers(0, hi, (3, m)).astype(np.float64),
+                        edt.INF).astype(np.float32)
+        n = torch.from_numpy((vals < metrics.VMAX).sum(1))
+        cases.append((f"range_{hi}_m{m}", torch.from_numpy(vals).to(dev), n))
+    worst = 0.0
+    for name, pooled, n in cases:
+        ks = metrics.percentile_ranks(n.to(dev))
+        cuts = torch.from_numpy(np.concatenate(
+            [g.integers(0, 300, (3, 12)), np.full((3, 1), -1.0),
+             np.full((3, 1), edt.INF)], 1).astype(np.float32)).to(dev)
+        cnt_ok = torch.equal(orderstats.count_leq(pooled, cuts),
+                             orderstats.count_leq_plain(pooled, cuts))
+        got = orderstats.masked_order_stats(pooled, ks, metrics.VMAX)
+        want = edt.binary_search_order_stats(pooled, ks, metrics.VMAX)
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        ok = cnt_ok and torch.equal(got, want)
+        log(check="orderstats", case=name, shape=list(pooled.shape),
+            n=n.tolist(), ranks=ks.tolist(), kth=got.tolist(),
+            count_equal=cnt_ok, max_abs_err=err, tol="exact", ok=ok)
+        if not ok:
+            raise AssertionError(f"order-statistic kernel disagrees: {name}")
+    # a batched (2, 3, M) search runs as one (6, M) search on the kernel
+    vals = torch.from_numpy(np.where(
+        g.random((2, 3, 4096)) < 0.4,
+        g.integers(0, 2500, (2, 3, 4096)).astype(np.float64),
+        edt.INF).astype(np.float32)).to(dev)
+    ks = torch.from_numpy(g.integers(0, 1000, (2, 3, 2)).astype(np.int32)
+                          ).to(dev)
+    before = orderstats.count_leq.launches
+    got = edt.masked_order_stats(vals, ks, metrics.VMAX)
+    launched = orderstats.count_leq.launches - before
+    ok = launched == SEARCH_LAUNCHES and torch.equal(
+        got, edt.binary_search_order_stats(vals, ks, metrics.VMAX))
+    log(check="orderstats", case="batched_2x3", shape=list(vals.shape),
+        launches=launched, tol="exact", ok=ok)
+    if not ok:
+        raise AssertionError("batched order-statistic search disagrees or "
+                             "did not run on the kernel")
+    return worst
+
+
 # ---------------------------------------------------------------- phase 4
 
 def record_topk(store):
@@ -253,6 +389,63 @@ def run_main_path(predictor, volumes):
     return times
 
 
+def check_device_metrics(dev, pairs):
+    """DeviceMetrics on the card vs the host scipy metrics, exact equality,
+    in both HD95 modes; pairs of (prediction, target) numpy label
+    volumes."""
+    for i, (pred, tgt) in enumerate(pairs):
+        for bcs in (True, False):
+            got = metrics.DeviceMetrics(batched_call_shape=bcs,
+                                        device=dev)(pred, tgt)
+            want = {"dice": metrics.softmax_output_dice(pred, tgt),
+                    "miou": metrics.softmax_output_miou(pred, tgt),
+                    "hd95": metrics.cal_hausdorff(pred, tgt, bcs)}
+            ok = got == want
+            log(check="device_metrics_vs_host", pair=i, shape=list(tgt.shape),
+                hd95_mode="reference" if bcs else "surface", got=got,
+                host=want, tol="exact", ok=ok)
+            if not ok:
+                raise AssertionError("DeviceMetrics disagrees with the host")
+
+
+KERNEL_COUNTERS = {"fusednorm": fusednorm.fused_instance_norm_act,
+                   "attention": attn.fused_attention,
+                   "minplus": minplus.minplus_pass,
+                   "orderstats": orderstats.count_leq}
+
+
+def run_eval_path():
+    """The evaluate CLI over EVAL_VOLUMES synthetic 240x240x155 volumes:
+    strategy 'tiling', HD95 'reference', bf16, full width, random weights
+    from seed 0.  Returns its result dict, the launch counts and the wall
+    time."""
+    for fn in KERNEL_COUNTERS.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        res = evaluate.main(["--strategy", "tiling", "--hd95", "reference",
+                             "--random-params", "--num-samples",
+                             str(EVAL_VOLUMES), "--output-dir", out_dir])
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNEL_COUNTERS.items()}
+    expected = {"fusednorm": 64 * EVAL_VOLUMES,
+                "attention": 13 * EVAL_VOLUMES,
+                "minplus": EDT_LAUNCHES * EVAL_VOLUMES,
+                "orderstats": SEARCH_LAUNCHES * EVAL_VOLUMES}
+    finite = all(math.isfinite(v) for v in res.values())
+    in_unit = all(0.0 <= res[k] <= 1.0 for k in
+                  ("wt", "tc", "et", "miou_wt", "miou_tc", "miou_et"))
+    ok = launches == expected and finite and in_unit
+    log(phase="eval_path", entry="dctseg_torch.cli.evaluate",
+        strategy="tiling", hd95="reference", dtype="bfloat16",
+        volumes=EVAL_VOLUMES, result=res, wall_s=wall, launches=launches,
+        expected_launches=expected, ok=ok)
+    if not ok:
+        raise AssertionError(f"eval path failed: launches {launches} "
+                             f"(expected {expected}), result {res}")
+    return res, launches
+
+
 # ---------------------------------------------------------------- phase 5
 
 def time_fusednorm(dev, widths, batch=8, iters=10):
@@ -310,6 +503,68 @@ def time_attention(dev, shape=ATTN_SHAPE, iters=50):
     return row
 
 
+def time_metrics(dev, pred, tgt):
+    """Per 240x240x155 volume pair (HD95 'reference'): the two EDTs (K4),
+    the whole order-statistic search (K5), each through the kernel and
+    through its plain version, torch.kthvalue for the search's 6 (class,
+    rank) pairs, DeviceMetrics end to end (CUDA events), and the host scipy
+    cal_hausdorff (host clock)."""
+    out_lbl = torch.from_numpy(pred).to(dev)
+    tgt_lbl = torch.from_numpy(tgt).to(dev)
+    o = metrics.composite_masks(out_lbl)
+    t = metrics.composite_masks(tgt_lbl)
+    mask = torch.cat([t, o])
+    row = {"edt_ms": time_ms(lambda: edt.squared_edt(mask), 10)}
+    with plain_route(minplus, "minplus_pass", minplus.minplus_pass_plain):
+        row["edt_plain_ms"] = time_ms(lambda: edt.squared_edt(mask), 1, 1)
+    # Each pass reads and writes the volume once.  The least work is the
+    # lower-envelope transform (Felzenszwalb & Huttenlocher), exact on these
+    # integers in O(D) per column: at most two parabola intersections per
+    # element (a few adds, a multiply, a divide) and the fill, counted as
+    # ENVELOPE_INSTR f32 instructions per element and pass.  The kernel does
+    # the brute-force D add-and-min pairs per element instead (2
+    # instructions each); that count is kept as bruteforce_ops_ms.
+    pairs = mask.numel() * sum(mask.shape[1:])
+    row["edt_ops_bound_ms"] = (EDT_LAUNCHES * ENVELOPE_INSTR * mask.numel()
+                               / F32_INSTR * 1e3)
+    row["edt_bruteforce_ops_ms"] = 2 * pairs / F32_INSTR * 1e3
+    row["edt_bytes_bound_ms"] = (EDT_LAUNCHES * 2 * 4 * mask.numel()
+                                 / HBM_BYTES_PER_S * 1e3)
+
+    pooled, n = metrics.pooled_distances(o, t)
+    ks = metrics.percentile_ranks(n)
+    vmax = metrics.VMAX
+    row["search_ms"] = time_ms(
+        lambda: orderstats.masked_order_stats(pooled, ks, vmax), 10)
+    with plain_route(orderstats, "count_leq", orderstats.count_leq_plain):
+        row["search_plain_ms"] = time_ms(
+            lambda: orderstats.masked_order_stats(pooled, ks, vmax), 2, 1)
+    pairs_ck = [(c, k) for c in range(3) for k in ks[c].tolist()]
+    row["kthvalue_ms"] = time_ms(
+        lambda: [torch.kthvalue(pooled[c], k + 1) for c, k in pairs_ck], 3)
+    kth = torch.stack([torch.kthvalue(pooled[c], k + 1).values
+                       for c, k in pairs_ck]).reshape(3, 2)
+    if not torch.equal(kth, orderstats.masked_order_stats(pooled, ks, vmax)):
+        raise AssertionError("torch.kthvalue disagrees with the search")
+    # a pass reads the pooled values once and makes a compare and an add
+    # for each of its K ranks x (fanout - 1) cut points on each
+    cut_points = ks.shape[1] * (8 - 1)
+    row["search_bytes_bound_ms"] = (SEARCH_LAUNCHES * 4 * pooled.numel()
+                                    / HBM_BYTES_PER_S * 1e3)
+    row["search_ops_bound_ms"] = (SEARCH_LAUNCHES * 2 * cut_points
+                                  * pooled.numel() / F32_INSTR * 1e3)
+    row["pooled_shape"] = list(pooled.shape)
+    row["pooled_finite"] = n.tolist()
+
+    dm = metrics.DeviceMetrics(device=dev)
+    row["device_metrics_ms"] = time_ms(lambda: dm(out_lbl, tgt_lbl), 5)
+    t0 = time.perf_counter()
+    metrics.cal_hausdorff(pred, tgt, True)
+    row["host_cal_hausdorff_s"] = time.perf_counter() - t0
+    log(timing="metrics", unit="per 240x240x155 volume", **row)
+    return row
+
+
 def main() -> int:
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -336,9 +591,27 @@ def main() -> int:
     # ---- 3. kernels vs plain versions
     norm_err = check_fusednorm(dev, NORM_WIDTHS)
     attn_err = check_attention(dev)
+    t0 = time.perf_counter()
+    valid_ds = BraTSDataset(mode="valid",
+                            cfg=DataConfig(synthetic_num_samples=4))
+    label_pairs = [(valid_ds[i + 2].target, valid_ds[i].target)
+                   for i in range(2)]
+    full_pred, full_tgt = (synthetic_labels(VALID_SEED + 1),
+                           synthetic_labels(VALID_SEED))
+    log(phase="synthetic_data", volumes=4,
+        seconds=time.perf_counter() - t0)
+    out_lbl = torch.from_numpy(full_pred).to(dev)
+    tgt_lbl = torch.from_numpy(full_tgt).to(dev)
+    minplus_err = check_minplus(dev, out_lbl, tgt_lbl)
+    o, t = metrics.composite_masks(out_lbl), metrics.composite_masks(tgt_lbl)
+    pools = [(f"pooled_{mode}", *metrics.pooled_distances(
+                 *metrics.borders(o, t, mode == "reference")))
+             for mode in ("reference", "surface")]
+    search_err = check_orderstats(dev, pools)
+    del out_lbl, tgt_lbl, o, t, pools
     log(phase="kernel_checks", ok=True)
 
-    # ---- 4. main path, full width
+    # ---- 4a. serving path, full width
     cfg_kw = dict(img_dim=128, base_channels=16, num_heads=8, top_num=128,
                   pe_type="fixed")
     weights = cwf.ClsWiseFormer(ModelConfig(**cfg_kw),
@@ -370,25 +643,42 @@ def main() -> int:
     expected = {"fusednorm": 64 * N_VOLUMES, "attention": 13 * N_VOLUMES}
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
-    del volumes
+    del volumes, predictor, model
+
+    # ---- 4b. evaluation path, full width
+    check_device_metrics(dev, label_pairs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eval_res, eval_launches = run_eval_path()
+    log(phase="eval_path_memory",
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
 
     # ---- 5. timing
     steady = vol_ms[1:]
     log(timing="tiled_probs", dtype="bfloat16",
         first_volume_ms=vol_ms[0],
         steady_volume_ms=sum(steady) / len(steady))
+    log(timing="validate_softmax", strategy="tiling", hd95="reference",
+        dtype="bfloat16", sec_per_volume=eval_res["sec_per_volume"])
     norm_rows = time_fusednorm(dev, NORM_WIDTHS)
     attn_row = time_attention(dev)
+    met = time_metrics(dev, full_pred, full_tgt)
 
     def per_forward(key):
         return sum(NORM_CALLS["nores"] * r[f"nores_{key}"]
                    + NORM_CALLS["res"] * r[f"res_{key}"] for r in norm_rows)
 
+    def bound(prefix):
+        by_ops = met[f"{prefix}_ops_bound_ms"] > met[f"{prefix}_bytes_bound_ms"]
+        return dict(bound_ms=max(met[f"{prefix}_ops_bound_ms"],
+                                 met[f"{prefix}_bytes_bound_ms"]),
+                    bound_by="operations" if by_ops else "bytes")
+
     kernels = [
         dict(name="fusednorm", route="cuda",
              source="dctseg_torch/csrc/fusednorm.cu",
              replaces="dctseg/ops/pallas/fusednorm.py:127",
-             launches=launches["fusednorm"], max_abs_err=norm_err,
+             launches=eval_launches["fusednorm"], max_abs_err=norm_err,
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
              bound_ms=per_forward("bound_ms"), bound_by="bytes",
              library_ms=per_forward("library_ms"),
@@ -397,7 +687,7 @@ def main() -> int:
         dict(name="attention", route="cuda",
              source="dctseg_torch/csrc/attention.cu",
              replaces="dctseg/ops/pallas/attention.py:59",
-             launches=launches["attention"], max_abs_err=attn_err,
+             launches=eval_launches["attention"], max_abs_err=attn_err,
              ms=ATTN_CALLS * attn_row["ms"],
              plain_ms=ATTN_CALLS * attn_row["plain_ms"],
              bound_ms=ATTN_CALLS * max(attn_row["bytes_bound_ms"],
@@ -406,6 +696,20 @@ def main() -> int:
                        >= attn_row["flops_bound_ms"] else "operations"),
              library_ms=ATTN_CALLS * attn_row["library_ms"],
              unit="per B=8 bf16 forward (13 calls)"),
+        dict(name="minplus", route="cuda",
+             source="dctseg_torch/csrc/minplus.cu",
+             replaces="dctseg/ops/pallas/minplus.py:80",
+             launches=eval_launches["minplus"], max_abs_err=minplus_err,
+             ms=met["edt_ms"], plain_ms=met["edt_plain_ms"], **bound("edt"),
+             library_ms=None, bruteforce_ops_ms=met["edt_bruteforce_ops_ms"],
+             unit="per 240x240x155 volume (both EDTs, 3 launches)"),
+        dict(name="orderstats", route="cuda",
+             source="dctseg_torch/csrc/orderstats.cu",
+             replaces="dctseg/ops/pallas/orderstats.py:57",
+             launches=eval_launches["orderstats"], max_abs_err=search_err,
+             ms=met["search_ms"], plain_ms=met["search_plain_ms"],
+             **bound("search"), library_ms=met["kthvalue_ms"],
+             unit="per 240x240x155 volume (the whole search, 7 launches)"),
     ]
     # ---- 6. result
     print(json.dumps({"kernels": kernels}), flush=True)

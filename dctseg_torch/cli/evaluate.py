@@ -1,0 +1,164 @@
+"""Evaluation CLI of the port, covering the reference's test_*.py family:
+
+    python -m dctseg_torch.cli.evaluate [--strategy tiling] [--root DIR] ...
+
+Strategies:
+  tta         crop-volume 8-way flip TTA (the primary eval)
+  single      single patch, no TTA
+  tiling      8-crop sliding window over 240x240x155
+  tiling_tta  tiling + flip TTA over tilings
+
+With no --root it evaluates synthetic volumes (dataset-free smoke).  It runs
+on the GPU unless given ``--device cpu``, loads a reference-format ``.pth``
+with ``--checkpoint`` (random seeded weights otherwise), and prints the mean
+metrics as one JSON line at the end.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--strategy", default="tta",
+                   choices=["tta", "single", "tiling", "tiling_tta",
+                            "sweep"])
+    p.add_argument("--root", default="")
+    p.add_argument("--valid-file", default="valid.txt")
+    p.add_argument("--checkpoint", default="",
+                   help="reference-format .pth to load (strict); random "
+                        "seeded weights when empty")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain kernels")
+    p.add_argument("--drop-modal", action="store_true")
+    p.add_argument("--missing", default="",
+                   help="comma-separated modality names or indices to zero "
+                        "out on every volume (missing-modality evaluation), "
+                        "e.g. --missing t1ce or --missing 0,2")
+    p.add_argument("--cache-dir", default="",
+                   help="preprocessed-volume cache dir")
+    p.add_argument("--synthetic-hardness", default="simple",
+                   choices=["simple", "hard"])
+    p.add_argument("--output-dir", default="output")
+    p.add_argument("--snapshot", action="store_true", help="PNG slices")
+    p.add_argument("--csv", action="store_true", help="per-slice CSV")
+    p.add_argument("--save-nifti", action="store_true")
+    p.add_argument("--no-hd95", action="store_true")
+    p.add_argument("--hd95", default="reference",
+                   choices=["reference", "surface"],
+                   help="'reference' reproduces the reference's batched-mask "
+                        "medpy quirk (its headline HD95 numbers); 'surface' "
+                        "is the corrected 3-D surface-distance HD95")
+    p.add_argument("--paired", type=int, default=1, metavar="V",
+                   help="volumes per forward (any strategy): V volumes' "
+                        "crops/flips go through one B=8V forward")
+    p.add_argument("--multimodel", action="store_true",
+                   help="ensemble over the newest 4 checkpoints")
+    p.add_argument("--stitch-mode", default="reference",
+                   choices=["reference", "aligned"])
+    p.add_argument("--postprocess", action="store_true")
+    p.add_argument("--img-dim", type=int, default=128)
+    p.add_argument("--base-channels", type=int, default=16)
+    p.add_argument("--fp32", action="store_true",
+                   help="fp32 compute and wire (default bf16)")
+    p.add_argument("--quantize", default="none")
+    p.add_argument("--spatial-shards", type=int, default=1)
+    p.add_argument("--random-params", action="store_true",
+                   help="skip checkpoint loading (smoke runs)")
+    p.add_argument("--num-samples", type=int, default=None,
+                   help="synthetic dataset size (no --root only)")
+    p.add_argument("--input-shape", type=int, nargs=3, default=None,
+                   metavar=("H", "W", "D"),
+                   help="raw volume shape (synthetic smoke runs; real "
+                        "BraTS is always 240 240 155)")
+    return p.parse_args(argv)
+
+
+def _not_ported(a) -> str:
+    if a.strategy == "sweep":
+        return ("--strategy sweep needs the port's checkpoint directory, "
+                "which comes with the training slice (ROADMAP A6)")
+    if a.multimodel:
+        return ("--multimodel needs the port's checkpoint directory, which "
+                "comes with the training slice (ROADMAP A6)")
+    if a.quantize != "none":
+        return "int8 quantization is not ported yet (ROADMAP A9)"
+    if a.spatial_shards > 1:
+        return "multi-GPU spatial sharding is not ported yet (ROADMAP A12)"
+    return ""
+
+
+def main(argv=None) -> dict:
+    a = parse_args(argv)
+    reason = _not_ported(a)
+    if reason:
+        raise NotImplementedError(reason)
+    from dctseg_torch.config import DataConfig, ModelConfig
+    from dctseg_torch.convert import load_reference_checkpoint
+    from dctseg_torch.data.brats import BraTSDataset
+    from dctseg_torch.data.pipeline import PrefetchLoader
+    from dctseg_torch.device import resolve_device
+    from dctseg_torch.infer.engine import Predictor
+    from dctseg_torch.infer.validate import validate_softmax
+    from dctseg_torch.models.clswiseformer import build_model
+    from dctseg_torch.utils.logging_utils import setup_logging
+
+    device = resolve_device(a.device)
+    log = setup_logging(os.path.join(a.output_dir, "eval.txt"))
+    mcfg = ModelConfig(
+        img_dim=a.img_dim, base_channels=a.base_channels,
+        compute_dtype="float32" if a.fp32 else "bfloat16",
+        **({} if a.img_dim == 128
+           else {"top_num": min(128, (a.img_dim // 16) ** 3)}))
+    model = build_model(mcfg, device=device,
+                        generator=torch.Generator().manual_seed(0))
+    if a.checkpoint and not a.random_params:
+        load_reference_checkpoint(model, a.checkpoint)
+        log.info("loaded checkpoint %s", a.checkpoint)
+    else:
+        log.info("using random params (seed 0)")
+
+    names = DataConfig().modalities
+    missing = tuple(
+        int(tok) if tok.isdigit() else names.index(tok)
+        for tok in (t.strip() for t in a.missing.split(",")) if tok)
+    geo = {"crop_size": (a.img_dim,) * 3}
+    if a.input_shape is not None:
+        shape = tuple(a.input_shape)
+        if a.strategy in ("tiling", "tiling_tta") and \
+                shape != (240, 240, 155):
+            raise ValueError("sliding-window tiling windows are fixed to "
+                             "the BraTS 240x240x155 geometry")
+        geo.update(input_shape=shape, pad_depth=max(shape[2], a.img_dim))
+    dcfg = DataConfig(root=a.root, valid_file=a.valid_file,
+                      drop_modal=a.drop_modal, missing_modalities=missing,
+                      cache_dir=a.cache_dir, **geo,
+                      transfer_dtype="float32" if a.fp32 else "bfloat16",
+                      synthetic_hardness=a.synthetic_hardness,
+                      **({} if a.num_samples is None
+                         else {"synthetic_num_samples": a.num_samples}))
+    mode = "full" if a.strategy in ("tiling", "tiling_tta") else "valid"
+    ds = BraTSDataset(
+        list_file=(a.root and os.path.join(a.root, a.valid_file)),
+        root=a.root, mode=mode, drop_modal=a.drop_modal, cfg=dcfg)
+    loader = PrefetchLoader(ds, batch_size=1, shuffle=False, num_workers=2)
+
+    predictor = Predictor(model, device=device)
+    log.info("sum===== %d", sum(p.numel() for p in model.parameters()))
+    return validate_softmax(
+        loader, predictor, a.strategy,
+        savepath=os.path.join(a.output_dir, "submission"),
+        use_hd95=not a.no_hd95, hd95_mode=a.hd95,
+        snapshot=a.snapshot, csv_export=a.csv,
+        save_nifti=a.save_nifti, visual=os.path.join(a.output_dir, "visual"),
+        stitch_mode=a.stitch_mode, postprocess=a.postprocess,
+        paired=a.paired)
+
+
+if __name__ == "__main__":
+    print(json.dumps(main()), flush=True)

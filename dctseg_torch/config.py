@@ -1,4 +1,5 @@
-"""ClsWiseFormer geometry and behaviour flags for the PyTorch port.
+"""ClsWiseFormer geometry, behaviour flags and data settings for the
+PyTorch port.
 
 The port keeps its own copy of the JAX package's ``ModelConfig`` (same
 field names, same derived geometry) so that it imports nothing of
@@ -20,7 +21,7 @@ its ``ROADMAP.md`` item.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Tuple
 
 
 def _derive(img_dim: int, base_channels: int) -> dict:
@@ -108,6 +109,38 @@ class ModelConfig:
         if self.remat:
             raise NotImplementedError(
                 "remat (training) is not ported yet (ROADMAP A6)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """BraTS data pipeline settings (field names and defaults as in the JAX
+    package's ``DataConfig``).  The fields that only training reads
+    (``train_file``, ``num_workers``, ``prefetch``) come with the training
+    slice."""
+    root: str = ""
+    valid_file: str = "valid.txt"
+    input_shape: Tuple[int, int, int] = (240, 240, 155)  # raw NIfTI volume
+    pad_depth: int = 160            # pad 155 -> 160 before cropping
+    crop_size: Tuple[int, int, int] = (128, 128, 128)
+    modalities: Tuple[str, ...] = ("flair", "t1", "t1ce", "t2")
+    drop_modal: bool = False        # random modality dropout at load time
+    # modality indices forced absent on every sample (deterministic
+    # missing-modality evaluation)
+    missing_modalities: Tuple[int, ...] = ()
+    augment_flip: bool = False      # random axis flips (image+target+edge)
+    augment_intensity: float = 0.0  # per-channel scale/shift jitter amount
+    seed: int = 1000
+    synthetic_num_samples: int = 8  # used when root == '' (synthetic data)
+    # valid/full synthetic volumes come from seeds disjoint from training's
+    synthetic_valid_seed_offset: int = 10000
+    synthetic_hardness: str = "simple"  # 'simple' | 'hard'
+    # preprocessed-volume cache: NIfTI decoded once into mmap-able .npy plus
+    # the z-score statistics
+    cache_dir: str = ""
+    # dtype of the image tensors the loader hands over: "bfloat16" halves
+    # the host-to-device bytes and is bit-identical for bf16-compute models
+    # (the model casts its input to bf16 first); "float32" for fp32 runs
+    transfer_dtype: str = "float32"
 
 
 def tiny_model_config(**overrides: Any) -> ModelConfig:

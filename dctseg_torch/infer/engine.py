@@ -1,8 +1,9 @@
-"""Inference engines: batched forward, flip TTA, sliding-window tiling (the
-JAX package's ``dctseg/infer/engine.py`` ``Predictor``).
+"""Inference engines: batched forward, flip TTA, sliding-window tiling,
+multi-checkpoint ensembling (the JAX package's ``dctseg/infer/engine.py``).
 
   * The 8 flip variants of flip TTA and the 8 crops of sliding-window tiling
-    each go through the model as ONE B=8 forward.
+    each go through the model as ONE B=8 forward; the ``*_batch`` engines
+    put V volumes through one B=8V forward.
   * The decoder's output is already a softmax; flip TTA softmaxes it again
     before averaging (the reference's double softmax), kept for parity.
   * Reference stitching quirk: the high-depth crops start at slice 27 but
@@ -15,7 +16,7 @@ Volumes are NDHWC.  Every engine runs under ``torch.inference_mode()``.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -92,7 +93,7 @@ class Predictor:
         x = self._input(x)
         if x.shape[0] != 1:
             raise ValueError("TTA operates per volume: x must be (1, ...)")
-        return self.unflip_mean(self._forward(self.flip_batch(x)))
+        return self.tta_probs_batch(x)
 
     # ---- sliding-window tiling ----
 
@@ -121,10 +122,78 @@ class Predictor:
     @torch.inference_mode()
     def tiled_probs(self, x, stitch_mode: str = "reference") -> torch.Tensor:
         """(1, 240, 240, >=155, M) -> (1, 240, 240, 155, C)."""
-        if stitch_mode not in ("reference", "aligned"):
-            raise ValueError(f"unknown stitch_mode {stitch_mode!r}")
         x = self._input(x)
         if x.shape[0] != 1:
             raise ValueError("tiling operates per volume: x must be (1, ...)")
-        t = self._forward(self.crops(x))
-        return self.stitch_volume(t, stitch_mode == "reference")[None]
+        return self.tiled_probs_batch(x, stitch_mode)
+
+    # ---- V volumes per forward ----
+
+    @torch.inference_mode()
+    def tta_probs_batch(self, x) -> torch.Tensor:
+        """(V, D, H, W, M) -> (V, D, H, W, C): the 8 flip variants of V
+        volumes through ONE forward (B=8V, volume-major), each volume's
+        double-softmax mean as in :meth:`tta_probs`."""
+        x = self._input(x)
+        probs = self._forward(_cat(
+            [self.flip_batch(x[v:v + 1]) for v in range(x.shape[0])]))
+        return _cat([self.unflip_mean(probs[8 * v:8 * v + 8])
+                     for v in range(x.shape[0])])
+
+    @torch.inference_mode()
+    def tiled_probs_batch(self, x, stitch_mode: str = "reference"
+                          ) -> torch.Tensor:
+        """(V, 240, 240, >=155, M) -> (V, 240, 240, 155, C): the 8 crops of
+        V volumes through ONE forward (B=8V, volume-major), each stitched as
+        in :meth:`tiled_probs`."""
+        if stitch_mode not in ("reference", "aligned"):
+            raise ValueError(f"unknown stitch_mode {stitch_mode!r}")
+        x = self._input(x)
+        t = self._forward(_cat([self.crops(x[v:v + 1])
+                                for v in range(x.shape[0])]))
+        ref = stitch_mode == "reference"
+        return _cat([self.stitch_volume(t[8 * v:8 * v + 8], ref)[None]
+                     for v in range(x.shape[0])])
+
+    @torch.inference_mode()
+    def tiled_tta_probs(self, x, stitch_mode: str = "reference"
+                        ) -> torch.Tensor:
+        """Flip TTA over full tilings: 8 flips x 8 crops = 64 forwards per
+        volume, mean of the softmaxes.  Each flip variant batches all V
+        volumes' crops through one B=8V forward."""
+        x = self._input(x)[:, :, :, :155]
+        acc = None
+        for c in FLIP_COMBOS:
+            xf = torch.flip(x, c) if c else x
+            y = self.tiled_probs_batch(xf, stitch_mode)
+            y = torch.flip(y, c) if c else y
+            y = torch.softmax(y.float(), dim=-1)
+            acc = y if acc is None else acc + y
+        return acc / len(FLIP_COMBOS)
+
+    def update_params(self, state_dict) -> None:
+        """Swap checkpoints (for ensembling): load a state_dict into the
+        model in place, strictly."""
+        self.model.load_state_dict(state_dict, strict=True)
+
+
+def _cat(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``torch.cat`` along dim 0 that hands a single part back as is, so a
+    one-volume call makes no copy."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def ensemble_probs(predict_fn: Callable[[], torch.Tensor],
+                   predictor: Predictor,
+                   param_sets: Sequence,
+                   divisor: Optional[float] = None) -> torch.Tensor:
+    """Multi-checkpoint softmax ensembling: the mean of ``predict_fn()``
+    over state_dicts.  The reference divides by a hard-coded 4 whatever the
+    number of checkpoints; pass ``divisor`` to reproduce that, or None to
+    divide by the actual count."""
+    acc = None
+    for sd in param_sets:
+        predictor.update_params(sd)
+        y = predict_fn()
+        acc = y if acc is None else acc + y
+    return acc / (divisor if divisor is not None else len(param_sets))

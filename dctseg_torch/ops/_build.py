@@ -109,6 +109,10 @@ _SIGNATURES = {
     # (q, k, v, out, bh, n, n2, d, scale, dtype, stream)
     "dctseg_attention_fwd": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
                              ctypes.c_float, _int, _vp],
+    # (x, out, a, d, b, stream)
+    "dctseg_minplus_pass": [_vp, _vp, _long, _int, _long, _vp],
+    # (values, cuts, out, c, m, t, stream)
+    "dctseg_count_leq": [_vp, _vp, _vp, _int, _long, _int, _vp],
 }
 
 

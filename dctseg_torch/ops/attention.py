@@ -8,9 +8,10 @@ f32 and cast only the output to q's dtype -- the Pallas kernel's bf16
 semantics, not those of the JAX package's einsum path, which casts p to the
 input dtype before p.v (``dctseg/models/attention.py``).
 
-The kernel has no backward yet: ``_FusedAttention.backward`` raises until
-the training slice (ROADMAP A6) brings one, as the TPU kernel's custom VJP
-did.
+``_FusedAttention.backward`` raises until the training slice (ROADMAP A6).
+No backward kernel is owed: the TPU kernel's custom VJP recomputes through
+the JAX package's einsum path, so the port's backward will recompute
+through the plain path's autograd.
 """
 
 from __future__ import annotations
@@ -82,7 +83,8 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, grad):
         raise NotImplementedError(
             "the attention kernel has no backward yet; it comes with the "
-            "training slice (ROADMAP A6)")
+            "training slice (ROADMAP A6) as a recompute through the plain "
+            "path")
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

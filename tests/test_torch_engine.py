@@ -22,7 +22,7 @@ from dctseg.models.clswiseformer import build_model as jax_build_model
 
 from dctseg_torch.config import tiny_model_config
 from dctseg_torch.convert import state_dict_from_jax
-from dctseg_torch.infer.engine import Predictor
+from dctseg_torch.infer.engine import Predictor, ensemble_probs
 from dctseg_torch.models.clswiseformer import build_model
 
 FLAGS = dict(s2d_fullres=False, s2d_halfres=False)
@@ -121,3 +121,88 @@ def test_engines_reject_bad_input(engines):
         tp.tta_probs(np.concatenate([x, x]))
     with pytest.raises(ValueError, match="stitch_mode"):
         tp.tiled_probs(x, stitch_mode="overlap")
+
+
+class _Offset(torch.nn.Module):
+    """A stand-in with one weight: (B, ..., M) -> ((B, ..., M) + offset,)."""
+
+    def __init__(self, offset=0.0):
+        super().__init__()
+        self.register_buffer("offset", torch.tensor(float(offset)))
+
+    def forward(self, x):
+        return (x.float() + self.offset,)
+
+
+class _JaxOffset:
+    def apply(self, params, x, train=False):
+        return (x + params,)
+
+
+def _volumes(v, channels, seed, shape=(240, 240, 160)):
+    return np.random.default_rng(seed).normal(
+        size=(v, *shape, channels)).astype(np.float32)
+
+
+@pytest.mark.parametrize("v", [1, 3])
+def test_tta_probs_batch_matches_jax(v):
+    x = _volumes(v, 4, 4, shape=(16, 16, 16))
+    got = Predictor(_Offset(), device="cpu").tta_probs_batch(x)
+    assert got.shape == (v, 16, 16, 16, 4)
+    want = JaxPredictor(_JaxOffset(), jnp.asarray(0.0)).tta_probs_batch(
+        jnp.asarray(x))
+    # both average softmaxes; torch's and XLA's exp round differently
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    per_volume = Predictor(_Offset(), device="cpu")
+    np.testing.assert_array_equal(
+        got.numpy(), np.concatenate([per_volume.tta_probs(x[i:i + 1]).numpy()
+                                     for i in range(v)]))
+
+
+@pytest.fixture(scope="module")
+def volumes3():
+    return _volumes(3, 1, 5)
+
+
+@pytest.mark.parametrize("mode", ["reference", "aligned"])
+def test_tiled_probs_batch_bit_exact(volumes3, mode):
+    jp = JaxPredictor(_JaxOffset(), jnp.asarray(0.0))
+    tp = Predictor(_Offset(), device="cpu")
+    got = tp.tiled_probs_batch(volumes3, mode)
+    assert got.shape == (3, 240, 240, 155, 1)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jp.tiled_probs_batch(jnp.asarray(volumes3),
+                                                     mode)))
+    np.testing.assert_array_equal(
+        tp.tiled_probs_batch(volumes3[:1], mode).numpy(),
+        tp.tiled_probs(volumes3[:1], mode).numpy())
+    # microbatch splits the B=24 forward without changing the result
+    np.testing.assert_array_equal(
+        Predictor(_Offset(), device="cpu", microbatch=8).tiled_probs_batch(
+            volumes3, mode).numpy(), got.numpy())
+
+
+def test_tiled_tta_probs_batch_matches_per_volume_and_jax(volumes3):
+    x2 = volumes3[:2]
+    tp = Predictor(_Offset(), device="cpu")
+    got = tp.tiled_tta_probs(x2)
+    np.testing.assert_array_equal(
+        got.numpy(), np.concatenate([tp.tiled_tta_probs(x2[v:v + 1]).numpy()
+                                     for v in range(2)]))
+    want = JaxPredictor(_JaxOffset(), jnp.asarray(0.0)).tiled_tta_probs(
+        jnp.asarray(x2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_ensemble_probs_and_update_params():
+    x = np.ones((1, 240, 240, 160, 1), np.float32)
+    pred = Predictor(_Offset(), device="cpu")
+    sets = [{"offset": torch.tensor(0.0)}, {"offset": torch.tensor(2.0)}]
+    out = ensemble_probs(lambda: pred.tiled_probs(x, "aligned"), pred, sets)
+    np.testing.assert_array_equal(out.numpy(), 2.0)     # (1 + 3) / 2
+    out4 = ensemble_probs(lambda: pred.tiled_probs(x, "aligned"), pred, sets,
+                          divisor=4.0)
+    np.testing.assert_array_equal(out4.numpy(), 1.0)
+    assert pred.model.offset.item() == 2.0              # the last set stays
+    with pytest.raises(RuntimeError, match="Unexpected key"):
+        pred.update_params({"offset": torch.tensor(1.0), "bias": 1.0})

@@ -1,5 +1,6 @@
 """The port stands alone: no module of dctseg_torch/ and not chip_smoke.py
-imports JAX or the JAX package, and its entry points never fall back to the
+imports JAX, the JAX package, or a package the GPU machine lacks (pandas,
+imageio, ml_dtypes, nibabel), and its entry points never fall back to the
 CPU on their own."""
 
 import ast
@@ -8,12 +9,15 @@ from pathlib import Path
 import pytest
 import torch
 
+from dctseg_torch.cli import evaluate
 from dctseg_torch.config import tiny_model_config
 from dctseg_torch.infer.engine import Predictor
+from dctseg_torch.metrics import DeviceMetrics
 from dctseg_torch.models.clswiseformer import build_model
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dctseg"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dctseg", "pandas",
+             "imageio", "ml_dtypes", "nibabel"}
 PORT_FILES = sorted((ROOT / "dctseg_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -58,3 +62,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor(model, device="cuda")
     assert Predictor(model, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceMetrics()
+    assert DeviceMetrics(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main(["--random-params", "--img-dim", "32",
+                       "--base-channels", "4", "--num-samples", "1"])
