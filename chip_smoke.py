@@ -6,24 +6,36 @@ Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from dctseg_torch/csrc/ (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it: fusednorm, attention, the min-plus EDT
-     pass (torch.equal, on the EDTs of synthetic label volumes at
-     240x240x155 and 128^3, odd extents and an all-False mask) and the
-     order-statistic count and search (exact, on the pooled distances of
-     those volumes, against count_leq_plain and the binary search);
+     shapes the main paths give it: fusednorm, attention (forward, and its
+     backward against the einsum formulation's gradient), the s2d relayout
+     (torch.equal at both UNet call sites, B=1 and B=8, with its gradient),
+     the min-plus EDT pass (torch.equal, on the EDTs of synthetic label
+     volumes at 240x240x155 and 128^3, odd extents and an all-False mask)
+     and the order-statistic count and search (exact, on the pooled
+     distances of those volumes, against count_leq_plain and the binary
+     search);
   4. the main paths at full width (img_dim=128, base_channels=16, random
      seeded weights), each with the launch counters set to 0 just before
      and read just after:
        - serving: fp32 seg_probs on the 8 crops of a volume through the
-         kernels vs through the plain path, bf16 tta_probs on one 128^3
-         volume, then bf16 Predictor.tiled_probs on 3 seeded 240x240x160x4
-         volumes;
+         kernels vs through the plain path and vs the s2d path, bf16
+         tta_probs on one 128^3 volume, then bf16 Predictor.tiled_probs on 3
+         seeded 240x240x160x4 volumes, on the direct path and on the s2d
+         path;
        - evaluation: DeviceMetrics on the card against the host scipy
          metrics (exact) on 2 synthetic 128^3 label pairs in both HD95
          modes, then the evaluate CLI (dctseg_torch.cli.evaluate:
          BraTSDataset, PrefetchLoader, validate_softmax with
          strategy='tiling' and hd95 'reference', DeviceMetrics) over 2
          synthetic 240x240x155 volumes in bf16;
+       - training: the train CLI (dctseg_torch.cli.train: bf16, B=1, s2d
+         at both resolutions, synthetic data) for 6 steps at full width,
+         with remat off (checked: finite loss, changed parameters, the
+         relayout kernel's launches, a checkpoint that loads strictly),
+         then with remat 'full' and on the direct path, for step time and
+         peak memory, then once more on each of the s2d and direct paths
+         with the last steps under torch.profiler, for the card's busy time
+         per step and the ops that take it;
   5. time the engines, each kernel, its plain version and a PyTorch library
      call that computes the same function (CUDA events), and the host
      scipy HD95 of one volume (host clock);
@@ -46,7 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from dctseg_torch import metrics
-from dctseg_torch.cli import evaluate
+from dctseg_torch.cli import evaluate, train
 from dctseg_torch.config import DataConfig, ModelConfig
 from dctseg_torch.data import synthetic
 from dctseg_torch.data.brats import BraTSDataset
@@ -54,7 +66,8 @@ from dctseg_torch.infer.engine import Predictor
 from dctseg_torch.models import clswiseformer as cwf
 from dctseg_torch.ops import _build
 from dctseg_torch.ops import attention as attn
-from dctseg_torch.ops import edt, fusednorm, minplus, orderstats
+from dctseg_torch.ops import edt, fusednorm, minplus, orderstats, relayout
+from dctseg_torch.train.trainer import Trainer
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
@@ -77,6 +90,23 @@ ATTN_SHAPE = (8, 8, 129, 64)     # B, heads, top_num + 1, head dim
 ATTN_CALLS = 13                  # 3 couplers x 4 + the fusion coupler
 VOLUME = (1, 240, 240, 160, 4)
 N_VOLUMES = 3
+# the relayout kernel's two UNet call sites at full width, (shape, in, out),
+# as the training step (B=1, bf16 wire) and the serving engine (B=8, f32
+# volumes) give them
+RELAYOUT_CALLS = {
+    "train": {"input_b1": ((1, 128, 128, 128, 4), torch.bfloat16,
+                           torch.bfloat16),
+              "half_res_b1": ((1, 64, 64, 64, 32), torch.bfloat16,
+                              torch.bfloat16)},
+    "serve": {"input_b8": ((8, 128, 128, 128, 4), torch.float32,
+                           torch.bfloat16),
+              "half_res_b8": ((8, 64, 64, 64, 32), torch.bfloat16,
+                              torch.bfloat16)}}
+RELAYOUT_PER_FORWARD = 2         # both sites, s2d at both resolutions
+TRAIN_SAMPLES = 2
+TRAIN_EPOCHS = 3                 # 6 steps of B=1
+TRAIN_SHAPE = ("144", "144", "128")
+PROFILED_STEPS = 2               # the last steps of a profiled training run
 
 
 def log(**kw):
@@ -193,6 +223,75 @@ def check_attention(dev, shape=ATTN_SHAPE):
                 raise AssertionError(f"attention kernel disagrees: {shp} {dt}")
     torch.cuda.synchronize()
     return worst_bf16
+
+
+def check_attention_backward(dev, shape=ATTN_SHAPE):
+    """K2's backward: the gradient through the kernel (whose backward
+    recomputes through the einsum formulation) vs the einsum formulation's
+    own autograd gradient, f32 within 1e-5 (TF32 off) and bf16 within
+    1e-2."""
+    g = gen(dev, SEED + 8)
+    scale = shape[-1] ** -0.5
+    for dt, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        q, k, v, go = (torch.randn(shape, device=dev, generator=g).to(dt)
+                       for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = attn.fused_attention.launches
+        attn.fused_attention(*leaves, scale).backward(go)
+        launched = attn.fused_attention.launches - before
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        attn.einsum_attention(*ref, scale).backward(go)
+        err = max((a.grad.float() - b.grad.float()).abs().max().item()
+                  for a, b in zip(leaves, ref))
+        ok = launched == 1 and err <= atol and all(
+            bool(torch.isfinite(t.grad).all()) for t in leaves)
+        log(check="attention_backward", shape=list(shape), dtype=str(dt),
+            max_abs_err=err, tol=f"atol {atol}", ok=ok)
+        if not ok:
+            raise AssertionError(f"attention backward disagrees: {dt}")
+    torch.cuda.synchronize()
+
+
+def check_relayout(dev):
+    """K3 vs its plain version, torch.equal: both UNet call sites as the
+    training step and the serving engine give them (input bf16 -> bf16 at
+    B=1, f32 -> bf16 at B=8, and f32 -> f32 for the fp32 model; half-res
+    bf16 -> bf16), rows whose width is not a multiple of 16 bytes (C = 3,
+    5, 6: the narrow instantiations), and the gradient (the kernel's
+    backward vs autograd through the plain version)."""
+    g = gen(dev, SEED + 9)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(name, *call) for calls in RELAYOUT_CALLS.values()
+             for name, call in calls.items()]
+    cases += [("input_f32_b1", (1, 128, 128, 128, 4), f32, f32),
+              ("c3", (2, 6, 8, 10, 3), f32, bf16),
+              ("c5", (2, 6, 8, 10, 5), bf16, f32),
+              ("c6_f16", (1, 4, 4, 4, 6), torch.float16, bf16)]
+    for name, shape, idt, odt in cases:
+        x = torch.randn(shape, device=dev, generator=g).to(idt)
+        before = relayout.space_to_depth.launches
+        got = relayout.space_to_depth(x, odt)
+        launched = relayout.space_to_depth.launches - before
+        want = relayout.space_to_depth_plain(x, odt)
+        torch.cuda.synchronize()
+        ok = launched == 1 and got.dtype == odt and torch.equal(got, want)
+        log(check="relayout", case=name, shape=list(shape), dtype_in=str(idt),
+            dtype_out=str(odt), vec=relayout._vector_width(x, got),
+            tol="torch.equal", ok=ok)
+        if not ok:
+            raise AssertionError(f"relayout kernel disagrees: {name}")
+        del x, got, want
+    x = torch.randn((1, 16, 16, 16, 4), device=dev, generator=g,
+                    requires_grad=True)
+    ct = torch.randn((1, 8, 8, 8, 32), device=dev, generator=g)
+    (relayout.space_to_depth(x, bf16).float() * ct).sum().backward()
+    got, x.grad = x.grad, None
+    (relayout.space_to_depth_plain(x, bf16).float() * ct).sum().backward()
+    ok = torch.equal(got, x.grad)
+    log(check="relayout_gradient", tol="torch.equal", ok=ok)
+    if not ok:
+        raise AssertionError("relayout gradient disagrees")
+    return 0.0
 
 
 @contextlib.contextmanager
@@ -316,41 +415,55 @@ def record_topk(store):
 
 
 def check_fp32_paths(dev, cfg_kw, weights):
-    """seg_probs on the 8 crops of one volume (the main path's B=8 batch)
-    through the kernels vs through the plain path (fused_norms and the
-    attention kernel off), fp32 with TF32 off: probs within 1e-3 and the
-    same top-k token sets in every routing."""
+    """seg_probs on the 8 crops of one volume (the main path's B=8 batch),
+    fp32 with TF32 off: through the kernels vs through the plain path
+    (fused_norms and the attention kernel off), and on the s2d path
+    (kernels on) vs the direct path; probs within 1e-3 and the same top-k
+    token sets in every routing.  The s2d forward launches the relayout
+    kernel twice and the norm kernel 64 times."""
     vol = torch.randn(VOLUME, device=dev, generator=gen(dev, SEED + 2))
     x = Predictor.crops(vol)
     del vol
     results = {}
-    for name, flags in (("kernels", dict(fused_norms=True,
-                                         use_pallas_attention=True)),
+    kernels = dict(fused_norms=True, use_pallas_attention=True)
+    for name, flags in (("kernels", kernels),
                         ("plain", dict(fused_norms=False,
-                                       use_pallas_attention=False))):
+                                       use_pallas_attention=False)),
+                        ("s2d", dict(kernels, s2d_fullres=True,
+                                     s2d_halfres=True))):
         cfg = ModelConfig(compute_dtype="float32", **cfg_kw, **flags)
         model = cwf.build_model(cfg, device=dev)
         model.load_state_dict(weights, strict=True)
         idx = []
         orig = record_topk(idx)
+        relayout.space_to_depth.launches = 0
+        fusednorm.fused_instance_norm_act.launches = 0
         try:
             probs = Predictor(model, device=dev).seg_probs(x)
         finally:
             cwf.topk_select = orig
-        results[name] = (probs, idx)
+        results[name] = (probs, idx, relayout.space_to_depth.launches,
+                         fusednorm.fused_instance_norm_act.launches)
         del model
-    (pk, ik), (pp, ip) = results["kernels"], results["plain"]
-    err = (pk - pp).abs().max().item()
-    same_sets = all(torch.equal(a.sort(dim=1).values, b.sort(dim=1).values)
-                    for a, b in zip(ik, ip)) and len(ik) == len(ip) == 13
-    same_order = all(torch.equal(a, b) for a, b in zip(ik, ip))
-    ok = err <= 1e-3 and same_sets and bool(torch.isfinite(pk).all())
-    log(check="fp32_seg_probs_kernels_vs_plain", batch=x.shape[0],
-        max_abs_err=err,
-        tol="atol 1e-3", same_topk_sets=same_sets,
-        same_topk_order=same_order, ok=ok)
-    if not ok:
-        raise AssertionError("fp32 kernel path disagrees with plain path")
+    for a, b in (("kernels", "plain"), ("s2d", "kernels")):
+        (pa, ia, k3a, k1a), (pb, ib, _, _) = results[a], results[b]
+        err = (pa - pb).abs().max().item()
+        differing = [i for i, (u, v) in enumerate(zip(ia, ib))
+                     if not torch.equal(u.sort(dim=1).values,
+                                        v.sort(dim=1).values)]
+        same_sets = not differing and len(ia) == len(ib) == 13
+        same_order = all(torch.equal(u, v) for u, v in zip(ia, ib))
+        launches = {"relayout": k3a, "fusednorm": k1a}
+        expected = {"relayout": RELAYOUT_PER_FORWARD if a == "s2d" else 0,
+                    "fusednorm": 64}
+        ok = (err <= 1e-3 and same_sets and launches == expected
+              and bool(torch.isfinite(pa).all()))
+        log(check=f"fp32_seg_probs_{a}_vs_{b}", batch=x.shape[0],
+            max_abs_err=err, tol="atol 1e-3", same_topk_sets=same_sets,
+            differing_routings=differing, same_topk_order=same_order,
+            launches=launches, expected_launches=expected, ok=ok)
+        if not ok:
+            raise AssertionError(f"fp32 {a} path disagrees with {b} path")
 
 
 def check_tta(predictor, x):
@@ -410,6 +523,7 @@ def check_device_metrics(dev, pairs):
 
 KERNEL_COUNTERS = {"fusednorm": fusednorm.fused_instance_norm_act,
                    "attention": attn.fused_attention,
+                   "relayout": relayout.space_to_depth,
                    "minplus": minplus.minplus_pass,
                    "orderstats": orderstats.count_leq}
 
@@ -430,6 +544,7 @@ def run_eval_path():
     launches = {k: fn.launches for k, fn in KERNEL_COUNTERS.items()}
     expected = {"fusednorm": 64 * EVAL_VOLUMES,
                 "attention": 13 * EVAL_VOLUMES,
+                "relayout": 0,
                 "minplus": EDT_LAUNCHES * EVAL_VOLUMES,
                 "orderstats": SEARCH_LAUNCHES * EVAL_VOLUMES}
     finite = all(math.isfinite(v) for v in res.values())
@@ -446,7 +561,144 @@ def run_eval_path():
     return res, launches
 
 
+def device_busy_ms(prof) -> float:
+    """The card's busy time in a profile: the union of the intervals of its
+    kernels, copies and fills, in ms (overlapping streams count once)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
+
+
+def top_device_ops(prof, n=8):
+    """The aten ops whose own kernels take the most device time, ms."""
+    rows = sorted((r for r in prof.key_averages()
+                   if r.key.startswith("aten::")),
+                  key=lambda r: -r.self_device_time_total)[:n]
+    return {r.key: r.self_device_time_total / 1e3 for r in rows}
+
+
+def run_train_path(dev, extra, check, profile=False):
+    """The train CLI at full width: bf16, B=1, synthetic data, TRAIN_SAMPLES
+    volumes of TRAIN_SHAPE for TRAIN_EPOCHS epochs, with ``extra`` flags.
+    Each step is timed on the host clock up to a synchronise.  With
+    ``check``: the loss is finite, the parameters moved from their seeded
+    start, the relayout kernel ran twice per step (and the inference-only
+    kernels not at all), and the final checkpoint loads strictly into a
+    fresh model and equals the trained parameters.  With ``profile``: the
+    last PROFILED_STEPS steps run under torch.profiler (their host times
+    are left out of the steady step time), for the card's busy ms per step
+    and the ops that take it."""
+    times, busy, ops = [], [], {}
+    orig = Trainer.train_step
+    n_steps = TRAIN_SAMPLES * TRAIN_EPOCHS
+
+    def timed(self, *a):
+        prof = None
+        if profile and len(times) >= n_steps - PROFILED_STEPS:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+        t0 = time.perf_counter()
+        with prof or contextlib.nullcontext():
+            out = orig(self, *a)
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if prof is not None:
+            busy.append(device_busy_ms(prof))
+            for k, v in top_device_ops(prof).items():
+                ops[k] = ops.get(k, 0.0) + v / PROFILED_STEPS
+        return out
+    for fn in KERNEL_COUNTERS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    Trainer.train_step = timed
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            tr, last = train.main([
+                "--amp", "--num-samples", str(TRAIN_SAMPLES),
+                "--input-shape", *TRAIN_SHAPE,
+                "--end-epoch", str(TRAIN_EPOCHS), "--save-freq", "1000",
+                "--num-workers", "2", "--checkpoint-dir", f"{d}/ckpt",
+                "--log-dir", f"{d}/logs", *extra])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: fn.launches for k, fn in KERNEL_COUNTERS.items()}
+            steps = tr.step
+            ok = bool(math.isfinite(last["loss"]))
+            if check:
+                start = cwf.ClsWiseFormer(
+                    tr.cfg.model, torch.Generator().manual_seed(
+                        tr.cfg.train.seed)).state_dict()
+                trained = {k: v.cpu() for k, v in
+                           tr.model.state_dict().items()}
+                moved = sum(not torch.equal(start[k], trained[k])
+                            for k in start)
+                fresh = cwf.build_model(tr.cfg.model, device=dev)
+                fresh.load_state_dict(tr.ckpt.restore_params(TRAIN_EPOCHS),
+                                      strict=True)
+                reloaded = all(torch.equal(v.cpu(), trained[k]) for k, v in
+                               fresh.state_dict().items())
+                expected = {k: 0 for k in KERNEL_COUNTERS}
+                expected["relayout"] = RELAYOUT_PER_FORWARD * steps
+                finite = all(bool(torch.isfinite(v).all())
+                             for v in trained.values())
+                ok = (ok and moved > 0 and finite and reloaded
+                      and launches == expected
+                      and steps == TRAIN_SAMPLES * TRAIN_EPOCHS)
+                del fresh
+    finally:
+        Trainer.train_step = orig
+    steady = sorted(times[2:n_steps - PROFILED_STEPS if profile else None])
+    row = dict(flags=extra, dtype="bfloat16", batch=1, steps=steps,
+               step_ms=times, steady_step_ms=steady[len(steady) // 2],
+               peak_memory_bytes=peak, wall_s=wall, loss=last["loss"],
+               launches=launches, ok=ok)
+    if check:
+        row.update(tensors_moved=moved, checkpoint_reloaded=reloaded,
+                   expected_launches=expected)
+    if profile:
+        row.update(profiled_device_busy_ms=busy, top_device_ops_ms=ops)
+    log(phase="train_path", entry="dctseg_torch.cli.train", **row)
+    if not ok:
+        raise AssertionError(f"train path failed: {row}")
+    del tr
+    return row
+
+
 # ---------------------------------------------------------------- phase 5
+
+def time_relayout(dev, iters=20):
+    """K3 at each call of RELAYOUT_CALLS: kernel, plain version (CUDA
+    events) and the bytes bound (input read once, output written once).
+    Returns {use: {key: sum over the use's two sites}}."""
+    g = gen(dev, SEED + 10)
+    sums = {}
+    for use, calls in RELAYOUT_CALLS.items():
+        total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for name, (shape, idt, odt) in calls.items():
+            x = torch.randn(shape, device=dev, generator=g).to(idt)
+            row = dict(
+                ms=time_ms(lambda: relayout.space_to_depth(x, odt), iters),
+                plain_ms=time_ms(
+                    lambda: relayout.space_to_depth_plain(x, odt), iters),
+                bound_ms=x.numel() * (x.element_size()
+                                      + torch.finfo(odt).bits // 8)
+                / HBM_BYTES_PER_S * 1e3)
+            log(timing="relayout", use=use, site=name, shape=list(shape),
+                dtype_in=str(idt), dtype_out=str(odt), **row)
+            total = {k: total[k] + row[k] for k in total}
+            del x
+        sums[use] = total
+    return sums
+
 
 def time_fusednorm(dev, widths, batch=8, iters=10):
     """Per-width ms of the kernel, its plain version and the library's
@@ -591,6 +843,8 @@ def main() -> int:
     # ---- 3. kernels vs plain versions
     norm_err = check_fusednorm(dev, NORM_WIDTHS)
     attn_err = check_attention(dev)
+    check_attention_backward(dev)
+    relayout_err = check_relayout(dev)
     t0 = time.perf_counter()
     valid_ds = BraTSDataset(mode="valid",
                             cfg=DataConfig(synthetic_num_samples=4))
@@ -627,23 +881,35 @@ def main() -> int:
                                      generator=g))
     volumes = [torch.randn(VOLUME, device=dev, generator=g)
                for _ in range(N_VOLUMES)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fusednorm.fused_instance_norm_act.launches = 0
-    attn.fused_attention.launches = 0
-    t0 = time.perf_counter()
-    vol_ms = run_main_path(predictor, volumes)
-    wall = time.perf_counter() - t0
-    launches = {"fusednorm": fusednorm.fused_instance_norm_act.launches,
-                "attention": attn.fused_attention.launches}
-    peak = torch.cuda.max_memory_allocated()
-    log(phase="main_path", engine="tiled_probs", dtype="bfloat16",
-        volumes=N_VOLUMES, per_volume_ms=vol_ms, wall_s=wall,
-        launches=launches, peak_memory_bytes=peak)
-    expected = {"fusednorm": 64 * N_VOLUMES, "attention": 13 * N_VOLUMES}
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches}, expected {expected}")
-    del volumes, predictor, model
+    serving = {}
+    for name, s2d_on in (("direct", False), ("s2d", True)):
+        if s2d_on:
+            model = cwf.build_model(ModelConfig(**cfg_kw, s2d_fullres=True,
+                                                s2d_halfres=True), device=dev)
+            model.load_state_dict(weights, strict=True)
+            predictor = Predictor(model, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in KERNEL_COUNTERS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        vol_ms = run_main_path(predictor, volumes)
+        wall = time.perf_counter() - t0
+        launches = {k: KERNEL_COUNTERS[k].launches
+                    for k in ("fusednorm", "attention", "relayout")}
+        peak = torch.cuda.max_memory_allocated()
+        log(phase="main_path", engine="tiled_probs", path=name,
+            dtype="bfloat16", volumes=N_VOLUMES, per_volume_ms=vol_ms,
+            wall_s=wall, launches=launches, peak_memory_bytes=peak)
+        expected = {"fusednorm": 64 * N_VOLUMES, "attention": 13 * N_VOLUMES,
+                    "relayout": (RELAYOUT_PER_FORWARD * N_VOLUMES if s2d_on
+                                 else 0)}
+        if launches != expected:
+            raise AssertionError(f"{name} launch counts {launches}, "
+                                 f"expected {expected}")
+        serving[name] = vol_ms
+        del predictor, model
+    del volumes
 
     # ---- 4b. evaluation path, full width
     check_device_metrics(dev, label_pairs)
@@ -653,15 +919,38 @@ def main() -> int:
     log(phase="eval_path_memory",
         peak_memory_bytes=torch.cuda.max_memory_allocated())
 
+    # ---- 4c. training path, full width: the checked run, then remat
+    # 'full' and the direct path for their step time and memory
+    train_rows = {"s2d_remat_none": run_train_path(dev, [], check=True),
+                  "s2d_remat_full": run_train_path(
+                      dev, ["--remat-policy", "full"], check=False),
+                  "direct_remat_none": run_train_path(dev, ["--no-s2d"],
+                                                      check=False)}
+    log(timing="train_step", unit="ms per B=1 bf16 step (median of steps "
+        "3-6)", **{k: r["steady_step_ms"] for k, r in train_rows.items()},
+        peak_memory_bytes={k: r["peak_memory_bytes"]
+                           for k, r in train_rows.items()})
+    # the card's busy time per step, against the unprofiled steady step
+    for name, extra in (("s2d_remat_none", []),
+                        ("direct_remat_none", ["--no-s2d"])):
+        busy = run_train_path(dev, extra, check=False,
+                              profile=True)["profiled_device_busy_ms"]
+        step = train_rows[name]["steady_step_ms"]
+        log(timing="train_step_device", path=name, steady_step_ms=step,
+            device_busy_ms=sum(busy) / len(busy),
+            idle_share=1 - sum(busy) / len(busy) / step)
+
     # ---- 5. timing
-    steady = vol_ms[1:]
-    log(timing="tiled_probs", dtype="bfloat16",
-        first_volume_ms=vol_ms[0],
-        steady_volume_ms=sum(steady) / len(steady))
+    for name, vol_ms in serving.items():
+        steady = vol_ms[1:]
+        log(timing="tiled_probs", path=name, dtype="bfloat16",
+            first_volume_ms=vol_ms[0],
+            steady_volume_ms=sum(steady) / len(steady))
     log(timing="validate_softmax", strategy="tiling", hd95="reference",
         dtype="bfloat16", sec_per_volume=eval_res["sec_per_volume"])
     norm_rows = time_fusednorm(dev, NORM_WIDTHS)
     attn_row = time_attention(dev)
+    relayout_rows = time_relayout(dev)
     met = time_metrics(dev, full_pred, full_tgt)
 
     def per_forward(key):
@@ -696,6 +985,14 @@ def main() -> int:
                        >= attn_row["flops_bound_ms"] else "operations"),
              library_ms=ATTN_CALLS * attn_row["library_ms"],
              unit="per B=8 bf16 forward (13 calls)"),
+        dict(name="relayout", route="cuda",
+             source="dctseg_torch/csrc/relayout.cu",
+             replaces="dctseg/ops/pallas/relayout.py:89",
+             launches=train_rows["s2d_remat_none"]["launches"]["relayout"],
+             max_abs_err=relayout_err,
+             **relayout_rows["train"], bound_by="bytes", library_ms=None,
+             serve_b8=relayout_rows["serve"],
+             unit="per B=1 bf16 train step (both sites, 2 launches)"),
         dict(name="minplus", route="cuda",
              source="dctseg_torch/csrc/minplus.cu",
              replaces="dctseg/ops/pallas/minplus.py:80",

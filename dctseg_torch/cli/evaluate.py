@@ -7,11 +7,14 @@ Strategies:
   single      single patch, no TTA
   tiling      8-crop sliding window over 240x240x155
   tiling_tta  tiling + flip TTA over tilings
+  sweep       flip TTA for every checkpoint of --checkpoint-dir, one row of
+              mean dice per checkpoint in <output-dir>/save_pth.csv
 
 With no --root it evaluates synthetic volumes (dataset-free smoke).  It runs
 on the GPU unless given ``--device cpu``, loads a reference-format ``.pth``
 with ``--checkpoint`` (random seeded weights otherwise), and prints the mean
-metrics as one JSON line at the end.
+metrics as one JSON line at the end (per epoch for the sweep).
+``--multimodel`` ensembles the newest 4 checkpoints of --checkpoint-dir.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", default="",
                    help="reference-format .pth to load (strict); random "
                         "seeded weights when empty")
+    p.add_argument("--checkpoint-dir", default="checkpoints",
+                   help="the train driver's checkpoints (model_epoch_*.pth) "
+                        "for --strategy sweep and --multimodel")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain kernels")
     p.add_argument("--drop-modal", action="store_true")
@@ -80,12 +86,6 @@ def parse_args(argv=None):
 
 
 def _not_ported(a) -> str:
-    if a.strategy == "sweep":
-        return ("--strategy sweep needs the port's checkpoint directory, "
-                "which comes with the training slice (ROADMAP A6)")
-    if a.multimodel:
-        return ("--multimodel needs the port's checkpoint directory, which "
-                "comes with the training slice (ROADMAP A6)")
     if a.quantize != "none":
         return "int8 quantization is not ported yet (ROADMAP A9)"
     if a.spatial_shards > 1:
@@ -106,8 +106,13 @@ def main(argv=None) -> dict:
     from dctseg_torch.infer.engine import Predictor
     from dctseg_torch.infer.validate import validate_softmax
     from dctseg_torch.models.clswiseformer import build_model
+    from dctseg_torch.train.checkpoint import Checkpointer
+    from dctseg_torch.utils.export import export_checkpoint_sweep_csv
     from dctseg_torch.utils.logging_utils import setup_logging
 
+    if a.strategy == "sweep" and a.random_params:
+        raise ValueError("--strategy sweep evaluates the checkpoints of "
+                         "--checkpoint-dir; it takes no --random-params")
     device = resolve_device(a.device)
     log = setup_logging(os.path.join(a.output_dir, "eval.txt"))
     mcfg = ModelConfig(
@@ -146,12 +151,37 @@ def main(argv=None) -> dict:
     ds = BraTSDataset(
         list_file=(a.root and os.path.join(a.root, a.valid_file)),
         root=a.root, mode=mode, drop_modal=a.drop_modal, cfg=dcfg)
-    loader = PrefetchLoader(ds, batch_size=1, shuffle=False, num_workers=2)
+
+    def make_loader():
+        return PrefetchLoader(ds, batch_size=1, shuffle=False, num_workers=2)
 
     predictor = Predictor(model, device=device)
     log.info("sum===== %d", sum(p.numel() for p in model.parameters()))
+    ckpt = Checkpointer(a.checkpoint_dir)
+    if a.strategy == "sweep":
+        csv_path = os.path.join(a.output_dir, "save_pth.csv")
+        results = {}
+        for epoch in ckpt.all_epochs():
+            predictor.update_params(ckpt.restore_params(epoch))
+            out = validate_softmax(make_loader(), predictor, "tta",
+                                   use_hd95=not a.no_hd95, hd95_mode=a.hd95)
+            export_checkpoint_sweep_csv(csv_path, f"epoch_{epoch}",
+                                        out["wt"], out["tc"], out["et"])
+            results[epoch] = out
+            log.info("epoch %s -> WT %.4f TC %.4f ET %.4f", epoch,
+                     out["wt"], out["tc"], out["et"])
+        return results
+
+    param_sets = None
+    if a.multimodel:
+        epochs = ckpt.all_epochs()[-4:]
+        if not epochs:
+            raise FileNotFoundError(f"--multimodel: no checkpoint in "
+                                    f"{ckpt.directory}")
+        param_sets = [ckpt.restore_params(e) for e in epochs]
+        log.info("ensembling %d checkpoints: %s", len(param_sets), epochs)
     return validate_softmax(
-        loader, predictor, a.strategy,
+        make_loader(), predictor, a.strategy, param_sets=param_sets,
         savepath=os.path.join(a.output_dir, "submission"),
         use_hd95=not a.no_hd95, hd95_mode=a.hd95,
         snapshot=a.snapshot, csv_export=a.csv,

@@ -1,17 +1,17 @@
-"""ClsWiseFormer geometry, behaviour flags and data settings for the
-PyTorch port.
+"""ClsWiseFormer geometry, behaviour flags, data and training settings for
+the PyTorch port.
 
-The port keeps its own copy of the JAX package's ``ModelConfig`` (same
-field names, same derived geometry) so that it imports nothing of
-``dctseg``.  The defaults differ where the port runs another
-configuration of the same network:
+The port keeps its own copy of the JAX package's ``ModelConfig``,
+``DataConfig`` and ``TrainConfig`` (same field names, same derived geometry)
+so that it imports nothing of ``dctseg``.  The model defaults differ where
+the port serves another configuration of the same network:
 
   * ``fused_norms`` and ``use_pallas_attention`` default to True: the port's
     serving path runs the two hand-written CUDA kernels
     (``dctseg_torch/ops/fusednorm.py``, ``dctseg_torch/ops/attention.py``).
   * ``s2d_fullres`` / ``s2d_halfres`` default to False: the direct UNet
     path.  Space-to-depth is an exact weight-space transform of the same
-    function and is not ported yet.
+    function; the train driver turns it on, as the JAX driver does.
   * ``compute_dtype`` defaults to bfloat16 (serving); ``remat`` to False.
 
 A value whose code is not ported yet raises ``NotImplementedError`` naming
@@ -21,7 +21,7 @@ its ``ROADMAP.md`` item.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 
 def _derive(img_dim: int, base_channels: int) -> dict:
@@ -100,24 +100,23 @@ class ModelConfig:
             raise ValueError(f"unknown pe_type {self.pe_type!r}")
         if self.compute_dtype not in ("float32", "bfloat16", "float16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
-        if self.s2d_fullres or self.s2d_halfres:
-            raise NotImplementedError(
-                "s2d execution strategy is not ported yet (ROADMAP A10)")
+        if self.remat_policy not in ("full", "save_convs"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
+                             "expected 'full' or 'save_convs'")
+        if self.conv3_strategy not in ("dense", "fine", "auto"):
+            raise ValueError(
+                f"unknown conv3_strategy {self.conv3_strategy!r}")
         if self.quantize != "none":
             raise NotImplementedError(
                 "int8 quantization is not ported yet (ROADMAP A9)")
-        if self.remat:
-            raise NotImplementedError(
-                "remat (training) is not ported yet (ROADMAP A6)")
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     """BraTS data pipeline settings (field names and defaults as in the JAX
-    package's ``DataConfig``).  The fields that only training reads
-    (``train_file``, ``num_workers``, ``prefetch``) come with the training
-    slice."""
+    package's ``DataConfig``)."""
     root: str = ""
+    train_file: str = "train.txt"
     valid_file: str = "valid.txt"
     input_shape: Tuple[int, int, int] = (240, 240, 155)  # raw NIfTI volume
     pad_depth: int = 160            # pad 155 -> 160 before cropping
@@ -129,6 +128,8 @@ class DataConfig:
     missing_modalities: Tuple[int, ...] = ()
     augment_flip: bool = False      # random axis flips (image+target+edge)
     augment_intensity: float = 0.0  # per-channel scale/shift jitter amount
+    num_workers: int = 8            # loader threads of the training loop
+    prefetch: int = 2               # batches each loader thread runs ahead
     seed: int = 1000
     synthetic_num_samples: int = 8  # used when root == '' (synthetic data)
     # valid/full synthetic volumes come from seeds disjoint from training's
@@ -141,6 +142,46 @@ class DataConfig:
     # the host-to-device bytes and is bit-identical for bf16-compute models
     # (the model casts its input to bf16 first); "float32" for fp32 runs
     transfer_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training loop settings (field names and defaults as in the JAX
+    package's ``TrainConfig``, without its multi-device fields, ROADMAP
+    A12)."""
+    lr: float = 2e-4
+    weight_decay: float = 1e-5
+    amsgrad: bool = True
+    criterion: str = "softmax_dice"
+    start_epoch: int = 0
+    end_epoch: int = 1000
+    save_freq: int = 50
+    seed: int = 1000
+    batch_size: int = 1
+    poly_power: float = 0.9
+    # the reference's amp driver restarts the poly schedule past this epoch
+    amp_lr_restart_epoch: Optional[int] = None
+    resume: str = ""                 # checkpoint directory to resume from
+    checkpoint_dir: str = "checkpoints"
+    experiment: str = "clswiseformer_tpu"
+    log_every: int = 1
+    # batches whose host-to-device copy runs ahead on a side stream while
+    # the current step runs; 0 copies each batch when its step starts
+    device_prefetch: int = 1
+    grad_accum: int = 1   # micro-batches per optimizer step
+    # on SIGTERM/SIGINT finish the in-flight step, save a full checkpoint
+    # (params, optimizer state, step) and return
+    preempt_save: bool = True
+    # resume restores the optimizer state and epoch too; the default is the
+    # reference's params-only resume
+    restore_opt: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 def tiny_model_config(**overrides: Any) -> ModelConfig:

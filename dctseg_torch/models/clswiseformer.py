@@ -1,5 +1,6 @@
 """ClsWiseFormer: the decouple-and-couple 3D segmentation network (the JAX
-package's ``dctseg/models/clswiseformer.py``), eval forward.
+package's ``dctseg/models/clswiseformer.py``): the eval forward and, with
+``train=True``, the training forward with dropout.
 
 Dataflow:
   UNet encoder -> skips + bottleneck
@@ -14,7 +15,8 @@ Dataflow:
   sum_fusion conv -> decoder -> softmax seg probs
 
 Activations are NDHWC, as in the JAX package.  Submodule and parameter names
-are the reference's 222 state_dict keys (``dctseg_torch/convert.py``).
+are the reference's 222 state_dict keys (``dctseg_torch/convert.py``), for
+every combination of the s2d flags.
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ from dctseg_torch.config import ModelConfig
 from dctseg_torch.device import resolve_device
 from dctseg_torch.models.attention import (FusionClsWiseTransformer,
                                            TwoClsWiseTransformer)
-from dctseg_torch.models.layers import Conv3d, InstanceNormAct
+from dctseg_torch.models.layers import (NO_DROPOUT, Conv3d, Dropout,
+                                        InstanceNormAct)
 from dctseg_torch.models.positional import PositionalEncoding
 from dctseg_torch.models.supervise import REGIONS, SuperviseHead
-from dctseg_torch.models.unet import Decoder, UnetEncoder
+from dctseg_torch.models.unet import Decoder, S2DConv3d, UnetEncoder
 from dctseg_torch.ops.patchify import patchify, unpatchify
 from dctseg_torch.ops.routing import scatter_update, topk_select
 
@@ -45,11 +48,17 @@ class ClsWiseFormer(nn.Module):
         b0, eps, gen = cfg.base_channels, cfg.norm_eps, generator
         p = g["token_dim"]
 
+        remat = cfg.remat_policy if cfg.remat else None
+        unet_kw = dict(conv3=cfg.conv3_strategy, remat=remat)
         self.Unet_list = UnetEncoder(cfg.in_channels, b0, dt, eps,
-                                     cfg.fused_norms, gen)
-        # edge decouple
-        self.conv_64_to_32 = Conv3d(2 * b0, 2 * b0, stride=2, dtype=dt,
-                                    generator=gen)
+                                     cfg.fused_norms, gen, cfg.s2d_fullres,
+                                     cfg.s2d_halfres,
+                                     init_dropout=cfg.init_conv_dropout,
+                                     **unet_kw)
+        # edge decouple; with s2d_halfres the half-res skip arrives in the
+        # s2d view, and the stride-2 conv runs there (same parameters)
+        self.conv_64_to_32 = (S2DConv3d if cfg.s2d_halfres else Conv3d)(
+            2 * b0, 2 * b0, stride=2, dtype=dt, generator=gen)
         for r in REGIONS:
             i = r[1]
             self.add_module(f"conv_mid_fea_{i}", Conv3d(
@@ -68,10 +77,12 @@ class ClsWiseFormer(nn.Module):
             self.add_module(f"label_{r}_position_encoding",
                             PositionalEncoding(cfg.pe_type, p))
             self.add_module(f"transformer_{r}", TwoClsWiseTransformer(
-                p, cfg.num_heads, dt, cfg.use_pallas_attention, gen))
+                p, cfg.num_heads, dt, cfg.use_pallas_attention, gen,
+                cfg.dropout_rate, cfg.attn_dropout_rate))
         self.fusion_label_pos = PositionalEncoding(cfg.pe_type, p)
         self.fusion_transformer_1_2_4 = FusionClsWiseTransformer(
-            p, cfg.num_heads, dt, cfg.use_pallas_attention, gen)
+            p, cfg.num_heads, dt, cfg.use_pallas_attention, gen,
+            cfg.dropout_rate, cfg.attn_dropout_rate)
 
         sem, edge = g["sem_ch"], g["edge_ch"]
         self.supervise_label = SuperviseHead(sem, 32, 8, False, dt, gen)
@@ -82,33 +93,36 @@ class ClsWiseFormer(nn.Module):
         self.sum_fusion = Conv3d(sem, g["bottleneck_ch"], dtype=dt,
                                  generator=gen)
         self.decoder = Decoder(g["bottleneck_ch"], cfg.num_classes, b0, dt,
-                               eps, cfg.fused_norms, gen)
+                               eps, cfg.fused_norms, gen, cfg.s2d_fullres,
+                               cfg.s2d_halfres, **unet_kw)
 
-    def _route(self, tokens, query, class_token, pe):
-        """One routing: top-k select against ``query``, PE, prepend
+    def _route(self, tokens, query, class_token, pe, drop):
+        """One routing: top-k select against ``query``, PE, dropout, prepend
         ``class_token``."""
         selected, idx = topk_select(tokens, query, self.cfg.top_num)
-        selected = pe(selected)
+        selected = drop(pe(selected), self.cfg.dropout_rate)
         ct = class_token.to(selected.dtype).expand(tokens.shape[0], 1, -1)
         return torch.cat([ct, selected], dim=1), idx
 
-    def forward(self, x: torch.Tensor, train: bool = False
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None
                 ) -> Tuple[torch.Tensor, Dict, Dict, Dict, Dict]:
         """x (B, D, H, W, in_channels) -> the reference's 5-tuple: softmax
         seg probs (B, D, H, W, num_classes) and four {'01','02','04'} dicts
         of 2-class prob maps (final semantic, final edge, mid semantic, mid
-        edge), all NDHWC, f32."""
-        if train:
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP A6)")
+        edge), all NDHWC, f32.  ``train`` turns dropout on, with masks drawn
+        from ``generator`` (on x's device)."""
         cfg, g, k = self.cfg, self.geom, self.cfg.top_num
         d = cfg.img_dim
         if tuple(x.shape[1:]) != (d, d, d, cfg.in_channels):
             raise ValueError(
                 f"ClsWiseFormer(img_dim={d}) expects input (B, {d}, {d}, "
                 f"{d}, {cfg.in_channels}); got {tuple(x.shape)}")
-        x = x.to(self.dtype)
-        x1_1, x2_1, x3_1, bottleneck = self.Unet_list(x)
+        drop = Dropout(generator) if train else NO_DROPOUT
+        if not cfg.s2d_fullres:
+            # on the s2d path the relayout kernel does the cast
+            x = x.to(self.dtype)
+        x1_1, x2_1, x3_1, bottleneck = self.Unet_list(x, drop)
 
         # ---- decouple ----
         x_2_3 = torch.cat([self.conv_64_to_32(x2_1), x3_1], dim=-1)
@@ -129,13 +143,14 @@ class ClsWiseFormer(nn.Module):
             s_tok = getattr(self, f"s_token_{r}")
             pe = getattr(self, f"label_{r}_position_encoding")
 
-            edge_seq, idx_edge = self._route(edge_tokens, e_tok, e_tok, pe)
-            se_supple, _ = self._route(sem_tokens, e_tok, s_tok, pe)
-            sem_seq, idx_sem = self._route(sem_tokens, s_tok, s_tok, pe)
-            edge_supple, _ = self._route(edge_tokens, s_tok, e_tok, pe)
+            edge_seq, idx_edge = self._route(edge_tokens, e_tok, e_tok, pe,
+                                             drop)
+            se_supple, _ = self._route(sem_tokens, e_tok, s_tok, pe, drop)
+            sem_seq, idx_sem = self._route(sem_tokens, s_tok, s_tok, pe, drop)
+            edge_supple, _ = self._route(edge_tokens, s_tok, e_tok, pe, drop)
 
             result = getattr(self, f"transformer_{r}")(
-                edge_seq, se_supple, sem_seq, edge_supple)
+                edge_seq, se_supple, sem_seq, edge_supple, drop)
             # result (B, 2(k+1), P): edge stream, then semantic stream
             edge_grid = scatter_update(edge_tokens, idx_edge,
                                        result[:, 1:k + 1])
@@ -159,9 +174,9 @@ class ClsWiseFormer(nn.Module):
         fusion_token = sum(sem_class_tokens[r] for r in REGIONS)
         fusion_feature = sum(sem_grids[r] for r in REGIONS)
         selected, fusion_idx = topk_select(fusion_feature, fusion_token, k)
-        selected = self.fusion_label_pos(selected)
+        selected = drop(self.fusion_label_pos(selected), cfg.dropout_rate)
         result = self.fusion_transformer_1_2_4(
-            torch.cat([fusion_token, selected], dim=1))
+            torch.cat([fusion_token, selected], dim=1), drop)
         fused = scatter_update(fusion_feature, fusion_idx, result[:, 1:k + 1])
         fused = result[:, 0:1] * fused
         enc = unpatchify(fused, g["sem_ch"], (g["sem_size"],) * 3,

@@ -37,6 +37,31 @@ def ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1)
 
 
+class Dropout:
+    """Dropout with flax's ``nn.Dropout`` semantics: keep each element (or
+    each slice, where ``mask_shape`` broadcasts) with probability 1 - rate
+    and scale what it keeps by 1 / (1 - rate).  Masks are drawn from
+    ``generator`` (``torch.rand(..) < keep``), so one generator seed gives
+    one sequence of masks.  ``active=False`` is the eval forward: identity.
+    """
+
+    def __init__(self, generator: torch.Generator | None = None,
+                 active: bool = True):
+        self.generator, self.active = generator, active
+
+    def __call__(self, x: torch.Tensor, rate: float,
+                 mask_shape=None) -> torch.Tensor:
+        if not self.active or rate == 0.0:
+            return x
+        keep = 1.0 - rate
+        mask = torch.rand(tuple(mask_shape or x.shape), device=x.device,
+                          generator=self.generator) < keep
+        return torch.where(mask, x / keep, x.new_zeros(()))
+
+
+NO_DROPOUT = Dropout(active=False)
+
+
 class Conv3d(nn.Module):
     """3D convolution on NDHWC with torch-style explicit padding."""
 

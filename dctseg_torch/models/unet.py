@@ -1,5 +1,6 @@
-"""3D UNet encoder and decoder of ClsWiseFormer, direct path (the JAX
-package's ``dctseg/models/unet.py`` with ``s2d=False``, ``s2d_half=False``).
+"""3D UNet encoder and decoder of ClsWiseFormer (the JAX package's
+``dctseg/models/unet.py``), on the direct path and on the space-to-depth
+(s2d) view.
 
 Encoder (reference ``Unet``): InitConv, [EnBlock x2 -> stride-2 EnDown] x3,
 EnBlock x2 -> stride-1 widening conv.  Decoder (reference ``Decoder``):
@@ -7,103 +8,211 @@ EnBlock x2 -> stride-1 widening conv.  Decoder (reference ``Decoder``):
 f32 softmax over classes.  EnBlock is pre-activation (IN -> ReLU -> conv),
 EnBlock2/DeBlock post-activation (conv -> IN -> LReLU, residual on the last
 norm).  Submodule names are the reference's, so its checkpoints load.
+
+s2d: with ``s2d`` the full-resolution stages (InitConv, EnBlock1*, EnDown1,
+DeUp2, DeBlock2*, endconv) run on the 2x2x2 space-to-depth view, with
+``s2d_half`` the half-resolution stages (EnBlock2*, EnDown2, DeUp3,
+DeBlock3*).  The parameters keep their reference shapes and names, and the
+coarse-grid kernels are exact transforms of them (``ops/s2d.py``), so one
+state_dict serves every flag combination.  Both stage inputs go through the
+relayout kernel (``ops/relayout.py``); the encoder's fuses the cast to the
+compute dtype.
+
+Remat: ``remat`` ('full' or 'save_convs') wraps every residual block in
+``torch.utils.checkpoint`` (non-reentrant) while gradients are recorded;
+'save_convs' keeps the convolutions' outputs and recomputes only the norms
+and activations.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
-from dctseg_torch.models.layers import Conv3d, ConvTranspose3d
+from dctseg_torch.models.layers import (NO_DROPOUT, Conv3d, ConvTranspose3d,
+                                        Dropout)
+from dctseg_torch.ops import relayout
+from dctseg_torch.ops import s2d as s2dops
 from dctseg_torch.ops.fusednorm import fused_instance_norm_act
 from dctseg_torch.ops.norms import instance_norm, leaky_relu
 
+_CONV_OPS = (torch.ops.aten.convolution.default,)
+
+
+def _save_convs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the conv outputs, recompute the
+    rest."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _CONV_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
 
 def _norm_act(x: torch.Tensor, eps: float, act: str, fused: bool,
+              s2d_view: bool = False,
               residual: torch.Tensor | None = None) -> torch.Tensor:
     """InstanceNorm + activation (+ residual): the fused kernel, or the
-    JAX package's plain composition (norm, cast, activation, add)."""
+    JAX package's plain composition (norm, cast, activation, add).  On the
+    s2d view the statistics are per fine channel (C / 8 of them)."""
     if fused:
+        fine = x.shape[-1] // (s2dops.B3 if s2d_view else 1)
         return fused_instance_norm_act(
-            x.contiguous(), x.shape[-1], eps, act=act,
+            x.contiguous(), fine, eps, act=act,
             residual=None if residual is None else residual.contiguous())
-    y = instance_norm(x, eps)
+    y = s2dops.instance_norm_s2d(x, eps) if s2d_view else instance_norm(x, eps)
     y = torch.relu(y) if act == "relu" else leaky_relu(y)
     return y + residual if residual is not None else y
 
 
-class _EnBlock(nn.Module):
-    """Pre-activation residual block: [IN -> ReLU -> conv3] x2 + skip."""
+class S2DConv3d(Conv3d):
+    """A Conv3d (same parameters) applied to the s2d view.
 
-    def __init__(self, channels, dtype, eps, fused_norms, generator):
+    kernel_size 3, stride 1 keeps the view (``conv3`` strategy);
+    kernel_size 1 is a block-diagonal pointwise conv, ``groups`` giving the
+    fine channel counts of concatenated s2d inputs; stride 2 lands on the
+    plain coarse grid."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, groups: tuple = (),
+                 dtype: torch.dtype = torch.float32, conv3: str = "dense",
+                 generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         dtype=dtype, generator=generator)
+        self.groups = tuple(groups) or (in_channels,)
+        self.conv3 = conv3
+
+    def forward(self, x8: torch.Tensor) -> torch.Tensor:
+        x8, w, b = x8.to(self.dtype), self.weight, self.bias
+        if w.shape[2] == 1:
+            return s2dops.conv3d_s2d(x8, s2dops.pointwise_kernel(w,
+                                                                 self.groups),
+                                     s2dops.tile_bias(b), padding=(0, 0))
+        if self.stride == 2:
+            return s2dops.conv3d_s2d(x8, s2dops.down_kernel(w), b,
+                                     padding=(1, 0))
+        return s2dops.conv3x3_s2d(x8, w, b, self.conv3)
+
+
+class S2DDeconv(ConvTranspose3d):
+    """The k=2, s=2 transpose conv emitting the s2d view directly: a 1x1
+    conv at the coarse resolution."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return s2dops.conv3d_s2d(x.to(self.dtype),
+                                 s2dops.deconv_kernel(self.weight),
+                                 s2dops.tile_bias(self.bias), padding=(0, 0))
+
+
+class _Block(nn.Module):
+    """A residual block with two 3^3 convs, direct or on the s2d view,
+    checkpointed under ``remat`` while gradients are recorded."""
+
+    def __init__(self, channels, dtype, eps, fused_norms, generator,
+                 s2d=False, conv3="dense", remat=None):
         super().__init__()
-        self.eps, self.fused = eps, fused_norms
-        self.conv1 = Conv3d(channels, channels, dtype=dtype,
-                            generator=generator)
-        self.conv2 = Conv3d(channels, channels, dtype=dtype,
-                            generator=generator)
+        self.eps, self.fused, self.s2d, self.remat = (eps, fused_norms, s2d,
+                                                      remat)
+        conv = (functools.partial(S2DConv3d, conv3=conv3) if s2d
+                else Conv3d)
+        self.conv1 = conv(channels, channels, dtype=dtype,
+                          generator=generator)
+        self.conv2 = conv(channels, channels, dtype=dtype,
+                          generator=generator)
+
+    def _norm(self, x, act, residual=None):
+        return _norm_act(x, self.eps, act, self.fused, self.s2d, residual)
 
     def forward(self, x):
-        y = _norm_act(x, self.eps, "relu", self.fused)
-        y = self.conv1(y)
-        y = _norm_act(y, self.eps, "relu", self.fused)
-        return self.conv2(y) + x
+        if self.remat is None or not torch.is_grad_enabled():
+            return self.body(x)
+        if self.remat == "save_convs":
+            return ckpt.checkpoint(
+                self.body, x, use_reentrant=False,
+                context_fn=functools.partial(
+                    ckpt.create_selective_checkpoint_contexts, _save_convs))
+        return ckpt.checkpoint(self.body, x, use_reentrant=False)
 
 
-class _EnBlock2(nn.Module):
+class _EnBlock(_Block):
+    """Pre-activation residual block: [IN -> ReLU -> conv3] x2 + skip."""
+
+    def body(self, x):
+        y = self.conv1(self._norm(x, "relu"))
+        y = self.conv2(self._norm(y, "relu"))
+        return y + x
+
+
+class _EnBlock2(_Block):
     """Post-activation residual block: [conv3 -> IN -> LeakyReLU] x2, the
     skip added after the last activation (DeBlock is identical)."""
 
-    def __init__(self, channels, dtype, eps, fused_norms, generator):
-        super().__init__()
-        self.eps, self.fused = eps, fused_norms
-        self.conv1 = Conv3d(channels, channels, dtype=dtype,
-                            generator=generator)
-        self.conv2 = Conv3d(channels, channels, dtype=dtype,
-                            generator=generator)
-
-    def forward(self, x):
-        y = _norm_act(self.conv1(x), self.eps, "lrelu", self.fused)
-        return _norm_act(self.conv2(y), self.eps, "lrelu", self.fused,
-                         residual=x)
+    def body(self, x):
+        y = self._norm(self.conv1(x), "lrelu")
+        return self._norm(self.conv2(y), "lrelu", residual=x)
 
 
-def _named_conv(**kw) -> nn.ModuleDict:
+def _named_conv(conv: nn.Module) -> nn.ModuleDict:
     """A conv under the reference's ``<block>.conv`` name."""
-    return nn.ModuleDict({"conv": Conv3d(**kw)})
+    return nn.ModuleDict({"conv": conv})
 
 
 class UnetEncoder(nn.Module):
     """Returns (x1_1, x2_1, x3_1, bottleneck) like the reference's
-    ``Unet.forward``.  InitConv's spatial dropout runs only in training and
-    is absent here."""
+    ``Unet.forward``; x1_1 in the s2d view with ``s2d``, x2_1 with
+    ``s2d_half``.  InitConv's spatial dropout (whole channels; whole fine
+    channels on the s2d view) runs only in training."""
 
     def __init__(self, in_channels, base_channels, dtype, eps, fused_norms,
-                 generator=None):
+                 generator=None, s2d=False, s2d_half=False, conv3="dense",
+                 remat=None, init_dropout=0.0):
         super().__init__()
         b0 = base_channels
+        self.dtype, self.s2d, self.s2d_half = dtype, s2d, s2d_half
+        self.init_dropout = init_dropout
 
-        def block(c):
-            return _EnBlock(c, dtype, eps, fused_norms, generator)
+        def block(c, on_s2d):
+            return _EnBlock(c, dtype, eps, fused_norms, generator, on_s2d,
+                            conv3, remat)
 
-        def conv(i, o, stride):
-            return _named_conv(in_channels=i, out_channels=o, stride=stride,
-                               dtype=dtype, generator=generator)
+        def conv(i, o, stride, on_s2d=False):
+            if on_s2d:
+                return _named_conv(S2DConv3d(i, o, stride=stride, dtype=dtype,
+                                             conv3=conv3,
+                                             generator=generator))
+            return _named_conv(Conv3d(i, o, stride=stride, dtype=dtype,
+                                      generator=generator))
 
-        self.InitConv = conv(in_channels, b0, 1)
-        self.EnBlock1, self.EnBlock1_1 = block(b0), block(b0)
-        self.EnDown1 = conv(b0, 2 * b0, 2)
-        self.EnBlock2_1, self.EnBlock2_2 = block(2 * b0), block(2 * b0)
-        self.EnDown2 = conv(2 * b0, 4 * b0, 2)
-        self.EnBlock3_1, self.EnBlock3_2 = block(4 * b0), block(4 * b0)
+        self.InitConv = conv(in_channels, b0, 1, s2d)
+        self.EnBlock1, self.EnBlock1_1 = block(b0, s2d), block(b0, s2d)
+        self.EnDown1 = conv(b0, 2 * b0, 2, s2d)
+        self.EnBlock2_1 = block(2 * b0, s2d_half)
+        self.EnBlock2_2 = block(2 * b0, s2d_half)
+        self.EnDown2 = conv(2 * b0, 4 * b0, 2, s2d_half)
+        self.EnBlock3_1, self.EnBlock3_2 = (block(4 * b0, False),
+                                            block(4 * b0, False))
         self.EnDown3 = conv(4 * b0, 8 * b0, 2)
-        self.EnBlock4_1, self.EnBlock4_2 = block(8 * b0), block(8 * b0)
+        self.EnBlock4_1, self.EnBlock4_2 = (block(8 * b0, False),
+                                            block(8 * b0, False))
         self.EnDown_4 = conv(8 * b0, 16 * b0, 1)   # stride-1 widening conv
 
-    def forward(self, x):
-        x = self.InitConv["conv"](x)
+    def forward(self, x, drop: Dropout = NO_DROPOUT):
+        if self.s2d:
+            # the relayout kernel casts to the compute dtype on the way
+            x = relayout.space_to_depth(x.contiguous(), self.dtype)
+            x = self.InitConv["conv"](x)
+            n, d, h, w, cb = x.shape
+            fine = cb // s2dops.B3
+            x = drop(x.reshape(n, d, h, w, s2dops.B3, fine),
+                     self.init_dropout,
+                     (n, 1, 1, 1, 1, fine)).reshape(n, d, h, w, cb)
+        else:
+            x = self.InitConv["conv"](x)
+            x = drop(x, self.init_dropout, (x.shape[0], 1, 1, 1, x.shape[-1]))
         x1_1 = self.EnBlock1_1(self.EnBlock1(x))
         x = self.EnDown1["conv"](x1_1)
+        if self.s2d_half:
+            x = relayout.space_to_depth(x.contiguous(), self.dtype)
         x2_1 = self.EnBlock2_2(self.EnBlock2_1(x))
         x = self.EnDown2["conv"](x2_1)
         x3_1 = self.EnBlock3_2(self.EnBlock3_1(x))
@@ -114,49 +223,89 @@ class UnetEncoder(nn.Module):
 
 class DeUpCat(nn.Module):
     """1x1 conv -> transpose-conv x2 upsample -> concat skip -> 1x1 conv.
-    The reference names the transpose conv ``conv2``."""
+    The reference names the transpose conv ``conv2``.
+
+    ``s2d``: the upsample emits the s2d view of the finer grid, the skip
+    arrives in that view, and conv3 is the block-diagonal pointwise conv of
+    the concat.  ``s2d_input``: x arrives in the s2d view of its own grid,
+    conv1 runs there as a pointwise s2d conv, then depth_to_space."""
 
     def __init__(self, in_channels, skip_channels, out_channels, dtype,
-                 generator=None):
+                 generator=None, s2d=False, s2d_input=False):
         super().__init__()
         o = out_channels
-        self.conv1 = Conv3d(in_channels, o, kernel_size=1, padding=0,
-                            dtype=dtype, generator=generator)
-        self.conv2 = ConvTranspose3d(o, o, dtype=dtype, generator=generator)
-        self.conv3 = Conv3d(skip_channels + o, o, kernel_size=1, padding=0,
-                            dtype=dtype, generator=generator)
+        self.s2d_input = s2d_input
+        if s2d_input:
+            self.conv1 = S2DConv3d(in_channels, o, kernel_size=1, dtype=dtype,
+                                   generator=generator)
+        else:
+            self.conv1 = Conv3d(in_channels, o, kernel_size=1, padding=0,
+                                dtype=dtype, generator=generator)
+        self.conv2 = (S2DDeconv if s2d else ConvTranspose3d)(
+            o, o, dtype=dtype, generator=generator)
+        if s2d:
+            self.conv3 = S2DConv3d(skip_channels + o, o, kernel_size=1,
+                                   groups=(skip_channels, o), dtype=dtype,
+                                   generator=generator)
+        else:
+            self.conv3 = Conv3d(skip_channels + o, o, kernel_size=1,
+                                padding=0, dtype=dtype, generator=generator)
 
     def forward(self, x, skip):
-        y = self.conv2(self.conv1(x))
+        y = self.conv1(x)
+        if self.s2d_input:
+            y = s2dops.depth_to_space(y)
+        y = self.conv2(y)
         return self.conv3(torch.cat([skip, y], dim=-1))
 
 
 class Decoder(nn.Module):
-    """UNet decoder with deep skips; returns f32 softmax class probs."""
+    """UNet decoder with deep skips; returns f32 softmax class probs.  With
+    ``s2d`` the softmax runs on the s2d layout (each class group holds the
+    same summands) and depth_to_space follows: bit-exact with the direct
+    tail."""
 
     def __init__(self, embedding_dim, num_classes, base_channels, dtype, eps,
-                 fused_norms, generator=None):
+                 fused_norms, generator=None, s2d=False, s2d_half=False,
+                 conv3="dense", remat=None):
         super().__init__()
         e, b0 = embedding_dim, base_channels
+        self.s2d, self.s2d_half, self.num_classes = s2d, s2d_half, num_classes
 
-        def block(c):
-            return _EnBlock2(c, dtype, eps, fused_norms, generator)
+        def block(c, on_s2d=False):
+            return _EnBlock2(c, dtype, eps, fused_norms, generator, on_s2d,
+                             conv3, remat)
 
         self.down_channel = Conv3d(e, e // 2, kernel_size=1, padding=0,
                                    dtype=dtype, generator=generator)
         self.Enblock8_1, self.Enblock8_2 = block(e // 2), block(e // 2)
         self.DeUp4 = DeUpCat(e // 2, 4 * b0, e // 4, dtype, generator)
         self.DeBlock4, self.DeBlock4_1 = block(e // 4), block(e // 4)
-        self.DeUp3 = DeUpCat(e // 4, 2 * b0, e // 8, dtype, generator)
-        self.DeBlock3, self.DeBlock3_1 = block(e // 8), block(e // 8)
-        self.DeUp2 = DeUpCat(e // 8, b0, e // 16, dtype, generator)
-        self.DeBlock2, self.DeBlock2_1 = block(e // 16), block(e // 16)
-        self.endconv = Conv3d(e // 16, num_classes, kernel_size=1, padding=0,
-                              dtype=dtype, generator=generator)
+        self.DeUp3 = DeUpCat(e // 4, 2 * b0, e // 8, dtype, generator,
+                             s2d=s2d_half)
+        self.DeBlock3 = block(e // 8, s2d_half)
+        self.DeBlock3_1 = block(e // 8, s2d_half)
+        self.DeUp2 = DeUpCat(e // 8, b0, e // 16, dtype, generator, s2d=s2d,
+                             s2d_input=s2d and s2d_half)
+        self.DeBlock2, self.DeBlock2_1 = (block(e // 16, s2d),
+                                          block(e // 16, s2d))
+        self.endconv = (
+            S2DConv3d(e // 16, num_classes, kernel_size=1, dtype=dtype,
+                      generator=generator) if s2d else
+            Conv3d(e // 16, num_classes, kernel_size=1, padding=0,
+                   dtype=dtype, generator=generator))
 
     def forward(self, x1_1, x2_1, x3_1, x):
         x8 = self.Enblock8_2(self.Enblock8_1(self.down_channel(x)))
         y4 = self.DeBlock4_1(self.DeBlock4(self.DeUp4(x8, x3_1)))
         y3 = self.DeBlock3_1(self.DeBlock3(self.DeUp3(y4, x2_1)))
+        if self.s2d_half and not self.s2d:
+            y3 = s2dops.depth_to_space(y3)   # back to the plain grid
         y2 = self.DeBlock2_1(self.DeBlock2(self.DeUp2(y3, x1_1)))
-        return torch.softmax(self.endconv(y2).float(), dim=-1)
+        y = self.endconv(y2).float()
+        if not self.s2d:
+            return torch.softmax(y, dim=-1)
+        n, d, h, w, cb = y.shape
+        y = torch.softmax(y.reshape(n, d, h, w, s2dops.B3, self.num_classes),
+                          dim=-1)
+        return s2dops.depth_to_space(y.reshape(n, d, h, w, cb))

@@ -113,6 +113,9 @@ _SIGNATURES = {
     "dctseg_minplus_pass": [_vp, _vp, _long, _int, _long, _vp],
     # (values, cuts, out, c, m, t, stream)
     "dctseg_count_leq": [_vp, _vp, _vp, _int, _long, _int, _vp],
+    # (x, out, n, d, h, w, c, in_dtype, out_dtype, vec, stream)
+    "dctseg_space_to_depth": [_vp, _vp, _int, _int, _int, _int, _int, _int,
+                              _int, _int, _vp],
 }
 
 

@@ -8,10 +8,10 @@ f32 and cast only the output to q's dtype -- the Pallas kernel's bf16
 semantics, not those of the JAX package's einsum path, which casts p to the
 input dtype before p.v (``dctseg/models/attention.py``).
 
-``_FusedAttention.backward`` raises until the training slice (ROADMAP A6).
-No backward kernel is owed: the TPU kernel's custom VJP recomputes through
-the JAX package's einsum path, so the port's backward will recompute
-through the plain path's autograd.
+The gradient is the TPU kernel's custom VJP: a recompute through that einsum
+formulation (:func:`einsum_attention`) and its autograd gradient, on either
+device.  The sequences are short (129 tokens), so the recompute costs less
+than keeping the scores.  No backward kernel is owed.
 """
 
 from __future__ import annotations
@@ -31,6 +31,24 @@ def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhnm,bhmd->bhnd", p, v.float()).to(q.dtype)
+
+
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """The JAX package's einsum formulation: f32 scores and softmax, p cast
+    to q's dtype, p.v accumulated in f32, the output cast to q's dtype."""
+    s = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhnm,bhmd->bhnd", p.float(), v.float()).to(q.dtype)
+
+
+def attention_vjp(q, k, v, scale, grad):
+    """(dq, dk, dv): the gradient of :func:`einsum_attention` at (q, k, v)
+    for the output cotangent ``grad``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = einsum_attention(*leaves, scale)
+        return torch.autograd.grad(out, leaves, grad)
 
 
 def _smem_bytes(n2: int, d: int) -> int:
@@ -77,23 +95,23 @@ def _launch(q, k, v, scale):
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return fused_attention_plain(q, k, v, scale)
         return _launch(q, k, v, scale)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the attention kernel has no backward yet; it comes with the "
-            "training slice (ROADMAP A6) as a recompute through the plain "
-            "path")
+        q, k, v = ctx.saved_tensors
+        return (*attention_vjp(q, k, v, ctx.scale, grad), None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """q: (B, H, N, D); k, v: (B, H, N2, D) -> (B, H, N, D) in q's dtype."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
     return _FusedAttention.apply(q, k, v, scale)
 

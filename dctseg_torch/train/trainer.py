@@ -1,0 +1,380 @@
+"""Training loop: the train step with gradient accumulation, train-time
+metrics, checkpoints, resume and preemption (the JAX package's
+``dctseg/train/trainer.py``), on one device.
+
+bf16 training is the model's ``compute_dtype='bfloat16'``: parameters stay
+float32 and are cast at each call, as flax's ``dtype=bf16`` does; there is
+no autocast and no GradScaler (bf16 has float32's exponent range).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import queue
+import signal
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from dctseg_torch.config import Config
+from dctseg_torch.data.brats import BraTSDataset
+from dctseg_torch.data.pipeline import PrefetchLoader
+from dctseg_torch.device import resolve_device
+from dctseg_torch.losses import CRITERIA, total_loss
+from dctseg_torch.models.clswiseformer import ClsWiseFormer, build_model
+from dctseg_torch.train.checkpoint import Checkpointer, should_save
+from dctseg_torch.train.optim import make_optimizer, make_schedule, set_lr
+from dctseg_torch.utils.logging_utils import LOGGER
+
+logger = logging.getLogger(LOGGER)
+
+_JOIN_TIMEOUT_S = 30.0
+
+
+def _dice(o: torch.Tensor, t: torch.Tensor, eps: float = 1e-8):
+    o, t = o.float(), t.float()
+    return (2 * (o * t).sum() + eps) / (o.sum() + t.sum() + eps)
+
+
+def train_metrics(comp: Dict[str, torch.Tensor], pred: torch.Tensor,
+                  target: torch.Tensor, num_classes: int
+                  ) -> Dict[str, torch.Tensor]:
+    """The loss components plus the reference's train-time checks, on the
+    device: predicted voxels per class and the WT/TC/ET Dice of the argmax
+    against the target."""
+    m = {k: v.detach() for k, v in comp.items()}
+    m["pred_counts"] = torch.stack([(pred == c).sum()
+                                    for c in range(num_classes)])
+    m["dice_wt"] = _dice(pred > 0, target > 0)
+    m["dice_tc"] = _dice((pred == 1) | (pred == 3),
+                         (target == 1) | (target == 3))
+    m["dice_et"] = _dice(pred == 3, target == 3)
+    return m
+
+
+def train_step(model: ClsWiseFormer, optimizer: torch.optim.Optimizer,
+               lr: float, x: torch.Tensor, target: torch.Tensor,
+               edge: torch.Tensor, criterion: Callable = CRITERIA[
+                   "softmax_dice"], grad_accum: int = 1,
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One optimizer step at learning rate ``lr``; returns the metrics as
+    device tensors (not waited for).
+
+    ``grad_accum`` splits the batch into micro-batches run one after the
+    other, micro-batch j taking rows r with r % grad_accum == j; their
+    gradients and loss components are averaged before the one update.
+    Labels arrive as uint8 and are widened here, on the device."""
+    ga = grad_accum
+    if x.shape[0] % ga:
+        raise ValueError(f"batch {x.shape[0]} not divisible by grad_accum "
+                         f"{ga}")
+    target, edge = target.long(), edge.long()
+    optimizer.zero_grad(set_to_none=True)
+    comps, pred = [], torch.empty(target.shape, dtype=torch.long,
+                                  device=target.device)
+    for j in range(ga):
+        outs = model(x[j::ga], train=True, generator=generator)
+        comp = total_loss(outs, target[j::ga], edge[j::ga], criterion)
+        (comp["loss"] / ga if ga > 1 else comp["loss"]).backward()
+        comps.append({k: v.detach() for k, v in comp.items()})
+        pred[j::ga] = outs[0].detach().argmax(dim=-1)
+        del outs, comp
+    set_lr(optimizer, lr)
+    optimizer.step()
+    comp = {k: sum(c[k] for c in comps) / ga for k in comps[0]}
+    return train_metrics(comp, pred, target, model.cfg.num_classes)
+
+
+class Trainer:
+    """The training driver (the reference's main_worker) on one device,
+    the GPU unless ``device`` says otherwise."""
+
+    def __init__(self, cfg: Config, dataset: Optional[BraTSDataset] = None,
+                 device=None):
+        if cfg.model.fused_norms:
+            raise ValueError(
+                "ModelConfig.fused_norms is an inference-only execution "
+                "strategy (the norm kernel has no backward); train with the "
+                "plain norms")
+        if cfg.train.batch_size % cfg.train.grad_accum:
+            raise ValueError(f"batch {cfg.train.batch_size} not divisible by "
+                             f"grad_accum {cfg.train.grad_accum}")
+        if cfg.train.criterion not in CRITERIA:
+            raise ValueError(f"unknown criterion {cfg.train.criterion!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dataset = dataset if dataset is not None else BraTSDataset(
+            list_file=(cfg.data.root
+                       and os.path.join(cfg.data.root, cfg.data.train_file)),
+            root=cfg.data.root, mode="train",
+            drop_modal=cfg.data.drop_modal, cfg=cfg.data)
+        self.loader = PrefetchLoader(
+            self.dataset, batch_size=cfg.train.batch_size, shuffle=True,
+            num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
+            seed=cfg.train.seed)
+        self.steps_per_epoch = max(1, len(self.loader))
+        self.schedule = make_schedule(cfg.train, self.steps_per_epoch)
+        self.criterion = CRITERIA[cfg.train.criterion]
+        self.ckpt = Checkpointer(cfg.train.checkpoint_dir)
+        self.model: Optional[ClsWiseFormer] = None
+        self.optimizer: Optional[torch.optim.Adam] = None
+        self.step = 0
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.train.seed)
+        self._preempt = threading.Event()
+        self.preempted = False  # set by fit() after an early exit
+
+    # ---- state init / resume ----
+
+    def init_state(self) -> None:
+        """Fresh parameters from the seed, a fresh optimizer, step 0."""
+        self.model = build_model(
+            self.cfg.model, device=self.device,
+            generator=torch.Generator().manual_seed(self.cfg.train.seed))
+        self.optimizer = make_optimizer(self.model.parameters(),
+                                        self.cfg.train)
+        self.step = 0
+
+    def resume(self, epoch: Optional[int] = None, restore_opt: bool = False,
+               from_dir: Optional[str] = None) -> int:
+        """Restore a checkpoint; returns the epoch to continue from.
+
+        By default the parameters only, as the reference does: the optimizer
+        stays fresh, but the LR schedule and the step are seeded at
+        ``start_epoch * steps_per_epoch``.  ``restore_opt`` restores the
+        optimizer state and step too, and re-runs an epoch whose save was
+        partial.  ``from_dir`` reads another directory than the one this
+        trainer saves to."""
+        if self.optimizer is None:
+            self.init_state()
+        src = self.ckpt
+        if from_dir and os.path.abspath(from_dir) != self.ckpt.directory:
+            src = Checkpointer(from_dir)
+        epoch = epoch if epoch is not None else src.latest_epoch()
+        if epoch is None:
+            logger.info("re-training!!!")
+            return self.cfg.train.start_epoch
+        if restore_opt:
+            sd, od, meta = src.restore_full(epoch)
+            self.model.load_state_dict(sd, strict=True)
+            self.optimizer.load_state_dict(od)
+            self.step = meta["step"]
+            logger.info("restored full state from epoch %s", epoch)
+            return meta["epoch"] + (0 if meta["partial"] else 1)
+        self.model.load_state_dict(src.restore_params(epoch), strict=True)
+        start = self.cfg.train.start_epoch
+        self.step = start * self.steps_per_epoch
+        logger.info("restored params from epoch %s (dir=%s), LR seeded at "
+                    "epoch %d", epoch, src.directory, start)
+        return start
+
+    def save(self, epoch: int, partial: bool = False) -> str:
+        return self.ckpt.save(epoch, self.model.state_dict(),
+                              self.optimizer.state_dict(), self.step,
+                              partial=partial)
+
+    # ---- preemption ----
+
+    def request_stop(self) -> None:
+        """Stop after the in-flight step; fit() then saves a full checkpoint
+        (parameters, optimizer state, step) and returns.  Thread- and
+        signal-safe."""
+        self._preempt.set()
+
+    @contextlib.contextmanager
+    def _signal_guard(self):
+        """Route SIGTERM/SIGINT to request_stop during fit().  The previous
+        handler comes back on the first signal (a second one kills) and on
+        exit.  Installed only from the main thread."""
+        if (not self.cfg.train.preempt_save
+                or threading.current_thread() is not threading.main_thread()):
+            yield
+            return
+        prev = {}
+
+        def handler(sig, frame):
+            self.request_stop()
+            signal.signal(sig, prev[sig])
+            logger.info("signal %s: will checkpoint and exit after the "
+                        "in-flight step (again to force-kill)", sig)
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            prev[sig] = signal.signal(sig, handler)
+        try:
+            yield
+        finally:
+            for sig, h in prev.items():
+                if signal.getsignal(sig) is handler:
+                    signal.signal(sig, h)
+
+    # ---- batches ----
+
+    def _place(self, batch, stream=None):
+        """(x, target, edge) of a loader batch on the device.  On the GPU
+        the copies run on ``stream`` from pinned memory and an event marks
+        their end."""
+        parts = (batch.x, torch.from_numpy(batch.target),
+                 torch.from_numpy(batch.edge))
+        if self.device.type != "cuda":
+            return tuple(p.to(self.device) for p in parts), None
+        with torch.cuda.stream(stream):
+            out = tuple(p.pin_memory().to(self.device, non_blocking=True)
+                        for p in parts)
+            done = torch.cuda.Event()
+            done.record()
+        return out, done
+
+    def _device_batches(self):
+        """Iterate device-resident (x, target, edge).  With
+        ``device_prefetch > 0`` a feeder thread stages the next batches'
+        host-to-device copies on a side stream while the current step runs;
+        the queue bounds them to ``device_prefetch`` batches ahead."""
+        depth = self.cfg.train.device_prefetch
+        if depth <= 0:
+            for batch in self.loader:
+                yield self._place(batch, torch.cuda.current_stream()
+                                  if self.device.type == "cuda" else None)[0]
+            return
+        side = (torch.cuda.Stream(device=self.device)
+                if self.device.type == "cuda" else None)
+        # the feeder thread copies on this device (the current one where
+        # the device carries no index)
+        index = (None if side is None else self.device.index
+                 if self.device.index is not None
+                 else torch.cuda.current_device())
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        end = object()
+        stop = threading.Event()   # the consumer has gone
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def feeder():
+            try:
+                if side is not None:
+                    torch.cuda.set_device(index)
+                for batch in self.loader:
+                    if not put(self._place(batch, side)):
+                        return
+                put(end)
+            except BaseException as e:  # re-raised in the train loop
+                put(e)
+
+        t = threading.Thread(target=feeder, daemon=True,
+                             name="dctseg-batch-feeder")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                tensors, done = item
+                if done is not None:
+                    cur = torch.cuda.current_stream()
+                    cur.wait_event(done)
+                    for a in tensors:
+                        a.record_stream(cur)
+                yield tensors
+        finally:
+            stop.set()
+            t.join(timeout=_JOIN_TIMEOUT_S)
+            if t.is_alive():
+                logger.warning("batch feeder did not stop within %.0f s",
+                               _JOIN_TIMEOUT_S)
+
+    # ---- the loop ----
+
+    def train_step(self, x, target, edge) -> Dict[str, torch.Tensor]:
+        metrics = train_step(self.model, self.optimizer,
+                             self.schedule(self.step), x, target, edge,
+                             self.criterion, self.cfg.train.grad_accum,
+                             self.generator)
+        self.step += 1
+        return metrics
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        self.loader.set_epoch(epoch)
+        last = {}
+        pending = None          # (iter, device metrics) of the previous step
+
+        def log(i, metrics):
+            m = {k: v.tolist() for k, v in metrics.items()}
+            logger.info(
+                "Epoch: %d_Iter:%d  loss: %.5f || end_loss: %.5f || "
+                "s_loss:%.4f || edge_loss:%.4f || mid_s_loss:%.4f || "
+                "mid_edge_loss:%.4f ||", epoch, i, m["loss"], m["end_loss"],
+                m["s_loss"], m["edge_loss"], m["mid_s_loss"],
+                m["mid_edge_loss"])
+            logger.info("epoch:%d, DICE= WT:%.4f,TC:%.4f,ET:%.4f  counts=%s",
+                        epoch, m["dice_wt"], m["dice_tc"], m["dice_et"],
+                        m["pred_counts"])
+            return m
+
+        for i, (x, tgt, edg) in enumerate(self._device_batches()):
+            if self._preempt.is_set():
+                break
+            metrics = self.train_step(x, tgt, edg)
+            # log one step late: step i+1 is queued on the device before
+            # the host waits for step i's metrics
+            if pending is not None:
+                last = log(*pending)
+            pending = ((i, metrics) if i % self.cfg.train.log_every == 0
+                       else None)
+        if pending is not None:
+            last = log(*pending)
+        return last
+
+    def fit(self, eval_fn: Optional[Callable] = None) -> Dict[str, float]:
+        """The whole training loop.  ``eval_fn(trainer, epoch)`` runs at
+        every checkpoint save."""
+        with self._signal_guard():
+            return self._fit(eval_fn)
+
+    def _fit(self, eval_fn: Optional[Callable]) -> Dict[str, float]:
+        cfg = self.cfg.train
+        start = cfg.start_epoch
+        if self.optimizer is None:
+            if cfg.resume:
+                start = self.resume(from_dir=cfg.resume,
+                                    restore_opt=cfg.restore_opt)
+            else:
+                self.init_state()
+        t0 = time.time()
+        last = {}
+        for epoch in range(start, cfg.end_epoch):
+            te = time.time()
+            # an epoch stopped before its first step keeps the last metrics
+            last = self.train_epoch(epoch) or last
+            logger.info("epoch %d done in %.1fs", epoch, time.time() - te)
+            if self._preempt.is_set():
+                # a stop after the epoch's last step interrupted nothing:
+                # partial only when steps remain
+                partial = self.step < (epoch + 1) * self.steps_per_epoch
+                self.save(epoch, partial=partial)
+                self.preempted = True
+                logger.info("preempted: full state saved at epoch %d step "
+                            "%d (%s); resume with restore_opt", epoch,
+                            self.step,
+                            "mid-epoch" if partial else "epoch complete")
+                return last
+            if should_save(epoch, cfg.save_freq, cfg.end_epoch):
+                self.save(epoch)
+                if eval_fn is not None:
+                    eval_fn(self, epoch)
+        self.save(cfg.end_epoch)
+        logger.info("The total training time is %.2f hours",
+                    (time.time() - t0) / 3600)
+        return last

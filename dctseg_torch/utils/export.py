@@ -64,6 +64,14 @@ def export_volume_summary_csv(path: str, rows: List[Dict]) -> None:
                        "pre_4", "gt_1", "gt_2", "gt_4"), rows)
 
 
+def export_checkpoint_sweep_csv(path: str, name: str, wt: float, tc: float,
+                                et: float) -> None:
+    """Append one checkpoint's mean dice (the reference's checkpoint
+    sweep)."""
+    _append_csv(path, ("name", "wt", "tc", "et"),
+                [{"name": name, "wt": wt, "tc": tc, "et": et}])
+
+
 def render_label_slice(label2d: np.ndarray) -> np.ndarray:
     """(H, W) int labels -> (H, W, 3) uint8 with the reference palette."""
     img = np.zeros(label2d.shape + (3,), np.uint8)

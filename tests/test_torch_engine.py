@@ -11,7 +11,6 @@ slow here, so both engines drive the same cheap stand-in forward.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -19,25 +18,28 @@ import torch
 from dctseg.config import tiny_model_config as jax_tiny_config
 from dctseg.infer.engine import Predictor as JaxPredictor
 from dctseg.models.clswiseformer import build_model as jax_build_model
+from dctseg.utils.torch_convert import convert_state_dict
 
 from dctseg_torch.config import tiny_model_config
 from dctseg_torch.convert import state_dict_from_jax
 from dctseg_torch.infer.engine import Predictor, ensemble_probs
-from dctseg_torch.models.clswiseformer import build_model
+from dctseg_torch.models.clswiseformer import ClsWiseFormer, build_model
 
 FLAGS = dict(s2d_fullres=False, s2d_halfres=False)
 
 
 @pytest.fixture(scope="module")
 def engines():
-    jcfg = jax_tiny_config(**FLAGS)
-    jmodel = jax_build_model(jcfg)
+    """JAX params made from a seeded port model's state_dict by the JAX
+    package's own converter (no flax init)."""
+    jmodel = jax_build_model(jax_tiny_config(**FLAGS))
     x = np.random.default_rng(0).normal(size=(1, 32, 32, 32, 4)).astype(
         np.float32)
-    params = jmodel.init(jax.random.PRNGKey(1), jnp.asarray(x), train=False)
-    params = jax.tree.map(np.asarray, params)
     cfg = tiny_model_config(fused_norms=True, use_pallas_attention=True,
                             **FLAGS)
+    seeded = ClsWiseFormer(cfg, torch.Generator().manual_seed(1))
+    params = {"params": convert_state_dict(
+        {k: v.numpy() for k, v in seeded.state_dict().items()})}
     model = build_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
     return JaxPredictor(jmodel, params), Predictor(model, device="cpu"), x

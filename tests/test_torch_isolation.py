@@ -9,11 +9,12 @@ from pathlib import Path
 import pytest
 import torch
 
-from dctseg_torch.cli import evaluate
-from dctseg_torch.config import tiny_model_config
+from dctseg_torch.cli import evaluate, train
+from dctseg_torch.config import Config, tiny_model_config
 from dctseg_torch.infer.engine import Predictor
 from dctseg_torch.metrics import DeviceMetrics
 from dctseg_torch.models.clswiseformer import build_model
+from dctseg_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dctseg", "pandas",
@@ -68,3 +69,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate.main(["--random-params", "--img-dim", "32",
                        "--base-channels", "4", "--num-samples", "1"])
+    for extra in (["--strategy", "sweep"], ["--multimodel"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            evaluate.main(extra + ["--img-dim", "32", "--base-channels", "4",
+                                   "--num-samples", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(Config(model=tiny_model_config(fused_norms=False)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--img-dim", "16", "--base-channels", "4",
+                    "--num-samples", "1", "--end-epoch", "1"])

@@ -7,6 +7,8 @@ Tolerance 2e-5 (rtol and atol): both sides compute in f32 but reduce in
 different orders.
 """
 
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -137,8 +139,15 @@ def test_wrappers_reject_bad_arguments():
 
 
 def test_attention_backward_is_not_ported():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        attn._FusedAttention.backward(None, torch.zeros(1))
+    """The backward came with the training slice: the gradient of the einsum
+    formulation, recomputed from the saved inputs (no backward kernel)."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v, go = (torch.randn(2, 3, 5, 8, generator=g) for _ in range(4))
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v), scale=0.3)
+    got = attn._FusedAttention.backward(ctx, go)
+    assert got[3] is None
+    for a, b in zip(got, attn.attention_vjp(q, k, v, 0.3, go)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -21,7 +21,8 @@ import dctseg.models.clswiseformer as jax_cwf
 from dctseg.config import tiny_model_config as jax_tiny_config
 from dctseg.ops.pallas import attention as jax_attention
 from dctseg.ops.pallas import fusednorm as jax_fusednorm
-from dctseg.utils.torch_convert import (reference_state_dict_names,
+from dctseg.utils.torch_convert import (convert_state_dict,
+                                        reference_state_dict_names,
                                         to_torch_state_dict)
 
 import dctseg_torch.models.clswiseformer as cwf
@@ -36,17 +37,30 @@ PLAIN_FLAGS = dict(fused_norms=False, use_pallas_attention=False,
                    s2d_fullres=False, s2d_halfres=False)
 
 
+def _input():
+    return np.random.default_rng(0).normal(size=(1, 32, 32, 32, 4)).astype(
+        np.float32)
+
+
 @pytest.fixture(scope="module")
 def jax_tiny():
-    """Tiny JAX params (initialised through the XLA path, which is fast)
-    and one input volume."""
-    cfg = jax_tiny_config(**PLAIN_FLAGS)
-    x = np.random.default_rng(0).normal(size=(1, 32, 32, 32, 4)).astype(
-        np.float32)
-    params = jax_cwf.build_model(cfg).init(jax.random.PRNGKey(0),
-                                           jnp.asarray(x), train=False)
-    params = jax.tree.map(np.asarray, params)
-    return params, x
+    """Tiny JAX params, made from a seeded port model's state_dict by the
+    JAX package's own converter (no flax init), and one input volume."""
+    model = cwf.ClsWiseFormer(tiny_model_config(**PLAIN_FLAGS),
+                              torch.Generator().manual_seed(0))
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    return {"params": convert_state_dict(sd)}, _input()
+
+
+@pytest.fixture(scope="module")
+def jax_init_params():
+    """Tiny JAX params from flax's own init (jitted): what the converter
+    test needs."""
+    x = jnp.asarray(_input())
+    model = jax_cwf.build_model(jax_tiny_config(**PLAIN_FLAGS))
+    params = jax.jit(lambda k: model.init(k, x, train=False))(
+        jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, params)
 
 
 def _record_topk(monkeypatch, module, store):
@@ -102,12 +116,13 @@ def test_forward_matches_jax(jax_tiny, monkeypatch, flags):
                                        err_msg=f"output {j} region {r}")
 
 
-def test_converted_params_match_reference_converter(jax_tiny, tmp_path):
+def test_converted_params_match_reference_converter(jax_init_params,
+                                                   tmp_path):
     """Keys are the reference's 222 names; every tensor but the four PE
     buffers equals the JAX package's own converter output; the PE buffers
     are the config-sized sinusoid table.  A reference-format .pth loads
     strictly."""
-    params, _ = jax_tiny
+    params = jax_init_params
     cfg = tiny_model_config(**SLICE_FLAGS)
     sd = state_dict_from_jax(params, cfg)
     names = reference_state_dict_names()
@@ -172,21 +187,32 @@ def test_other_positional_encodings_match_jax(pe_type):
 
 
 def test_unported_settings_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tiny_model_config(s2d_fullres=True)
+    """int8 still raises; s2d, remat and the training forward are ported."""
     with pytest.raises(NotImplementedError, match="A9"):
         tiny_model_config(quantize="int8")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tiny_model_config(remat=True)
-    model = build_model(tiny_model_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        model(torch.zeros(1, 32, 32, 32, 4), train=True)
+    with pytest.raises(ValueError, match="remat_policy"):
+        tiny_model_config(remat=True, remat_policy="none")
+    cfg = tiny_model_config(s2d_fullres=True, s2d_halfres=True, remat=True,
+                            remat_policy="save_convs")
+    model = build_model(cfg, device="cpu")
+    seg = model(torch.zeros(1, 32, 32, 32, 4), train=True)[0]
+    assert seg.shape == (1, 32, 32, 32, 4) and seg.requires_grad
 
 
 def test_slice_defaults():
+    """The serving defaults; DataConfig and TrainConfig carry the JAX
+    package's fields and defaults (TrainConfig without the multi-device
+    ones, ROADMAP A12)."""
+    from dctseg import config as jax_config
+    from dctseg_torch import config as port_config
     cfg = ModelConfig()
     assert (cfg.fused_norms, cfg.use_pallas_attention, cfg.s2d_fullres,
             cfg.s2d_halfres, cfg.quantize, cfg.compute_dtype) == (
         True, True, False, False, "none", "bfloat16")
     assert dataclasses.asdict(cfg).keys() == {
         f.name for f in dataclasses.fields(jax_tiny_config())}
+    for name, dropped in (("DataConfig", set()),
+                          ("TrainConfig", {"num_devices", "spatial_shards"})):
+        want = dataclasses.asdict(getattr(jax_config, name)())
+        got = dataclasses.asdict(getattr(port_config, name)())
+        assert got == {k: v for k, v in want.items() if k not in dropped}

@@ -178,9 +178,12 @@ def test_evaluate_cli_runs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--strategy", "sweep"], "A6"), (["--multimodel"], "A6"),
+    (["--strategy", "sweep", "--quantize", "int8"], "A9"),
+    (["--multimodel", "--spatial-shards", "2"], "A12"),
     (["--quantize", "int8"], "A9"), (["--spatial-shards", "2"], "A12")])
 def test_evaluate_cli_names_what_is_not_ported(flags, item):
+    """The sweep and the ensemble are ported; int8 and multi-GPU options
+    are refused on every strategy."""
     from dctseg_torch.cli import evaluate
     with pytest.raises(NotImplementedError, match=item):
         evaluate.main(["--device", "cpu", *flags])
