@@ -6,14 +6,17 @@ Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from dctseg_torch/csrc/ (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it: fusednorm, attention (forward, and its
-     backward against the einsum formulation's gradient), the s2d relayout
-     (torch.equal at both UNet call sites, B=1 and B=8, with its gradient),
-     the min-plus EDT pass (torch.equal, on the EDTs of synthetic label
-     volumes at 240x240x155 and 128^3, odd extents and an all-False mask)
-     and the order-statistic count and search (exact, on the pooled
-     distances of those volumes, against count_leq_plain and the binary
-     search);
+     shapes the main paths give it: fusednorm, attention (forward in f32,
+     bf16 and f16, contiguous and as strided views of one (B, N, 3, H, D)
+     tensor, N2 = N and N2 != N, asserting which of its two kernels ran:
+     tensor cores for bf16 and f16, SIMT for f32; and its backward against
+     the einsum formulation's gradient), the s2d relayout (torch.equal at
+     both UNet call sites, B=1 and B=8, with its gradient), the min-plus
+     EDT pass (torch.equal, on the EDTs of synthetic label volumes at
+     240x240x155 and 128^3, odd extents and an all-False mask, then single
+     passes in both layouts on integer costs at D = 1, 155, 240, 256) and
+     the order-statistic count and search (exact, on the pooled distances
+     of those volumes, against count_leq_plain and the binary search);
   4. the main paths at full width (img_dim=128, base_channels=16, random
      seeded weights), each with the launch counters set to 0 just before
      and read just after:
@@ -21,12 +24,14 @@ Phases (any failure raises and the script exits non-zero):
          kernels vs through the plain path and vs the s2d path, bf16
          tta_probs on one 128^3 volume, then bf16 Predictor.tiled_probs on 3
          seeded 240x240x160x4 volumes, on the direct path and on the s2d
-         path;
+         path (its 13 attention calls per volume on the tensor-core
+         kernel);
        - evaluation: DeviceMetrics on the card against the host scipy
          metrics (exact) on 2 synthetic 128^3 label pairs in both HD95
          modes, then the evaluate CLI (dctseg_torch.cli.evaluate:
          BraTSDataset, PrefetchLoader, validate_softmax with
-         strategy='tiling' and hd95 'reference', DeviceMetrics) over 2
+         strategy='tiling' and hd95 'reference', DeviceMetrics; the 13
+         attention calls per volume on the tensor-core kernel) over 2
          synthetic 240x240x155 volumes in bf16;
        - training: the train CLI (dctseg_torch.cli.train: bf16, B=1, s2d
          at both resolutions, synthetic data) for 6 steps at full width,
@@ -37,7 +42,8 @@ Phases (any failure raises and the script exits non-zero):
          with the last steps under torch.profiler, for the card's busy time
          per step and the ops that take it;
   5. time the engines, each kernel, its plain version and a PyTorch library
-     call that computes the same function (CUDA events), and the host
+     call that computes the same function (CUDA events; for attention and
+     the EDT also the card's own time under torch.profiler), and the host
      scipy HD95 of one volume (host clock);
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
@@ -79,7 +85,7 @@ FULL = (240, 240, 155)           # a BraTS volume
 VALID_SEED = DataConfig().synthetic_valid_seed_offset
 EVAL_VOLUMES = 2
 EDT_LAUNCHES = 3                 # per volume: both EDTs as one (6, ...) call
-ENVELOPE_INSTR = 32              # f32 instructions per element and EDT pass
+ENVELOPE_INSTR = 32              # instructions per element and EDT pass
 SEARCH_LAUNCHES = 7              # per volume: fanout 8 at BraTS vmax
 # UNet widths of the direct path at img_dim=128 (spatial edge, channels)
 NORM_WIDTHS = [(128, 16), (64, 32), (32, 64), (16, 128)]
@@ -130,6 +136,28 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, match: str = "", warmup: int = 2) -> float:
+    """The card's own time per call of ``fn``: the summed durations of the
+    device events (kernels, copies, fills) whose name contains ``match``,
+    under torch.profiler, over ``iters`` calls.  Unlike time_ms it leaves
+    out the host's time between launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and match in e.name)
+    if total == 0:
+        raise AssertionError(f"the profiler saw no device event '{match}'")
+    return total / iters / 1e3
 
 
 def gen(dev, seed):
@@ -200,27 +228,55 @@ def check_fusednorm(dev, widths, batch=8):
     return worst_bf16
 
 
+def attention_inputs(dev, g, shp, dt, strided):
+    """q, k, v of shape (B, H, N, D) / (B, H, N2, D) for ``shp`` = (B, H,
+    N, D) or (B, H, N, N2, D): contiguous, or views of one (B, N, 3, H, D)
+    tensor as the model's QKV projection gives them."""
+    b, h, n, n2, d = shp if len(shp) == 5 else (*shp[:3], shp[2], shp[3])
+    if strided:
+        qkv = torch.randn((b, max(n, n2), 3, h, d), device=dev,
+                          generator=g).to(dt)
+        return (qkv[:, :n, 0].transpose(1, 2),
+                qkv[:, :n2, 1].transpose(1, 2),
+                qkv[:, :n2, 2].transpose(1, 2))
+    return (torch.randn((b, h, n, d), device=dev, generator=g).to(dt),
+            *(torch.randn((b, h, n2, d), device=dev, generator=g).to(dt)
+              for _ in range(2)))
+
+
 def check_attention(dev, shape=ATTN_SHAPE):
-    """Kernel vs plain version: f32 within 1e-5 (TF32 off), bf16 within
-    1e-2.  Returns the bf16 error at the main path's shape."""
+    """Kernel vs plain version: f32 within 1e-5 (TF32 off), bf16 and f16
+    within 1e-2, on contiguous inputs and on strided views of one (B, N, 3,
+    H, D) tensor (the model's layout), at the main path's shape, two small
+    ones and one with N2 != N.  bf16 and f16 must go to the tensor-core
+    kernel, f32 to the SIMT kernel.  Returns the bf16 error at the main
+    path's shape."""
     g = gen(dev, SEED + 1)
     worst_bf16 = 0.0
-    for shp in (shape, (2, 4, 33, 16), (1, 2, 50, 128)):
-        q32, k32, v32 = (torch.randn(shp, device=dev, generator=g)
-                         for _ in range(3))
+    for shp in (shape, (2, 4, 33, 16), (1, 2, 50, 128), (2, 4, 33, 50, 16)):
         scale = shp[-1] ** -0.5
-        for dt, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
-            got = attn.fused_attention(q, k, v, scale)
-            want = attn.fused_attention_plain(q, k, v, scale)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = err <= atol
-            if shp == shape and dt == torch.bfloat16:
-                worst_bf16 = err
-            log(check="attention", shape=list(shp), dtype=str(dt),
-                max_abs_err=err, tol=f"atol {atol}", ok=ok)
-            if not ok:
-                raise AssertionError(f"attention kernel disagrees: {shp} {dt}")
+        for dt, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2),
+                         (torch.float16, 1e-2)):
+            for strided in (False, True):
+                q, k, v = attention_inputs(dev, g, shp, dt, strided)
+                before = dict(attn.fused_attention.kernel_launches)
+                got = attn.fused_attention(q, k, v, scale)
+                kernel = [name for name, c in
+                          attn.fused_attention.kernel_launches.items()
+                          if c != before[name]]
+                want = attn.fused_attention_plain(q, k, v, scale)
+                err = (got.float() - want.float()).abs().max().item()
+                expected = ["simt"] if dt == torch.float32 else ["mma"]
+                ok = err <= atol and kernel == expected
+                if shp == shape and dt == torch.bfloat16:
+                    worst_bf16 = max(worst_bf16, err)
+                log(check="attention", shape=list(shp), dtype=str(dt),
+                    strided=strided, kernel=kernel,
+                    expected_kernel=expected, max_abs_err=err,
+                    tol=f"atol {atol}", ok=ok)
+                if not ok:
+                    raise AssertionError(f"attention kernel disagrees: {shp} "
+                                         f"{dt} strided={strided} {kernel}")
     torch.cuda.synchronize()
     return worst_bf16
 
@@ -306,6 +362,15 @@ def plain_route(module, name, plain_fn):
         setattr(module, name, orig)
 
 
+@contextlib.contextmanager
+def plain_minplus():
+    """squared_edt through the plain versions of both pass layouts."""
+    with plain_route(minplus, "minplus_pass", minplus.minplus_pass_plain), \
+            plain_route(minplus, "minplus_pass_minor",
+                        minplus.minplus_pass_minor_plain):
+        yield
+
+
 def synthetic_labels(seed, shape=FULL) -> np.ndarray:
     """The label volume of synthetic sample ``seed`` after the 4 -> 3 remap
     (the dataset's generator call, so its cache serves both)."""
@@ -319,7 +384,9 @@ def check_minplus(dev, out_lbl, tgt_lbl):
     torch.equal.  Cases: the two EDTs of a volume pair as the metric stacks
     them (6, 240, 240, 155), the surfaces of a 128^3 crop, odd extents
     (D = 1, B not a multiple of the 32-column tile, D = 256) and an
-    all-False mask, where INF must survive all three passes."""
+    all-False mask, where INF must survive all three passes.  Then single
+    passes in both layouts, (A, D, B) and minor-axis (R, D), on integer
+    costs at D = 1, 155, 240 and 256."""
     o = metrics.composite_masks(out_lbl)
     t = metrics.composite_masks(tgt_lbl)
     crop = (slice(None), slice(56, 184), slice(56, 184), slice(13, 141))
@@ -336,7 +403,7 @@ def check_minplus(dev, out_lbl, tgt_lbl):
     worst = 0.0
     for name, mask in cases:
         got = edt.squared_edt(mask)
-        with plain_route(minplus, "minplus_pass", minplus.minplus_pass_plain):
+        with plain_minplus():
             want = edt.squared_edt(mask)
         err = (got - want).abs().max().item()
         ok = torch.equal(got, want)
@@ -347,6 +414,35 @@ def check_minplus(dev, out_lbl, tgt_lbl):
             max_abs_err=err, tol="torch.equal", ok=ok)
         if not ok:
             raise AssertionError(f"min-plus kernel disagrees: {name}")
+    # single passes on integer costs in [0, 2^24 - 3 * 255^2), as later
+    # passes see them: random, heavy ties, sparse zeros in the sentinel and
+    # squares (many parabolas meeting at one point), in both layouts
+    hi = (1 << 24) - 3 * 255 ** 2
+    kinds = {
+        "random": lambda s: torch.randint(0, hi, s, device=dev, generator=g),
+        "ties": lambda s: torch.randint(0, 3, s, device=dev, generator=g)
+        * 977,
+        "sparse": lambda s: torch.where(
+            torch.rand(s, device=dev, generator=g) < 0.03, 0, int(edt.INF)),
+        "squares": lambda s: torch.randint(0, 40, s, device=dev,
+                                           generator=g) ** 2}
+    for d in (1, 155, 240, 256):
+        for kind, make in kinds.items():
+            x = make((3, d, 1000)).float()
+            xm = make((997, d)).float()
+            got = minplus.minplus_pass(x)
+            got_m = minplus.minplus_pass_minor(xm)
+            want = minplus.minplus_pass_plain(x)
+            want_m = minplus.minplus_pass_minor_plain(xm)
+            err = max((got - want).abs().max().item(),
+                      (got_m - want_m).abs().max().item())
+            ok = torch.equal(got, want) and torch.equal(got_m, want_m)
+            worst = max(worst, err)
+            log(check="minplus_pass", case=kind, d=d, shape=list(x.shape),
+                minor_shape=list(xm.shape), max_abs_err=err,
+                tol="torch.equal", ok=ok)
+            if not ok:
+                raise AssertionError(f"min-plus pass disagrees: {kind} {d}")
     return worst
 
 
@@ -528,22 +624,37 @@ KERNEL_COUNTERS = {"fusednorm": fusednorm.fused_instance_norm_act,
                    "orderstats": orderstats.count_leq}
 
 
+def reset_launches():
+    for fn in KERNEL_COUNTERS.values():
+        fn.launches = 0
+    for name in attn.fused_attention.kernel_launches:
+        attn.fused_attention.kernel_launches[name] = 0
+
+
+def read_launches():
+    """Each kernel's launches since reset_launches(), and, of attention's,
+    those that went to the tensor-core kernel."""
+    launches = {k: fn.launches for k, fn in KERNEL_COUNTERS.items()}
+    launches["attention_mma"] = attn.fused_attention.kernel_launches["mma"]
+    return launches
+
+
 def run_eval_path():
     """The evaluate CLI over EVAL_VOLUMES synthetic 240x240x155 volumes:
     strategy 'tiling', HD95 'reference', bf16, full width, random weights
     from seed 0.  Returns its result dict, the launch counts and the wall
     time."""
-    for fn in KERNEL_COUNTERS.values():
-        fn.launches = 0
+    reset_launches()
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
         res = evaluate.main(["--strategy", "tiling", "--hd95", "reference",
                              "--random-params", "--num-samples",
                              str(EVAL_VOLUMES), "--output-dir", out_dir])
         wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNEL_COUNTERS.items()}
+    launches = read_launches()
     expected = {"fusednorm": 64 * EVAL_VOLUMES,
                 "attention": 13 * EVAL_VOLUMES,
+                "attention_mma": 13 * EVAL_VOLUMES,
                 "relayout": 0,
                 "minplus": EDT_LAUNCHES * EVAL_VOLUMES,
                 "orderstats": SEARCH_LAUNCHES * EVAL_VOLUMES}
@@ -614,8 +725,7 @@ def run_train_path(dev, extra, check, profile=False):
             for k, v in top_device_ops(prof).items():
                 ops[k] = ops.get(k, 0.0) + v / PROFILED_STEPS
         return out
-    for fn in KERNEL_COUNTERS.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     Trainer.train_step = timed
@@ -630,7 +740,7 @@ def run_train_path(dev, extra, check, profile=False):
                 "--log-dir", f"{d}/logs", *extra])
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
-            launches = {k: fn.launches for k, fn in KERNEL_COUNTERS.items()}
+            launches = read_launches()
             steps = tr.step
             ok = bool(math.isfinite(last["loss"]))
             if check:
@@ -646,7 +756,7 @@ def run_train_path(dev, extra, check, profile=False):
                                       strict=True)
                 reloaded = all(torch.equal(v.cpu(), trained[k]) for k, v in
                                fresh.state_dict().items())
-                expected = {k: 0 for k in KERNEL_COUNTERS}
+                expected = {k: 0 for k in launches}
                 expected["relayout"] = RELAYOUT_PER_FORWARD * steps
                 finite = all(bool(torch.isfinite(v).all())
                              for v in trained.values())
@@ -736,15 +846,27 @@ def time_fusednorm(dev, widths, batch=8, iters=10):
 
 
 def time_attention(dev, shape=ATTN_SHAPE, iters=50):
+    """bf16 at the main path's shape: the call time back to back (CUDA
+    events, so the host's time per call counts once the card is faster),
+    also on the model's strided views, and the card's own time under the
+    profiler, for the kernel and for scaled_dot_product_attention."""
     g = gen(dev, SEED + 4)
     q, k, v = (torch.randn(shape, device=dev, generator=g).bfloat16()
                for _ in range(3))
+    qs, ks, vs = attention_inputs(dev, g, shape, torch.bfloat16, True)
     scale = shape[-1] ** -0.5
     row = dict(shape=list(shape), dtype="bf16")
     row["ms"] = time_ms(lambda: attn.fused_attention(q, k, v, scale), iters)
+    row["strided_ms"] = time_ms(
+        lambda: attn.fused_attention(qs, ks, vs, scale), iters)
+    row["device_ms"] = device_ms(
+        lambda: attn.fused_attention(q, k, v, scale), iters,
+        "attention_mma_kernel")
     row["plain_ms"] = time_ms(
         lambda: attn.fused_attention_plain(q, k, v, scale), iters)
     row["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters)
+    row["library_device_ms"] = device_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters)
     b, h, n, d = shape
     flops = 4 * b * h * n * n * d
@@ -766,20 +888,19 @@ def time_metrics(dev, pred, tgt):
     o = metrics.composite_masks(out_lbl)
     t = metrics.composite_masks(tgt_lbl)
     mask = torch.cat([t, o])
-    row = {"edt_ms": time_ms(lambda: edt.squared_edt(mask), 10)}
-    with plain_route(minplus, "minplus_pass", minplus.minplus_pass_plain):
+    row = {"edt_ms": time_ms(lambda: edt.squared_edt(mask), 10),
+           "edt_kernel_device_ms": device_ms(lambda: edt.squared_edt(mask),
+                                             10, "envelope_kernel"),
+           "edt_device_ms": device_ms(lambda: edt.squared_edt(mask), 10)}
+    with plain_minplus():
         row["edt_plain_ms"] = time_ms(lambda: edt.squared_edt(mask), 1, 1)
     # Each pass reads and writes the volume once.  The least work is the
-    # lower-envelope transform (Felzenszwalb & Huttenlocher), exact on these
-    # integers in O(D) per column: at most two parabola intersections per
-    # element (a few adds, a multiply, a divide) and the fill, counted as
-    # ENVELOPE_INSTR f32 instructions per element and pass.  The kernel does
-    # the brute-force D add-and-min pairs per element instead (2
-    # instructions each); that count is kept as bruteforce_ops_ms.
-    pairs = mask.numel() * sum(mask.shape[1:])
+    # kernel's lower-envelope transform (Felzenszwalb & Huttenlocher), exact
+    # on these integers in O(D) per column: at most two parabola crossings
+    # per element and the fill, counted as ENVELOPE_INSTR instructions per
+    # element and pass.
     row["edt_ops_bound_ms"] = (EDT_LAUNCHES * ENVELOPE_INSTR * mask.numel()
                                / F32_INSTR * 1e3)
-    row["edt_bruteforce_ops_ms"] = 2 * pairs / F32_INSTR * 1e3
     row["edt_bytes_bound_ms"] = (EDT_LAUNCHES * 2 * 4 * mask.numel()
                                  / HBM_BYTES_PER_S * 1e3)
 
@@ -890,18 +1011,19 @@ def main() -> int:
             predictor = Predictor(model, device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in KERNEL_COUNTERS.values():
-            fn.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         vol_ms = run_main_path(predictor, volumes)
         wall = time.perf_counter() - t0
-        launches = {k: KERNEL_COUNTERS[k].launches
-                    for k in ("fusednorm", "attention", "relayout")}
+        launches = {k: n for k, n in read_launches().items()
+                    if k in ("fusednorm", "attention", "attention_mma",
+                             "relayout")}
         peak = torch.cuda.max_memory_allocated()
         log(phase="main_path", engine="tiled_probs", path=name,
             dtype="bfloat16", volumes=N_VOLUMES, per_volume_ms=vol_ms,
             wall_s=wall, launches=launches, peak_memory_bytes=peak)
         expected = {"fusednorm": 64 * N_VOLUMES, "attention": 13 * N_VOLUMES,
+                    "attention_mma": 13 * N_VOLUMES,
                     "relayout": (RELAYOUT_PER_FORWARD * N_VOLUMES if s2d_on
                                  else 0)}
         if launches != expected:
@@ -984,6 +1106,10 @@ def main() -> int:
              bound_by=("bytes" if attn_row["bytes_bound_ms"]
                        >= attn_row["flops_bound_ms"] else "operations"),
              library_ms=ATTN_CALLS * attn_row["library_ms"],
+             device_ms=ATTN_CALLS * attn_row["device_ms"],
+             library_device_ms=ATTN_CALLS * attn_row["library_device_ms"],
+             call_ms=attn_row["ms"], strided_call_ms=attn_row["strided_ms"],
+             library_call_ms=attn_row["library_ms"],
              unit="per B=8 bf16 forward (13 calls)"),
         dict(name="relayout", route="cuda",
              source="dctseg_torch/csrc/relayout.cu",
@@ -998,7 +1124,8 @@ def main() -> int:
              replaces="dctseg/ops/pallas/minplus.py:80",
              launches=eval_launches["minplus"], max_abs_err=minplus_err,
              ms=met["edt_ms"], plain_ms=met["edt_plain_ms"], **bound("edt"),
-             library_ms=None, bruteforce_ops_ms=met["edt_bruteforce_ops_ms"],
+             library_ms=None, kernel_device_ms=met["edt_kernel_device_ms"],
+             device_ms=met["edt_device_ms"],
              unit="per 240x240x155 volume (both EDTs, 3 launches)"),
         dict(name="orderstats", route="cuda",
              source="dctseg_torch/csrc/orderstats.cu",

@@ -50,12 +50,11 @@ class DualSelfAttention(nn.Module):
         k, v = kv[:, :, 0], kv[:, :, 1]
         scale = d ** -0.5
         # the kernel has no attention dropout inside: it runs whenever
-        # dropout is off
+        # dropout is off; it takes the projection's views as they are and
+        # returns a (B, H, N, D) view of (B, N, H, D) memory on the card
         if self.use_kernel and not (drop.active and self.rate > 0.0):
-            out = fused_attention(q.transpose(1, 2).contiguous(),
-                                  k.transpose(1, 2).contiguous(),
-                                  v.transpose(1, 2).contiguous(), scale)
-            out = out.transpose(1, 2)
+            out = fused_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), scale).transpose(1, 2)
         else:
             # the JAX package's einsum path: f32 scores and softmax, p cast
             # to the input dtype, p.v accumulated in f32

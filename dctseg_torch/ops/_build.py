@@ -106,11 +106,13 @@ _SIGNATURES = {
     # (x, ab, residual, out, n, s, c, act, slope, dtype, vec, stream)
     "dctseg_fusednorm_apply": [_vp, _vp, _vp, _vp, _int, _long, _int, _int,
                                ctypes.c_float, _int, _int, _vp],
-    # (q, k, v, out, bh, n, n2, d, scale, dtype, stream)
-    "dctseg_attention_fwd": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
-                             ctypes.c_float, _int, _vp],
+    # (int64 args: q, k, v, out, b, h, n, n2, d, 9 strides, dtype, kernel;
+    #  scale, stream)
+    "dctseg_attention_fwd": [_vp, ctypes.c_float, _vp],
     # (x, out, a, d, b, stream)
     "dctseg_minplus_pass": [_vp, _vp, _long, _int, _long, _vp],
+    # (x, out, rows, d, stream)
+    "dctseg_minplus_pass_minor": [_vp, _vp, _long, _int, _vp],
     # (values, cuts, out, c, m, t, stream)
     "dctseg_count_leq": [_vp, _vp, _vp, _int, _long, _int, _vp],
     # (x, out, n, d, h, w, c, in_dtype, out_dtype, vec, stream)
@@ -148,13 +150,16 @@ def dtype_code(dtype) -> int:
 
 def stream_of(t: torch.Tensor) -> int:
     """The handle of the current CUDA stream, where the C entries launch.
-    That stream belongs to the current device, so ``t`` must lie there."""
-    current = torch.cuda.current_device()
-    if t.device.index != current:
+    That stream belongs to the current device, so ``t`` must lie there.
+    Read through torch's raw bindings: the public calls cost several
+    microseconds of host time per launch."""
+    index = t.get_device()
+    current = torch._C._cuda_getDevice()
+    if index != current:
         raise ValueError(f"tensor on {t.device}, but the current CUDA device "
                          f"is cuda:{current}; kernels launch on the current "
                          "device")
-    return torch.cuda.current_stream().cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, what: str) -> None:

@@ -1,12 +1,13 @@
 """Fused attention forward: the port of the TPU kernel
 ``dctseg/ops/pallas/attention.py`` ``fused_attention``.
 
-On a CUDA tensor the wrapper launches the hand-written kernel of
-``dctseg_torch/csrc/attention.cu`` or raises; on a CPU tensor it runs the
-plain PyTorch version below.  Both keep the scores, the softmax and p.v in
-f32 and cast only the output to q's dtype -- the Pallas kernel's bf16
-semantics, not those of the JAX package's einsum path, which casts p to the
-input dtype before p.v (``dctseg/models/attention.py``).
+On a CUDA tensor the wrapper launches one of the two hand-written kernels
+of ``dctseg_torch/csrc/attention.cu`` (tensor cores for bf16 and f16, SIMT
+otherwise: :func:`uses_tensor_cores`) or raises; on a CPU tensor it runs
+the plain PyTorch version below.  All keep the scores, the softmax and
+p.v at f32 accuracy and cast only the output to q's dtype -- the Pallas
+kernel's bf16 semantics, not those of the JAX package's einsum path, which
+casts p to the input dtype before p.v (``dctseg/models/attention.py``).
 
 The gradient is the TPU kernel's custom VJP: a recompute through that einsum
 formulation (:func:`einsum_attention`) and its autograd gradient, on either
@@ -16,11 +17,18 @@ than keeping the scores.  No backward kernel is owed.
 
 from __future__ import annotations
 
+import array
+
 import torch
 
 from dctseg_torch.ops import _build
 
 MAX_HEAD_DIM = 128
+# The tensor-core kernel (csrc/attention.cu attention_mma_kernel) takes bf16
+# and f16 with D a multiple of 16 up to MAX_HEAD_DIM, N2 up to MMA_MAX_KEYS
+# (its scores live in registers) and rows on 16-byte boundaries; every
+# other call goes to the SIMT kernel.
+MMA_MAX_KEYS = 144          # csrc/attention.cu 16 * kMaxKey16
 _WARPS = 8                  # csrc/attention.cu kWarps
 _MAX_SMEM = 232448          # bytes of shared memory a block may opt into
 
@@ -56,40 +64,79 @@ def _smem_bytes(n2: int, d: int) -> int:
 
 
 def _check(q, k, v):
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
-            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
-            or k.shape[2] == 0:
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or ks != v.shape or ks[0] != qs[0] \
+            or ks[1] != qs[1] or ks[3] != qs[3] or ks[2] == 0:
         raise ValueError(
             f"expected q (B, H, N, D) and k, v (B, H, N2, D); got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+            f"{tuple(qs)}, {tuple(ks)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("q, k and v must share one dtype")
-    if not (q.device == k.device == v.device):
+    if not (q.get_device() == k.get_device() == v.get_device()
+            and q.is_cuda == k.is_cuda == v.is_cuda):
         raise ValueError("q, k and v must share one device")
+    if not q.is_cuda and q.device.type != "cpu":
+        raise ValueError(f"no kernel for device {q.device}")
+
+
+_MMA_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def _mma_rule(dtype, d, n2, ptrs, strides) -> bool:
+    aligned = 0
+    for x in strides:
+        aligned |= x
+    return (dtype in _MMA_DTYPES and d % 16 == 0 and d <= MAX_HEAD_DIM
+            and n2 <= MMA_MAX_KEYS and not (ptrs[0] | ptrs[1] | ptrs[2]) & 15
+            and not aligned & 7)
+
+
+def uses_tensor_cores(q, k, v) -> bool:
+    """The dispatch rule: the tensor-core kernel for bf16 and f16 with D a
+    multiple of 16 up to MAX_HEAD_DIM, N2 <= MMA_MAX_KEYS and every row
+    start on a 16-byte boundary (the cp.async copies); the SIMT kernel
+    otherwise."""
+    return _mma_rule(q.dtype, q.shape[3], k.shape[2],
+                     (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                     (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]))
 
 
 def _launch(q, k, v, scale):
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the attention kernel takes contiguous "
-                         "(B, H, N, D) tensors")
+    """Launch a kernel on (B, H, N, D) views with unit stride on D; the
+    output is a (B, N, H, D) array returned as its (B, H, N, D) view.  The
+    host path is kept short: at the model's shape the kernel takes a few
+    microseconds, so the host's checks and the ctypes call set the time of
+    a call."""
     b, h, n, d = q.shape
     n2 = k.shape[2]
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    if qs[3] != 1 or ks[3] != 1 or vs[3] != 1:
+        raise ValueError("the attention kernel takes views with unit stride "
+                         "on the head dimension")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} above {MAX_HEAD_DIM}")
-    if _smem_bytes(n2, d) > _MAX_SMEM:
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    strides = (*qs[:3], *ks[:3], *vs[:3])
+    mma = _mma_rule(q.dtype, d, n2, ptrs, strides)
+    if not mma and _smem_bytes(n2, d) > _MAX_SMEM:
         raise ValueError(f"K and V of one head ({n2} x {d}) do not fit "
                          "shared memory")
-    dtype = _build.dtype_code(q.dtype)
-    out = torch.empty_like(q)
+    out = q.new_empty_strided((b, h, n, d), (n * h * d, d, h * d, 1))
     if out.numel() == 0:
         return out
-    lib = _build.lib()
-    stream = _build.stream_of(q)
-    _build.check(lib.dctseg_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n,
-        n2, d, scale, dtype, stream), "attention")
+    args = array.array("q", (*ptrs, out.data_ptr(), b, h, n, n2, d, *strides,
+                             _build.dtype_code(q.dtype), mma))
+    _build.check(_build.lib().dctseg_attention_fwd(
+        args.buffer_info()[0], scale, _build.stream_of(q)), "attention")
     fused_attention.launches += 1
+    fused_attention.kernel_launches["mma" if mma else "simt"] += 1
     return out
+
+
+def _forward(q, k, v, scale):
+    if q.is_cuda:
+        return _launch(q, k, v, scale)
+    return fused_attention_plain(q, k, v, scale)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -97,9 +144,7 @@ class _FusedAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale):
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
-        if q.device.type == "cpu":
-            return fused_attention_plain(q, k, v, scale)
-        return _launch(q, k, v, scale)
+        return _forward(q, k, v, scale)
 
     @staticmethod
     def backward(ctx, grad):
@@ -109,11 +154,16 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """q: (B, H, N, D); k, v: (B, H, N2, D) -> (B, H, N, D) in q's dtype."""
+    """q: (B, H, N, D); k, v: (B, H, N2, D) -> (B, H, N, D) in q's dtype.
+    Any strides on B, H and N; on CUDA, unit stride on D.  Without a
+    gradient to track the call skips autograd."""
     _check(q, k, v)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {q.device}")
-    return _FusedAttention.apply(q, k, v, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FusedAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
 
 
-fused_attention.launches = 0   # kernel launches on CUDA tensors
+# kernel launches on CUDA tensors: in all, and by kernel
+fused_attention.launches = 0
+fused_attention.kernel_launches = {"mma": 0, "simt": 0}

@@ -88,6 +88,55 @@ def test_attention_plain_matches_pallas_interpret(shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("shape", [(1, 8, 129, 64), (2, 4, 33, 16)])
+def test_attention_strided_views_match_contiguous_and_pallas(shape):
+    """q, k, v as the model takes them: views of one (B, N, 3, H, D)
+    projection, transposed to (B, H, N, D) with no copy.  The wrapper equals
+    its call on contiguous copies exactly, and the Pallas kernel in
+    interpret mode within TOL."""
+    b, h, n, d = shape
+    qkv = np.random.default_rng(2).normal(size=(b, n, 3, h, d)).astype(
+        np.float32)
+    views = [torch.from_numpy(qkv)[:, :, i].transpose(1, 2) for i in range(3)]
+    assert not any(t.is_contiguous() for t in views)
+    scale = d ** -0.5
+    got = attn.fused_attention(*views, scale)
+    contiguous = attn.fused_attention(*(t.contiguous() for t in views), scale)
+    np.testing.assert_array_equal(got.numpy(), contiguous.numpy())
+    want = jax_attention.fused_attention(
+        *(jnp.asarray(np.ascontiguousarray(qkv[:, :, i].transpose(0, 2, 1, 3)))
+          for i in range(3)), scale, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_attention_dispatch_rule():
+    """bf16 and f16 at D % 16 == 0, D <= 128, N2 <= 144 with 16-byte rows go
+    to the tensor-core kernel; f32, N2 = 145, D = 24 or a row off the
+    16-byte grid go to the SIMT kernel."""
+    def qkv(dtype, n2=129, d=64, n=129):
+        base = torch.zeros(2, max(n, n2), 3, 2, d, dtype=dtype)
+        return tuple(base[:, :m, i].transpose(1, 2)
+                     for i, m in ((0, n), (1, n2), (2, n2)))
+    assert attn.uses_tensor_cores(*qkv(torch.bfloat16))
+    assert attn.uses_tensor_cores(*qkv(torch.float16, n2=144, d=128, n=50))
+    assert not attn.uses_tensor_cores(*qkv(torch.float32))
+    assert not attn.uses_tensor_cores(*qkv(torch.bfloat16, n2=145))
+    assert not attn.uses_tensor_cores(*qkv(torch.bfloat16, d=24))
+    q, k, v = qkv(torch.bfloat16)
+    odd = torch.zeros(2, 129 * 2 * 64 + 1, dtype=torch.bfloat16)[:, 1:]
+    odd = odd.reshape(2, 129, 2, 64).transpose(1, 2)
+    assert not attn.uses_tensor_cores(q, odd, v)
+
+
+def test_attention_skips_autograd_without_a_gradient():
+    q = torch.randn(1, 2, 9, 8)
+    assert attn.fused_attention(q, q, q, 0.3).grad_fn is None
+    leaf = q.clone().requires_grad_()
+    assert attn.fused_attention(leaf, q, q, 0.3).grad_fn is not None
+    with torch.no_grad():
+        assert attn.fused_attention(leaf, q, q, 0.3).grad_fn is None
+
+
 def test_attention_plain_matches_pallas_interpret_bf16():
     """bf16 inputs: both keep p in f32 into p.v and round only the output,
     so they agree to within a bf16 rounding of the output."""

@@ -75,6 +75,103 @@ def test_minplus_pass_plain_chunks_rows(monkeypatch):
                                   whole.numpy())
 
 
+@pytest.mark.parametrize("shape", [(5, 7), (9, 1), (1, 33), (40, 3)])
+def test_minplus_pass_minor_plain_is_the_pass_on_the_transpose(shape):
+    """The minor-axis pass (R, D): the plain pass on the (1, D, R) view, and
+    the same as the (A, D, B) pass with B = 1; the CPU wrapper launches
+    nothing."""
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(np.where(rng.random(shape) < 0.4,
+                                  rng.integers(0, 900, shape), edt.INF)
+                         .astype(np.float32))
+    minplus.minplus_pass.launches = 0
+    got = minplus.minplus_pass_minor(x)
+    assert got.is_contiguous() and minplus.minplus_pass.launches == 0
+    np.testing.assert_array_equal(
+        got.numpy(), minplus.minplus_pass_plain(x.t()[None])[0].t().numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), minplus.minplus_pass_plain(x[:, :, None])[:, :, 0])
+
+
+def _envelope_column(f):
+    """csrc/minplus.cu's scan on one column, in the kernel's integer
+    arithmetic and in-place layout: slot k holds entry k (vertex << 24 |
+    value) once the scan has consumed position k.  The top's lower boundary
+    is the fraction tn / (2 td); pops compare crossed-out products."""
+    d = len(f)
+    slot = [int(v) for v in f]
+    if all(x == slot[0] for x in slot):    # a constant column is its output
+        return np.asarray(slot, np.float32)
+    out = [0] * d
+    tv, tc, tn, td, sv, sc, n = 0, slot[0], 0, 1, 0, 0, 1
+    q = 1
+    while q < d:                       # each turn pops or takes position q
+        fq = slot[q]
+        cq = fq + q * q
+        if n > 0 and (cq - tc) * td <= tn * (q - tv):
+            n -= 1
+            if n > 0:
+                tv, tc = sv, sc
+                if n >= 2:
+                    e = slot[n - 2]
+                    sv = e >> 24
+                    sc = (e & 0xFFFFFF) + sv * sv
+                    tn, td = tc - sc, tv - sv
+                else:
+                    tn, td = 0, 1
+            continue
+        num, den = cq - tc, q - tv
+        push = True
+        if n == 0:
+            tn, td = 0, 1
+        elif num > 2 * den * (d - 1):
+            push = False
+        else:
+            assert abs(num * td) < 1 << 40 and abs(tn * den) < 1 << 40
+            tn, td, sv, sc = num, den, tv, tc
+        if push:
+            assert n <= q and fq < 1 << 24
+            slot[n] = (q << 24) | fq
+            n, tv, tc = n + 1, q, cq
+        q += 1
+    k = n - 1
+    v, fv, lv, lf = tv, tc - tv * tv, sv, sc - sv * sv
+    for i in range(d - 1, -1, -1):
+        while k > 0 and lf + (i - lv) ** 2 < fv + (i - v) ** 2:
+            v, fv = lv, lf
+            k -= 1
+            if k > 0:
+                lv, lf = slot[k - 1] >> 24, slot[k - 1] & 0xFFFFFF
+        out[i] = fv + (i - v) ** 2
+        assert out[i] < 1 << 24
+    return np.asarray(out, np.float32)
+
+
+# the kernel's value range: [0, 2^24 - 3 * 255^2), as after the EDT's passes
+ENVELOPE_HI = (1 << 24) - 3 * 255 ** 2
+ENVELOPE_KINDS = {
+    "random": lambda g, d: g.integers(0, ENVELOPE_HI, (4, d)),
+    "sparse": lambda g, d: np.where(g.random((4, d)) < 0.05,
+                                    g.integers(0, 3 * 255 ** 2, (4, d)),
+                                    edt.INF),
+    "all_sentinel": lambda g, d: np.full((2, d), edt.INF),
+    "all_equal": lambda g, d: np.full((2, d), g.integers(0, ENVELOPE_HI)),
+    "ties": lambda g, d: g.integers(0, 3, (4, d)) * g.integers(1, 400),
+}
+
+
+@pytest.mark.parametrize("kind", list(ENVELOPE_KINDS))
+@pytest.mark.parametrize("d", [1, 2, 3, 155, 240, 256])
+def test_envelope_integer_arithmetic_matches_plain(d, kind):
+    """The lower envelope as the CUDA kernel computes it, rehearsed here in
+    its integer arithmetic: equal to minplus_pass_plain on every column."""
+    g = np.random.default_rng(d * 7 + len(kind))
+    f = ENVELOPE_KINDS[kind](g, d).astype(np.float32)
+    want = minplus.minplus_pass_minor_plain(torch.from_numpy(f)).numpy()
+    got = np.stack([_envelope_column(col) for col in f])
+    np.testing.assert_array_equal(got, want)
+
+
 def _order_stats_case(trial, hi):
     rng = np.random.default_rng(11 + trial)
     c, m = 3, int(rng.integers(100, 3000))
