@@ -6,7 +6,8 @@ Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from dctseg_torch/csrc/ (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it: fusednorm, attention (forward in f32,
+     shapes the main paths give it: fusednorm (on both of its routes, one
+     launch and two, with two calls bitwise equal), attention (forward in f32,
      bf16 and f16, contiguous and as strided views of one (B, N, 3, H, D)
      tensor, N2 = N and N2 != N, asserting which of its two kernels ran:
      tensor cores for bf16 and f16, SIMT for f32; and its backward against
@@ -15,8 +16,9 @@ Phases (any failure raises and the script exits non-zero):
      EDT pass (torch.equal, on the EDTs of synthetic label volumes at
      240x240x155 and 128^3, odd extents and an all-False mask, then single
      passes in both layouts on integer costs at D = 1, 155, 240, 256) and
-     the order-statistic count and search (exact, on the pooled distances
-     of those volumes, against count_leq_plain and the binary search);
+     the order-statistic kernel in its count mode and its search mode
+     (exact, on the pooled distances of those volumes, against
+     count_leq_plain and the binary search);
   4. the main paths at full width (img_dim=128, base_channels=16, random
      seeded weights), each with the launch counters set to 0 just before
      and read just after:
@@ -25,7 +27,9 @@ Phases (any failure raises and the script exits non-zero):
          tta_probs on one 128^3 volume, then bf16 Predictor.tiled_probs on 3
          seeded 240x240x160x4 volumes, on the direct path and on the s2d
          path (its 13 attention calls per volume on the tensor-core
-         kernel);
+         kernel), then one B=8 bf16 forward under torch.profiler for the
+         fusednorm kernel's device time in context and the copies around
+         it;
        - evaluation: DeviceMetrics on the card against the host scipy
          metrics (exact) on 2 synthetic 128^3 label pairs in both HD95
          modes, then the evaluate CLI (dctseg_torch.cli.evaluate:
@@ -42,8 +46,9 @@ Phases (any failure raises and the script exits non-zero):
          with the last steps under torch.profiler, for the card's busy time
          per step and the ops that take it;
   5. time the engines, each kernel, its plain version and a PyTorch library
-     call that computes the same function (CUDA events; for attention and
-     the EDT also the card's own time under torch.profiler), and the host
+     call that computes the same function (CUDA events; for fusednorm and
+     the search also the card's own time with the calls queued behind a
+     sleep, for attention and the EDT under torch.profiler), and the host
      scipy HD95 of one volume (host clock);
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
@@ -70,6 +75,7 @@ from dctseg_torch.data import synthetic
 from dctseg_torch.data.brats import BraTSDataset
 from dctseg_torch.infer.engine import Predictor
 from dctseg_torch.models import clswiseformer as cwf
+from dctseg_torch.models import unet
 from dctseg_torch.ops import _build
 from dctseg_torch.ops import attention as attn
 from dctseg_torch.ops import edt, fusednorm, minplus, orderstats, relayout
@@ -92,6 +98,8 @@ NORM_WIDTHS = [(128, 16), (64, 32), (32, 64), (16, 128)]
 # calls per B=8 forward at each width: encoder 2 blocks x 2 relu norms,
 # decoder 2 blocks x (lrelu norm, lrelu norm + residual)
 NORM_CALLS = {"nores": 6, "res": 2}
+# the levels (spatial edge) that run on the s2d view on the s2d path
+S2D_LEVELS = (128, 64)
 ATTN_SHAPE = (8, 8, 129, 64)     # B, heads, top_num + 1, head dim
 ATTN_CALLS = 13                  # 3 couplers x 4 + the fusion coupler
 VOLUME = (1, 240, 240, 160, 4)
@@ -125,11 +133,47 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
+def norm_launches(dtype, s2d: bool = False, batch: int = 8) -> int:
+    """fusednorm launches of one forward, from the kernel's launch plan at
+    each call's shape: NORM_CALLS per UNet level, the s2d levels on the
+    (edge/2)^3 x 8C view on the s2d path."""
+    total = 0
+    for edge, c in NORM_WIDTHS:
+        shape = ((batch, edge // 2, edge // 2, edge // 2, 8 * c)
+                 if s2d and edge in S2D_LEVELS
+                 else (batch, edge, edge, edge, c))
+        vec = 16 // (torch.finfo(dtype).bits // 8)
+        for kind, calls in NORM_CALLS.items():
+            total += calls * fusednorm.plan_for(
+                shape, dtype, vec, kind == "res", 0).launches
+    return total
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int, warmup: int = 2) -> float:
+    """The card's time per call of ``fn`` without the host's: the calls
+    are queued behind a sleep kernel long enough for the host to enqueue
+    them all (0.15 ms of card time a call), then timed back to back with
+    CUDA events.  For the kernels launched through the port's own library,
+    whose device events torch.profiler does not always report in full."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(300_000 * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -167,8 +211,10 @@ def gen(dev, seed):
 # ---------------------------------------------------------------- phase 3
 
 def check_fusednorm(dev, widths, batch=8):
-    """Kernel vs plain version at the main path's B=8 shapes (the stats
-    pass's split of each sample depends on the batch).
+    """Kernel vs plain version at the main path's B=8 shapes (the kernel's
+    partition of each sample depends on the batch), on both of its routes
+    (the planned one and the other), with a second call bitwise equal to
+    the first (every f32 sum in a fixed order).
 
     f32: within 1e-4.  The kernel's f32 statistics differ from the plain
     version's in the last bits, so y = x*a + b differs by some delta.
@@ -184,9 +230,11 @@ def check_fusednorm(dev, widths, batch=8):
     for edge, c in widths:
         shape = (batch, edge, edge, edge, c)
         cases += [(shape, c, "relu", False), (shape, c, "lrelu", True)]
-    # an s2d-style view (8 offsets per fine channel) and two layouts the
-    # 16-byte vector path does not take
-    cases += [((batch, 16, 16, 16, 128), 16, "lrelu", True),
+    # the s2d views (8 offsets per fine channel) of the two s2d levels, and
+    # two layouts the 16-byte vector path does not take
+    cases += [((batch, 64, 64, 64, 128), 16, "relu", False),
+              ((batch, 32, 32, 32, 256), 32, "lrelu", True),
+              ((batch, 16, 16, 16, 128), 16, "lrelu", True),
               ((batch, 8, 8, 8, 24), 3, "none", True),
               ((batch, 8, 8, 8, 12), 12, "relu", False)]
     worst_bf16 = 0.0
@@ -195,35 +243,51 @@ def check_fusednorm(dev, widths, batch=8):
         r32 = torch.randn(shape, device=dev, generator=g)
         for dt in (torch.float32, torch.bfloat16):
             x, r = x32.to(dt), (r32.to(dt) if with_res else None)
-            got = fusednorm.fused_instance_norm_act(x, fine, act=act,
-                                                    residual=r)
             want = fusednorm.fused_instance_norm_act_plain(x, fine, act=act,
                                                            residual=r)
-            err = (got.float() - want.float()).abs()
-            over_ulps = None
-            if dt == torch.float32:
-                ok, tol = bool(err.max() <= 1e-4), "atol 1e-4"
-            else:
-                ulps = bf16_ulp(torch.maximum(got.float().abs(),
-                                              want.float().abs()))
-                tol = "1e-4 + 1 bf16 ulp of the output"
-                if with_res:
-                    pre = fusednorm.fused_instance_norm_act_plain(x, fine,
-                                                                  act=act)
-                    ulps = ulps + bf16_ulp(pre.float())
-                    tol += " + 1 of the activation"
-                ok = bool((err <= 1e-4 + ulps).all())
-                # elements that only the absolute term admits
-                over_ulps = int((err > ulps).sum())
-                if shape[-1] == fine and shape[1:] != (8, 8, 8, 12):
-                    worst_bf16 = max(worst_bf16, err.max().item())
-            log(check="fusednorm", shape=list(shape), fine=fine, act=act,
-                residual=with_res, dtype=str(dt), max_abs_err=err.max().item(),
-                differing=(err > 0).float().mean().item(), over_ulps=over_ulps,
-                tol=tol, ok=ok)
-            if not ok:
-                raise AssertionError(f"fusednorm kernel disagrees: {shape} "
-                                     f"{fine} {act} {with_res} {dt}")
+            vec = fusednorm.vector_width(x)
+            planned = fusednorm.plan_for(shape, dt, vec, with_res, 0).route
+            for route in (planned, ) + tuple(
+                    o for o in fusednorm.ROUTES if o != planned):
+                before = fusednorm.fused_instance_norm_act.launches
+                got = fusednorm.fused_instance_norm_act(
+                    x, fine, act=act, residual=r, route=route)
+                launched = fusednorm.fused_instance_norm_act.launches - before
+                again = fusednorm.fused_instance_norm_act(
+                    x, fine, act=act, residual=r, route=route)
+                bitwise = torch.equal(got, again)
+                err = (got.float() - want.float()).abs()
+                over_ulps = None
+                if dt == torch.float32:
+                    ok, tol = bool(err.max() <= 1e-4), "atol 1e-4"
+                else:
+                    ulps = bf16_ulp(torch.maximum(got.float().abs(),
+                                                  want.float().abs()))
+                    tol = "1e-4 + 1 bf16 ulp of the output"
+                    if with_res:
+                        pre = fusednorm.fused_instance_norm_act_plain(
+                            x, fine, act=act)
+                        ulps = ulps + bf16_ulp(pre.float())
+                        tol += " + 1 of the activation"
+                    ok = bool((err <= 1e-4 + ulps).all())
+                    # elements that only the absolute term admits
+                    over_ulps = int((err > ulps).sum())
+                    if shape[-1] == fine and shape[1:] != (8, 8, 8, 12):
+                        worst_bf16 = max(worst_bf16, err.max().item())
+                ok = ok and bitwise and launched == (1 if route == "fused"
+                                                     else 2)
+                log(check="fusednorm", shape=list(shape), fine=fine, act=act,
+                    residual=with_res, dtype=str(dt), route=route,
+                    planned=route == planned, launches=launched,
+                    max_abs_err=err.max().item(),
+                    differing=(err > 0).float().mean().item(),
+                    over_ulps=over_ulps, bitwise_repeat=bitwise, tol=tol,
+                    ok=ok)
+                if not ok:
+                    raise AssertionError(
+                        f"fusednorm kernel disagrees: {shape} {fine} {act} "
+                        f"{with_res} {dt} {route}")
+                del got, again, err
     torch.cuda.synchronize()
     return worst_bf16
 
@@ -447,10 +511,11 @@ def check_minplus(dev, out_lbl, tgt_lbl):
 
 
 def check_orderstats(dev, pools):
-    """K5: the count kernel vs count_leq_plain, and the whole m-ary search
-    vs the binary search, exact, on the pooled distances of real EDTs
-    (ranks from percentile_ranks) and on small value ranges, one with a row
-    length that is not a multiple of 4 (the scalar-load path)."""
+    """K5: the kernel's count mode (count_leq, one launch) vs
+    count_leq_plain, and its search mode (masked_order_stats, one launch a
+    pass) vs the binary search, exact, on the pooled distances of real
+    EDTs (ranks from percentile_ranks) and on small value ranges, one with
+    a row length that is not a multiple of 4 (the scalar-load path)."""
     g = np.random.default_rng(SEED + 7)
     cases = list(pools)
     for hi, m in ((5, 3001), (2500, 1 << 20), (195075, 2999)):
@@ -465,16 +530,22 @@ def check_orderstats(dev, pools):
         cuts = torch.from_numpy(np.concatenate(
             [g.integers(0, 300, (3, 12)), np.full((3, 1), -1.0),
              np.full((3, 1), edt.INF)], 1).astype(np.float32)).to(dev)
+        before = (orderstats.count_leq.launches,
+                  orderstats.masked_order_stats.launches)
         cnt_ok = torch.equal(orderstats.count_leq(pooled, cuts),
                              orderstats.count_leq_plain(pooled, cuts))
         got = orderstats.masked_order_stats(pooled, ks, metrics.VMAX)
+        launched = (orderstats.count_leq.launches - before[0],
+                    orderstats.masked_order_stats.launches - before[1])
         want = edt.binary_search_order_stats(pooled, ks, metrics.VMAX)
         err = (got - want).abs().max().item()
         worst = max(worst, err)
-        ok = cnt_ok and torch.equal(got, want)
+        ok = cnt_ok and torch.equal(got, want) and launched == (
+            1, SEARCH_LAUNCHES)
         log(check="orderstats", case=name, shape=list(pooled.shape),
             n=n.tolist(), ranks=ks.tolist(), kth=got.tolist(),
-            count_equal=cnt_ok, max_abs_err=err, tol="exact", ok=ok)
+            count_equal=cnt_ok, launches=launched, max_abs_err=err,
+            tol="exact", ok=ok)
         if not ok:
             raise AssertionError(f"order-statistic kernel disagrees: {name}")
     # a batched (2, 3, M) search runs as one (6, M) search on the kernel
@@ -484,10 +555,12 @@ def check_orderstats(dev, pools):
         edt.INF).astype(np.float32)).to(dev)
     ks = torch.from_numpy(g.integers(0, 1000, (2, 3, 2)).astype(np.int32)
                           ).to(dev)
-    before = orderstats.count_leq.launches
+    before = (orderstats.masked_order_stats.launches,
+              orderstats.count_leq.launches)
     got = edt.masked_order_stats(vals, ks, metrics.VMAX)
-    launched = orderstats.count_leq.launches - before
-    ok = launched == SEARCH_LAUNCHES and torch.equal(
+    launched = orderstats.masked_order_stats.launches - before[0]
+    ok = (launched, orderstats.count_leq.launches - before[1]) == (
+        SEARCH_LAUNCHES, 0) and torch.equal(
         got, edt.binary_search_order_stats(vals, ks, metrics.VMAX))
     log(check="orderstats", case="batched_2x3", shape=list(vals.shape),
         launches=launched, tol="exact", ok=ok)
@@ -516,7 +589,8 @@ def check_fp32_paths(dev, cfg_kw, weights):
     (fused_norms and the attention kernel off), and on the s2d path
     (kernels on) vs the direct path; probs within 1e-3 and the same top-k
     token sets in every routing.  The s2d forward launches the relayout
-    kernel twice and the norm kernel 64 times."""
+    kernel twice; both paths launch the norm kernel as its launch plan
+    says (norm_launches)."""
     vol = torch.randn(VOLUME, device=dev, generator=gen(dev, SEED + 2))
     x = Predictor.crops(vol)
     del vol
@@ -551,7 +625,7 @@ def check_fp32_paths(dev, cfg_kw, weights):
         same_order = all(torch.equal(u, v) for u, v in zip(ia, ib))
         launches = {"relayout": k3a, "fusednorm": k1a}
         expected = {"relayout": RELAYOUT_PER_FORWARD if a == "s2d" else 0,
-                    "fusednorm": 64}
+                    "fusednorm": norm_launches(torch.float32, a == "s2d")}
         ok = (err <= 1e-3 and same_sets and launches == expected
               and bool(torch.isfinite(pa).all()))
         log(check=f"fp32_seg_probs_{a}_vs_{b}", batch=x.shape[0],
@@ -621,7 +695,8 @@ KERNEL_COUNTERS = {"fusednorm": fusednorm.fused_instance_norm_act,
                    "attention": attn.fused_attention,
                    "relayout": relayout.space_to_depth,
                    "minplus": minplus.minplus_pass,
-                   "orderstats": orderstats.count_leq}
+                   "orderstats": orderstats.masked_order_stats,
+                   "orderstats_count": orderstats.count_leq}
 
 
 def reset_launches():
@@ -652,12 +727,15 @@ def run_eval_path():
                              str(EVAL_VOLUMES), "--output-dir", out_dir])
         wall = time.perf_counter() - t0
     launches = read_launches()
-    expected = {"fusednorm": 64 * EVAL_VOLUMES,
+    # the search runs in the orderstats kernel's search mode, one launch a
+    # pass; its count mode (count_leq) not at all
+    expected = {"fusednorm": norm_launches(torch.bfloat16) * EVAL_VOLUMES,
                 "attention": 13 * EVAL_VOLUMES,
                 "attention_mma": 13 * EVAL_VOLUMES,
                 "relayout": 0,
                 "minplus": EDT_LAUNCHES * EVAL_VOLUMES,
-                "orderstats": SEARCH_LAUNCHES * EVAL_VOLUMES}
+                "orderstats": SEARCH_LAUNCHES * EVAL_VOLUMES,
+                "orderstats_count": 0}
     finite = all(math.isfinite(v) for v in res.values())
     in_unit = all(0.0 <= res[k] <= 1.0 for k in
                   ("wt", "tc", "et", "miou_wt", "miou_tc", "miou_et"))
@@ -785,34 +863,54 @@ def run_train_path(dev, extra, check, profile=False):
 
 # ---------------------------------------------------------------- phase 5
 
+def relayout_library(x, out):
+    """The relayout as one PyTorch call: a copy (with the cast) of x's
+    permuted 2x2x2 blocks into ``out`` (N, D/2, H/2, W/2, 8C)."""
+    n, d, h, w, c = x.shape
+    out.view(n, d // 2, h // 2, w // 2, 2, 2, 2, c).copy_(
+        x.view(n, d // 2, 2, h // 2, 2, w // 2, 2, c).permute(
+            0, 1, 3, 5, 2, 4, 6, 7))
+    return out
+
+
 def time_relayout(dev, iters=20):
-    """K3 at each call of RELAYOUT_CALLS: kernel, plain version (CUDA
-    events) and the bytes bound (input read once, output written once).
-    Returns {use: {key: sum over the use's two sites}}."""
+    """K3 at each call of RELAYOUT_CALLS: kernel, plain version and one
+    PyTorch call for the same function (a permuted copy_ into the output,
+    checked equal to the kernel's result) (CUDA events), and the bytes
+    bound (input read once, output written once).  Returns {use: {key: sum
+    over the use's two sites}}."""
     g = gen(dev, SEED + 10)
     sums = {}
     for use, calls in RELAYOUT_CALLS.items():
-        total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
         for name, (shape, idt, odt) in calls.items():
             x = torch.randn(shape, device=dev, generator=g).to(idt)
+            out = relayout.space_to_depth(x, odt)
+            if not torch.equal(relayout_library(x, torch.empty_like(out)),
+                               out):
+                raise AssertionError("the relayout library call disagrees")
             row = dict(
                 ms=time_ms(lambda: relayout.space_to_depth(x, odt), iters),
                 plain_ms=time_ms(
                     lambda: relayout.space_to_depth_plain(x, odt), iters),
+                library_ms=time_ms(lambda: relayout_library(x, out), iters),
                 bound_ms=x.numel() * (x.element_size()
                                       + torch.finfo(odt).bits // 8)
                 / HBM_BYTES_PER_S * 1e3)
             log(timing="relayout", use=use, site=name, shape=list(shape),
                 dtype_in=str(idt), dtype_out=str(odt), **row)
             total = {k: total[k] + row[k] for k in total}
-            del x
+            del x, out
         sums[use] = total
     return sums
 
 
 def time_fusednorm(dev, widths, batch=8, iters=10):
-    """Per-width ms of the kernel, its plain version and the library's
-    InstanceNorm + act (+ add), bf16, at the main path's B=8 shapes."""
+    """Per-width ms of the kernel (call time back to back, CUDA events, and
+    the card's own time, queued_ms), its plain version and the
+    library's InstanceNorm + act (+ add), bf16, at the main path's B=8
+    shapes; also the call and device time of the route the plan did not
+    pick."""
     g = gen(dev, SEED + 3)
     rows = []
     for edge, c in widths:
@@ -823,10 +921,16 @@ def time_fusednorm(dev, widths, batch=8, iters=10):
         row = dict(shape=list(shape), dtype="bf16")
         for kind, res in (("nores", None), ("res", r)):
             act = "relu" if res is None else "lrelu"
-            row[f"{kind}_ms"] = time_ms(
-                lambda: fusednorm.fused_instance_norm_act(x, c, act=act,
-                                                          residual=res),
-                iters)
+            plan = fusednorm.plan_for(shape, x.dtype, 8, res is not None, 0)
+            other = next(o for o in fusednorm.ROUTES if o != plan.route)
+            row[f"{kind}_route"] = plan.route
+            row[f"{kind}_launches"] = plan.launches
+            for route, key in ((None, kind), (other, f"{kind}_{other}")):
+                def call():
+                    return fusednorm.fused_instance_norm_act(
+                        x, c, act=act, residual=res, route=route)
+                row[f"{key}_ms"] = time_ms(call, iters)
+                row[f"{key}_device_ms"] = queued_ms(call, iters)
             row[f"{kind}_plain_ms"] = time_ms(
                 lambda: fusednorm.fused_instance_norm_act_plain(
                     x, c, act=act, residual=res), max(2, iters // 4))
@@ -843,6 +947,50 @@ def time_fusednorm(dev, widths, batch=8, iters=10):
         rows.append(row)
         del x, r, xc, rc
     return rows
+
+
+def profile_forward(predictor, vol):
+    """One B=8 bf16 forward (seg_probs on the 8 crops of a volume) under
+    torch.profiler, after a warm one: the fusednorm kernel's summed device
+    time and launches in context (against the launches its plan gives),
+    the forward's device busy time, the copy kernels (aten::copy_) of the
+    whole forward, and how many norm calls got a non-contiguous input or
+    residual, which the UNet's .contiguous() would copy around the
+    kernel."""
+    x = Predictor.crops(vol)
+    predictor.seg_probs(x)
+    torch.cuda.synchronize()
+    orig, strided = unet._norm_act, []
+
+    def watched(t, eps, act, fused, s2d_view=False, residual=None):
+        strided.append(not t.is_contiguous() or (
+            residual is not None and not residual.is_contiguous()))
+        return orig(t, eps, act, fused, s2d_view, residual)
+    unet._norm_act = watched
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            predictor.seg_probs(x)
+            torch.cuda.synchronize()
+    finally:
+        unet._norm_act = orig
+    norm = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "norm_kernel" in e.name]
+    copies = [r for r in prof.key_averages() if r.key == "aten::copy_"]
+    row = dict(batch=x.shape[0], dtype="bfloat16",
+               fusednorm_device_ms=sum(norm) / 1e3,
+               fusednorm_kernels=len(norm),
+               expected_fusednorm_kernels=norm_launches(torch.bfloat16),
+               norm_calls=len(strided),
+               norm_calls_copying_input=sum(strided),
+               forward_device_busy_ms=device_busy_ms(prof),
+               copy_calls=sum(r.count for r in copies),
+               copy_device_ms=sum(r.self_device_time_total
+                                  for r in copies) / 1e3)
+    log(timing="fusednorm_in_forward", **row)
+    return row
 
 
 def time_attention(dev, shape=ATTN_SHAPE, iters=50):
@@ -901,17 +1049,21 @@ def time_metrics(dev, pred, tgt):
     # element and pass.
     row["edt_ops_bound_ms"] = (EDT_LAUNCHES * ENVELOPE_INSTR * mask.numel()
                                / F32_INSTR * 1e3)
-    row["edt_bytes_bound_ms"] = (EDT_LAUNCHES * 2 * 4 * mask.numel()
+    # bytes: the f32 costs read once and the distances written once; the
+    # three passes' floor reads and writes the volume once a pass
+    row["edt_bytes_bound_ms"] = (2 * 4 * mask.numel()
                                  / HBM_BYTES_PER_S * 1e3)
+    row["edt_pass_floor_ms"] = EDT_LAUNCHES * row["edt_bytes_bound_ms"]
 
     pooled, n = metrics.pooled_distances(o, t)
     ks = metrics.percentile_ranks(n)
     vmax = metrics.VMAX
     row["search_ms"] = time_ms(
         lambda: orderstats.masked_order_stats(pooled, ks, vmax), 10)
-    with plain_route(orderstats, "count_leq", orderstats.count_leq_plain):
-        row["search_plain_ms"] = time_ms(
-            lambda: orderstats.masked_order_stats(pooled, ks, vmax), 2, 1)
+    row["search_device_ms"] = queued_ms(
+        lambda: orderstats.masked_order_stats(pooled, ks, vmax), 10)
+    row["search_plain_ms"] = time_ms(
+        lambda: orderstats.masked_order_stats_plain(pooled, ks, vmax), 2, 1)
     pairs_ck = [(c, k) for c in range(3) for k in ks[c].tolist()]
     row["kthvalue_ms"] = time_ms(
         lambda: [torch.kthvalue(pooled[c], k + 1) for c, k in pairs_ck], 3)
@@ -919,13 +1071,14 @@ def time_metrics(dev, pred, tgt):
                        for c, k in pairs_ck]).reshape(3, 2)
     if not torch.equal(kth, orderstats.masked_order_stats(pooled, ks, vmax)):
         raise AssertionError("torch.kthvalue disagrees with the search")
-    # a pass reads the pooled values once and makes a compare and an add
-    # for each of its K ranks x (fanout - 1) cut points on each
-    cut_points = ks.shape[1] * (8 - 1)
-    row["search_bytes_bound_ms"] = (SEARCH_LAUNCHES * 4 * pooled.numel()
+    # bytes: the pooled values read once (the ranks and the output are a
+    # few bytes); the 7-pass search's floor reads them once a pass.
+    # Operations: at least one compare per value
+    row["search_bytes_bound_ms"] = (4 * pooled.numel()
                                     / HBM_BYTES_PER_S * 1e3)
-    row["search_ops_bound_ms"] = (SEARCH_LAUNCHES * 2 * cut_points
-                                  * pooled.numel() / F32_INSTR * 1e3)
+    row["search_ops_bound_ms"] = pooled.numel() / F32_INSTR * 1e3
+    row["search_pass_floor_ms"] = (SEARCH_LAUNCHES
+                                   * row["search_bytes_bound_ms"])
     row["pooled_shape"] = list(pooled.shape)
     row["pooled_finite"] = n.tolist()
 
@@ -1022,7 +1175,8 @@ def main() -> int:
         log(phase="main_path", engine="tiled_probs", path=name,
             dtype="bfloat16", volumes=N_VOLUMES, per_volume_ms=vol_ms,
             wall_s=wall, launches=launches, peak_memory_bytes=peak)
-        expected = {"fusednorm": 64 * N_VOLUMES, "attention": 13 * N_VOLUMES,
+        expected = {"fusednorm": norm_launches(torch.bfloat16, s2d_on)
+                    * N_VOLUMES, "attention": 13 * N_VOLUMES,
                     "attention_mma": 13 * N_VOLUMES,
                     "relayout": (RELAYOUT_PER_FORWARD * N_VOLUMES if s2d_on
                                  else 0)}
@@ -1030,6 +1184,8 @@ def main() -> int:
             raise AssertionError(f"{name} launch counts {launches}, "
                                  f"expected {expected}")
         serving[name] = vol_ms
+        if not s2d_on:
+            fwd_row = profile_forward(predictor, volumes[0])
         del predictor, model
     del volumes
 
@@ -1093,7 +1249,13 @@ def main() -> int:
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
              bound_ms=per_forward("bound_ms"), bound_by="bytes",
              library_ms=per_forward("library_ms"),
+             device_ms=per_forward("device_ms"),
+             in_forward_device_ms=fwd_row["fusednorm_device_ms"],
              two_pass_floor_ms=per_forward("floor_ms"),
+             per_width_ms={f"{r['shape'][1]}^3x{r['shape'][4]}": {
+                 k: r[k] for k in ("nores_route", "nores_ms",
+                                   "nores_device_ms", "res_ms",
+                                   "res_device_ms")} for r in norm_rows},
              unit="per B=8 bf16 forward (32 calls)"),
         dict(name="attention", route="cuda",
              source="dctseg_torch/csrc/attention.cu",
@@ -1113,10 +1275,10 @@ def main() -> int:
              unit="per B=8 bf16 forward (13 calls)"),
         dict(name="relayout", route="cuda",
              source="dctseg_torch/csrc/relayout.cu",
-             replaces="dctseg/ops/pallas/relayout.py:89",
+             replaces="dctseg/ops/pallas/relayout.py:90",
              launches=train_rows["s2d_remat_none"]["launches"]["relayout"],
              max_abs_err=relayout_err,
-             **relayout_rows["train"], bound_by="bytes", library_ms=None,
+             **relayout_rows["train"], bound_by="bytes",
              serve_b8=relayout_rows["serve"],
              unit="per B=1 bf16 train step (both sites, 2 launches)"),
         dict(name="minplus", route="cuda",
@@ -1126,6 +1288,7 @@ def main() -> int:
              ms=met["edt_ms"], plain_ms=met["edt_plain_ms"], **bound("edt"),
              library_ms=None, kernel_device_ms=met["edt_kernel_device_ms"],
              device_ms=met["edt_device_ms"],
+             pass_floor_ms=met["edt_pass_floor_ms"],
              unit="per 240x240x155 volume (both EDTs, 3 launches)"),
         dict(name="orderstats", route="cuda",
              source="dctseg_torch/csrc/orderstats.cu",
@@ -1133,6 +1296,8 @@ def main() -> int:
              launches=eval_launches["orderstats"], max_abs_err=search_err,
              ms=met["search_ms"], plain_ms=met["search_plain_ms"],
              **bound("search"), library_ms=met["kthvalue_ms"],
+             device_ms=met["search_device_ms"],
+             pass_floor_ms=met["search_pass_floor_ms"],
              unit="per 240x240x155 volume (the whole search, 7 launches)"),
     ]
     # ---- 6. result

@@ -14,22 +14,38 @@
 //
 // Bound on the H100: memory, at a few flops per byte.  The function must
 // read x once and write the output once (plus one read of the residual);
-// the two-pass algorithm reads x a second time, so the kernel moves 3
-// tensor passes, 4 with a residual.  What the design does about it:
-//   * Every load and store moves 16 bytes per thread where C allows it
-//     (8 bf16 or 4 f32 lanes), neighbouring threads on neighbouring
-//     addresses; a thread keeps one fixed group of channel lanes, so its
-//     partial sums stay in registers.
-//   * The TPU grid carried its sum across sequential spatial tiles.  Hopper
-//     blocks run in no order, so the stats pass splits the spatial axis of
-//     each sample over many blocks (enough to fill 132 SMs even at 16
-//     channels, where one block per (n, c) would leave most SMs idle); each
-//     block writes its per-lane partial sums, and the last block of a sample
-//     to finish (an atomic ticket, no float atomics) folds the partials in
-//     split order, folds the s2d offsets and writes a and b.  The result is
-//     deterministic: the order of every f32 sum is fixed.
-//   * The apply pass reads a and b for its sample into shared memory once
-//     per block and streams x (and the residual) in one read and one write.
+// the two-pass algorithm reads x a second time.  What the design does:
+//   * One partition of the work for both phases.  Each sample's S rows are
+//     cut into `bps` chunks of `rows_per_block` rows, one block per chunk;
+//     thread (r0, g) of a block owns lane group g (16 bytes: 8 bf16 or 4
+//     f32 lanes) of rows first + k * rpi, so its partial sums and, later,
+//     its a and b stay in registers.  Loads are 16 bytes a thread,
+//     neighbouring threads on neighbouring addresses, 8 (statistics) or 4
+//     (apply) in flight; all offsets inside a sample are 32-bit.
+//   * The block folds its per-thread sums with all threads in a fixed
+//     order (fold()), publishes them, and takes a ticket: the block that
+//     draws the last one for sample n folds the blocks' partials the same
+//     way (8 loads in flight a thread), folds the s2d offsets, writes a and
+//     b, and returns the ticket to zero for the next call.  No float
+//     atomics: every f32 sum has a fixed order, so two calls give the same
+//     bits.
+//   * The apply walks each thread's rows in reverse, so it starts on the
+//     rows the statistics read last, the ones most likely still in L2.
+//   * Two routes (ops/fusednorm.py plan_launch picks one by the shape):
+//       fused -- one cooperative launch.  `slots` samples are in flight at
+//         a time, each on `bps` co-resident blocks.  Each thread keeps its
+//         first `staged` packs in shared memory; the blocks of a sample
+//         meet at a barrier after the statistics (the last block publishes
+//         a and b and raises the sample's flag to this call's epoch), then
+//         apply, re-reading the staged packs from shared memory and the
+//         rest from L2, and go on to the next sample of their slot.  Taken
+//         where all samples fit on the chip at once: a barrier costs a few
+//         microseconds of a drained memory pipe, more than the L2 saves on
+//         samples that take turns.
+//       split -- a statistics launch and an apply launch over the same
+//         partition, for larger tensors.
+//   * The workspace (partials, a and b, tickets, flags) is the caller's,
+//     kept across calls: nothing is allocated or zeroed per call.
 
 #include <stdint.h>
 
@@ -39,196 +55,300 @@ namespace dctseg {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kStatsUnroll = 8;   // loads in flight a thread, statistics
+constexpr int kApplyUnroll = 4;   // rows in flight a thread, apply
+constexpr int kBatch = 8;         // loads in flight a thread, fold()
+// About a second of polling before a barrier that never opens traps
+// instead of hanging the card.
+constexpr unsigned kMaxSpins = 1u << 24;
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-stats_kernel(const T* __restrict__ x, float* __restrict__ ab,
-             float* __restrict__ partial, unsigned int* __restrict__ counter,
-             long S, int C, int F, int splits, long rows_per_split, float eps) {
-  extern __shared__ float smem[];
-  __shared__ bool is_last;
-  const int n = blockIdx.y;
-  const int split = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int groups = C / VEC;          // lane groups per row
-  const int rpi = kThreads / groups;   // rows per iteration of the block
-  const bool active = tid < rpi * groups;
-  const int g = tid % groups;
-  const int r0 = tid / groups;
-
-  float s[VEC], q[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
-  if (active) {
-    const long row_begin = (long)split * rows_per_split;
-    const long row_end = min(S, row_begin + rows_per_split);
-    const T* xn = x + (long)n * S * C + g * VEC;
-    for (long row = row_begin + r0; row < row_end; row += rpi) {
-      const Pack<T, VEC> p =
-          *reinterpret_cast<const Pack<T, VEC>*>(xn + row * C);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float f = to_f32(p.v[j]);
-        s[j] += f;
-        q[j] += f * f;
-      }
-    }
-  }
-  // smem holds [rpi][C] sums then [rpi][C] squares: thread tid = r0*groups+g
-  // owns lanes g*VEC .. g*VEC+VEC-1 of row r0.
-  float* ssum = smem;
-  float* ssq = smem + rpi * C;
-  if (active) {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      ssum[tid * VEC + j] = s[j];
-      ssq[tid * VEC + j] = q[j];
-    }
-  }
-  __syncthreads();
-  float* pout = partial + ((long)n * splits + split) * 2 * C;
-  for (int l = tid; l < C; l += kThreads) {
-    float a = 0.f, b = 0.f;
-    for (int r = 0; r < rpi; ++r) {
-      a += ssum[r * C + l];
-      b += ssq[r * C + l];
-    }
-    pout[l] = a;
-    pout[C + l] = b;
-  }
-  // Publish this block's partials, then take a ticket: the block that
-  // draws the last one for sample n finishes the statistics.
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(&counter[n], 1u) == (unsigned)(splits - 1);
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-
-  const int O = C / F;
-  const float cnt = (float)(S * (long)O);
-  const float* pn = partial + (long)n * splits * 2 * C;
-  for (int f = tid; f < F; f += kThreads) {
-    float a = 0.f, b = 0.f;
-    for (int o = 0; o < O; ++o) {
-      const int l = o * F + f;
-      float la = 0.f, lb = 0.f;
-      for (int sp = 0; sp < splits; ++sp) {
-        la += __ldcg(pn + (long)sp * 2 * C + l);
-        lb += __ldcg(pn + (long)sp * 2 * C + C + l);
-      }
-      a += la;
-      b += lb;
-    }
-    const float mean = a / cnt;
-    const float var = fmaxf(b / cnt - mean * mean, 0.f);
-    const float scale = 1.f / sqrtf(var + eps);
-    const float shift = -mean * scale;
-    for (int o = 0; o < O; ++o) {
-      ab[(long)n * 2 * C + o * F + f] = scale;
-      ab[(long)n * 2 * C + C + o * F + f] = shift;
-    }
-  }
-}
-
+enum Mode : int { kStats = 0, kApply = 1, kFused = 2 };
 enum Act : int { kNone = 0, kRelu = 1, kLrelu = 2 };
 
-template <int ACT>
-__device__ __forceinline__ float activate(float y, float slope) {
-  if (ACT == kRelu) return y > 0.f ? y : 0.f;
-  if (ACT == kLrelu) return y >= 0.f ? y : slope * y;
+struct Params {
+  const void* x;
+  const void* res;            // null without a residual
+  void* out;
+  float* ab;                  // [n][2][c]: scales, then shifts
+  float* partial;             // [n][bps][2][c]: sums, then squares
+  unsigned* tickets;          // [n], zero between calls
+  unsigned* flags;            // [n], the epoch of the last fused call
+  int n, s, c, f, bps, rows_per_block, act;
+  int staged;                 // fused route: packs a thread keeps in smem
+  unsigned epoch;
+  float eps, slope;
+};
+
+__device__ __forceinline__ float activate(float y, int act, float slope) {
+  if (act == kRelu) return y > 0.f ? y : 0.f;
+  if (act == kLrelu) return y >= 0.f ? y : slope * y;
   return y;
 }
 
-template <typename T, int VEC, int ACT, bool RES>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(const T* __restrict__ x, const float* __restrict__ ab,
-             const T* __restrict__ res, T* __restrict__ out, long S, int C,
-             float slope) {
-  extern __shared__ float sab[];   // [C] scales, then [C] shifts
-  const int n = blockIdx.y;
-  for (int l = threadIdx.x; l < 2 * C; l += kThreads)
-    sab[l] = ab[(long)n * 2 * C + l];
-  __syncthreads();
-  const int groups = C / VEC;
-  const long total = S * groups;   // packs in sample n
-  const long base = (long)n * S * C;
-  for (long i = (long)blockIdx.x * kThreads + threadIdx.x; i < total;
-       i += (long)gridDim.x * kThreads) {
-    const int c0 = (int)(i % groups) * VEC;
-    const long off = base + i * VEC;
-    const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(x + off);
-    Pack<T, VEC> o;
-    if (RES) {
-      const Pack<T, VEC> r = *reinterpret_cast<const Pack<T, VEC>*>(res + off);
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
+  return *reinterpret_cast<const Pack<T, VEC>*>(p);
+}
+
+// Lane l of rows first, first + step, ... < rows of two arrays (load(r, l)
+// gives the pair), summed in that order with kBatch loads in flight.
+template <typename Load>
+__device__ __forceinline__ float2 fold_lane(int rows, int first, int step,
+                                            int l, Load load) {
+  float a = 0.f, b = 0.f;
+  for (int r = first; r < rows; r += kBatch * step) {
+    float2 v[kBatch];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float y = to_f32(p.v[j]) * sab[c0 + j] + sab[C + c0 + j];
-        const T yc = from_f32<T>(activate<ACT>(y, slope));
-        o.v[j] = from_f32<T>(to_f32(yc) + to_f32(r.v[j]));
-      }
-    } else {
+    for (int u = 0; u < kBatch; ++u)
+      if (r + u * step < rows) v[u] = load(r + u * step, l);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float y = to_f32(p.v[j]) * sab[c0 + j] + sab[C + c0 + j];
-        o.v[j] = from_f32<T>(activate<ACT>(y, slope));
+    for (int u = 0; u < kBatch; ++u) {
+      if (r + u * step < rows) {
+        a += v[u].x;
+        b += v[u].y;
       }
     }
-    *reinterpret_cast<Pack<T, VEC>*>(out + off) = o;
   }
+  return make_float2(a, b);
 }
 
-template <typename T, int VEC>
-cudaError_t launch_stats(const void* x, void* ab, void* partial, void* counter,
-                         int n, long s, int c, int f, int splits,
-                         long rows_per_split, float eps, cudaStream_t stream) {
-  const int groups = c / VEC;
-  const int rpi = kThreads / groups;
-  const size_t smem = 2 * (size_t)rpi * c * sizeof(float);
-  // at most 2 * kThreads * VEC floats (16 KB): no opt-in above 48 KB needed
-  stats_kernel<T, VEC><<<dim3(splits, n), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<float*>(ab),
-      static_cast<float*>(partial), static_cast<unsigned int*>(counter), s, c,
-      f, splits, rows_per_split, eps);
-  return cudaGetLastError();
-}
-
-template <typename T, int VEC, int ACT>
-cudaError_t launch_apply_act(const void* x, const void* ab, const void* res,
-                             void* out, int n, long s, int c, float slope,
-                             cudaStream_t stream) {
-  const long total = s * (c / VEC);
-  long blocks = (total + kThreads - 1) / kThreads;
-  const long cap = (2048 + n - 1) / n;   // ~16 blocks per SM in all
-  if (blocks > cap) blocks = cap;
-  const dim3 grid((unsigned)blocks, n);
-  const size_t smem = 2 * (size_t)c * sizeof(float);   // <= 16 KB
-  if (res) {
-    apply_kernel<T, VEC, ACT, true><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const float*>(ab),
-        static_cast<const T*>(res), static_cast<T*>(out), s, c, slope);
+// Sums `rows` rows of c lanes of two arrays in a fixed order with all
+// threads: thread (l, j) adds rows j, j + J, ... of lane l, then lane l's
+// thread adds the J partial sums in order.  Leaves the sums in tot[0, c)
+// and tot[c, 2c); ends with __syncthreads().
+template <typename Load>
+__device__ __forceinline__ void fold(int rows, int c, Load load, float* part,
+                                     float* tot) {
+  const int tid = threadIdx.x;
+  if (c <= kThreads) {
+    const int J = kThreads / c;
+    const int l = tid % c, j = tid / c;
+    if (j < J) {
+      const float2 v = fold_lane(rows, j, J, l, load);
+      part[j * c + l] = v.x;
+      part[kThreads + j * c + l] = v.y;
+    }
+    __syncthreads();
+    if (tid < c) {
+      float a = 0.f, b = 0.f;
+      for (int k = 0; k < J; ++k) {
+        a += part[k * c + tid];
+        b += part[kThreads + k * c + tid];
+      }
+      tot[tid] = a;
+      tot[c + tid] = b;
+    }
   } else {
-    apply_kernel<T, VEC, ACT, false><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const float*>(ab), nullptr,
-        static_cast<T*>(out), s, c, slope);
+    for (int l = tid; l < c; l += kThreads) {
+      const float2 v = fold_lane(rows, 0, 1, l, load);
+      tot[l] = v.x;
+      tot[c + l] = v.y;
+    }
   }
-  return cudaGetLastError();
+  __syncthreads();
 }
 
-template <typename T, int VEC>
-cudaError_t launch_apply(const void* x, const void* ab, const void* res,
-                         void* out, int n, long s, int c, int act, float slope,
-                         cudaStream_t stream) {
-  switch (act) {
-    case kNone:
-      return launch_apply_act<T, VEC, kNone>(x, ab, res, out, n, s, c, slope, stream);
-    case kRelu:
-      return launch_apply_act<T, VEC, kRelu>(x, ab, res, out, n, s, c, slope, stream);
-    case kLrelu:
-      return launch_apply_act<T, VEC, kLrelu>(x, ab, res, out, n, s, c, slope, stream);
-    default:
-      return cudaErrorInvalidValue;
+template <typename T, int VEC, int MODE, bool RES>
+__global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
+  using P = Pack<T, VEC>;
+  __shared__ float rowsum[2 * kThreads * VEC];   // [rpi][c] sums, squares
+  __shared__ float part[2 * kThreads];
+  __shared__ float tot[2 * kThreads * VEC];
+  __shared__ int is_last;
+  // fused route: the first p.staged packs of each thread, [k][kThreads]
+  extern __shared__ __align__(16) unsigned char dynamic_smem[];
+  P* stage = reinterpret_cast<P*>(dynamic_smem);
+
+  const int c = p.c;
+  const int groups = c / VEC;
+  const int rpi = kThreads / groups;   // rows per iteration of the block
+  const int tid = threadIdx.x;
+  const bool active = tid < rpi * groups;
+  const int g = tid % groups;
+  const int r0 = tid / groups;
+  const int row_begin = blockIdx.x * p.rows_per_block;
+  const int row_end = min(p.s, row_begin + p.rows_per_block);
+  const int first = row_begin + r0;
+  // this thread's rows: first + k * rpi, k < nk
+  const int nk = active && first < row_end ? (row_end - first + rpi - 1) / rpi
+                                           : 0;
+  // fused route: rows k < staged stay in shared memory, the rest are
+  // re-read
+  const int staged = MODE == kFused ? min(nk, p.staged) : 0;
+
+  for (int n = blockIdx.y; n < p.n; n += gridDim.y) {
+    const size_t base = (size_t)n * p.s * c + g * VEC;
+    const T* xs = static_cast<const T*>(p.x) + base;
+    if (MODE != kApply) {
+      float s[VEC], q[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
+      auto add = [&](const P& v) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float f = to_f32(v.v[j]);
+          s[j] += f;
+          q[j] += f * f;
+        }
+      };
+      int k = 0;
+      for (; k + kStatsUnroll <= nk; k += kStatsUnroll) {
+        P v[kStatsUnroll];
+#pragma unroll
+        for (int u = 0; u < kStatsUnroll; ++u)
+          v[u] = load_pack<T, VEC>(xs + (first + (k + u) * rpi) * c);
+#pragma unroll
+        for (int u = 0; u < kStatsUnroll; ++u) {
+          if (k + u < staged) stage[(k + u) * kThreads + tid] = v[u];
+          add(v[u]);
+        }
+      }
+      for (; k < nk; ++k) {
+        const P v = load_pack<T, VEC>(xs + (first + k * rpi) * c);
+        if (k < staged) stage[k * kThreads + tid] = v;
+        add(v);
+      }
+      // thread tid = r0 * groups + g holds lanes g*VEC.. of row r0
+      if (active) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          rowsum[tid * VEC + j] = s[j];
+          rowsum[kThreads * VEC + tid * VEC + j] = q[j];
+        }
+      }
+      __syncthreads();
+      fold(rpi, c,
+           [&](int r, int l) {
+             return make_float2(rowsum[r * c + l],
+                                rowsum[kThreads * VEC + r * c + l]);
+           },
+           part, tot);
+      float* pb = p.partial + ((size_t)n * p.bps + blockIdx.x) * 2 * c;
+      for (int l = tid; l < 2 * c; l += kThreads) pb[l] = tot[l];
+      // Publish the partials, then take a ticket: the block that draws the
+      // last one for sample n finishes its statistics.
+      __threadfence();
+      __syncthreads();
+      if (tid == 0)
+        is_last = atomicAdd(p.tickets + n, 1u) == (unsigned)(p.bps - 1);
+      __syncthreads();
+      if (is_last) {
+        __threadfence();
+        const float* pn = p.partial + (size_t)n * p.bps * 2 * c;
+        fold(p.bps, c,
+             [&](int r, int l) {
+               return make_float2(__ldcg(pn + (size_t)r * 2 * c + l),
+                                  __ldcg(pn + (size_t)r * 2 * c + c + l));
+             },
+             part, tot);
+        const int offsets = c / p.f;
+        const float cnt = (float)((long long)p.s * offsets);
+        float* abn = p.ab + (size_t)n * 2 * c;
+        for (int ch = tid; ch < p.f; ch += kThreads) {
+          float a = 0.f, b = 0.f;
+          for (int o = 0; o < offsets; ++o) {
+            a += tot[o * p.f + ch];
+            b += tot[c + o * p.f + ch];
+          }
+          const float mean = a / cnt;
+          const float var = fmaxf(b / cnt - mean * mean, 0.f);
+          const float scale = 1.f / sqrtf(var + p.eps);
+          const float shift = -mean * scale;
+          for (int o = 0; o < offsets; ++o) {
+            abn[o * p.f + ch] = scale;
+            abn[c + o * p.f + ch] = shift;
+          }
+        }
+        __threadfence();
+        __syncthreads();
+        if (tid == 0) {
+          p.tickets[n] = 0;
+          if (MODE == kFused) atomicExch(p.flags + n, p.epoch);
+        }
+      }
+    }
+    if (MODE == kStats) continue;
+    if (MODE == kFused) {
+      if (tid == 0) {
+        unsigned spins = 0;
+        while (*reinterpret_cast<volatile unsigned*>(p.flags + n) != p.epoch) {
+          __nanosleep(64);
+          if (++spins > kMaxSpins) __trap();
+        }
+        __threadfence();
+      }
+      __syncthreads();
+    }
+    if (nk == 0) continue;
+    float sa[VEC], sb[VEC];
+    const float* abn = p.ab + (size_t)n * 2 * c + g * VEC;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      sa[j] = __ldcg(abn + j);
+      sb[j] = __ldcg(abn + c + j);
+    }
+    const T* rs = RES ? static_cast<const T*>(p.res) + base : nullptr;
+    T* os = static_cast<T*>(p.out) + base;
+    // rows from the last read to the first: the re-read ones (from L2
+    // where they are still there), then the staged ones from shared memory
+    auto fetch = [&](int k) {
+      return k < staged ? stage[k * kThreads + tid]
+                        : load_pack<T, VEC>(xs + (first + k * rpi) * c);
+    };
+    auto apply = [&](const P& v, const P& r) {
+      P o;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float y = to_f32(v.v[j]) * sa[j] + sb[j];
+        const T yc = from_f32<T>(activate(y, p.act, p.slope));
+        o.v[j] = RES ? from_f32<T>(to_f32(yc) + to_f32(r.v[j])) : yc;
+      }
+      return o;
+    };
+    int k = nk - 1;
+    for (; k >= kApplyUnroll - 1; k -= kApplyUnroll) {
+      P v[kApplyUnroll], r[kApplyUnroll];
+#pragma unroll
+      for (int u = 0; u < kApplyUnroll; ++u) {
+        v[u] = fetch(k - u);
+        if (RES) r[u] = load_pack<T, VEC>(rs + (first + (k - u) * rpi) * c);
+      }
+#pragma unroll
+      for (int u = 0; u < kApplyUnroll; ++u)
+        *reinterpret_cast<P*>(os + (first + (k - u) * rpi) * c) =
+            apply(v[u], r[u]);
+    }
+    for (; k >= 0; --k) {
+      const int off = (first + k * rpi) * c;
+      P r;
+      if (RES) r = load_pack<T, VEC>(rs + off);
+      *reinterpret_cast<P*>(os + off) = apply(fetch(k), r);
+    }
   }
+}
+
+template <typename T, int VEC, int MODE>
+const void* kernel_of(bool res) {
+  return res ? reinterpret_cast<const void*>(&norm_kernel<T, VEC, MODE, true>)
+             : reinterpret_cast<const void*>(&norm_kernel<T, VEC, MODE, false>);
+}
+
+// The kernel for (dtype, vec, mode, residual); the stats pass ignores the
+// residual.
+template <int MODE>
+const void* pick(int dtype, int vec, bool res) {
+  res = res && MODE != kStats;
+  if (dtype == kF32 && vec == 4) return kernel_of<float, 4, MODE>(res);
+  if (dtype == kF32 && vec == 1) return kernel_of<float, 1, MODE>(res);
+  if (dtype == kBF16 && vec == 8) return kernel_of<__nv_bfloat16, 8, MODE>(res);
+  if (dtype == kBF16 && vec == 1) return kernel_of<__nv_bfloat16, 1, MODE>(res);
+  if (dtype == kF16 && vec == 8) return kernel_of<__half, 8, MODE>(res);
+  if (dtype == kF16 && vec == 1) return kernel_of<__half, 1, MODE>(res);
+  return nullptr;
+}
+
+cudaError_t blocks_per_sm(const void* k, size_t smem, int* out) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, kThreads, smem);
 }
 
 }  // namespace
@@ -236,49 +356,101 @@ cudaError_t launch_apply(const void* x, const void* ab, const void* res,
 
 using namespace dctseg;
 
-// vec is 16 bytes' worth of lanes where the wrapper found C divisible by it
-// and every pointer 16-byte aligned, else 1.  The wrapper also guarantees
-// C / vec <= 256 and F | C.
-
-extern "C" int dctseg_fusednorm_stats(const void* x, void* ab, void* partial,
-                                      void* counter, int n, long s, int c,
-                                      int f, int splits, long rows_per_split,
-                                      float eps, int dtype, int vec,
-                                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32 && vec == 4)
-    return launch_stats<float, 4>(x, ab, partial, counter, n, s, c, f, splits, rows_per_split, eps, st);
-  if (dtype == kF32 && vec == 1)
-    return launch_stats<float, 1>(x, ab, partial, counter, n, s, c, f, splits, rows_per_split, eps, st);
-  if (dtype == kBF16 && vec == 8)
-    return launch_stats<__nv_bfloat16, 8>(x, ab, partial, counter, n, s, c, f, splits, rows_per_split, eps, st);
-  if (dtype == kBF16 && vec == 1)
-    return launch_stats<__nv_bfloat16, 1>(x, ab, partial, counter, n, s, c, f, splits, rows_per_split, eps, st);
-  if (dtype == kF16 && vec == 8)
-    return launch_stats<__half, 8>(x, ab, partial, counter, n, s, c, f, splits, rows_per_split, eps, st);
-  if (dtype == kF16 && vec == 1)
-    return launch_stats<__half, 1>(x, ab, partial, counter, n, s, c, f, splits, rows_per_split, eps, st);
-  return cudaErrorInvalidValue;
+// What the card holds at once, for (dtype, vec, residual), on the current
+// device.  Split route (fused == 0): the blocks of the less-occupying of
+// its two kernels, one wave.  Fused route: the blocks of its kernel (the
+// largest grid its cooperative launch takes) and the shared memory each
+// block may stage rows in without lowering that count; also raises the
+// kernel's dynamic shared-memory limit to match.
+extern "C" int dctseg_fusednorm_coresident(int dtype, int vec, int fused,
+                                           int res, int* blocks,
+                                           int* stage_bytes) {
+  const void* k = fused ? pick<kFused>(dtype, vec, res)
+                        : pick<kStats>(dtype, vec, res);
+  const void* apply = fused ? k : pick<kApply>(dtype, vec, res);
+  if (!k) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, optin = 0, sm_smem = 0, per_sm = 0, per_sm2 = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         dev);
+  if (!err) err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!err) err = cudaDeviceGetAttribute(
+      &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (!err) err = blocks_per_sm(k, 0, &per_sm);
+  if (!err) err = blocks_per_sm(apply, 0, &per_sm2);
+  if (!err) err = cudaFuncGetAttributes(&attr, k);
+  if (err) return err;
+  per_sm = min(per_sm, per_sm2);
+  *blocks = per_sm * sms;
+  *stage_bytes = 0;
+  if (!fused || per_sm < 1) return cudaSuccess;
+  const int room = optin - (int)attr.sharedSizeBytes;
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             room);
+  // the block's share of the SM, less its static part (and the 1 KB the
+  // SM reserves per block), in whole 4 KB steps, as long as the count holds
+  int bytes = max(0, min(room, sm_smem / per_sm - 1024 -
+                                   (int)attr.sharedSizeBytes)) & ~4095;
+  int with = 0;
+  while (!err && bytes > 0 && !(err = blocks_per_sm(k, bytes, &with)) &&
+         with < per_sm)
+    bytes -= 4096;
+  *stage_bytes = bytes;
+  return err;
 }
 
-extern "C" int dctseg_fusednorm_apply(const void* x, const void* ab,
-                                      const void* res, void* out, int n,
-                                      long s, int c, int act, float slope,
-                                      int dtype, int vec, void* stream) {
+// args (int64, ops/fusednorm.py _launch): x, residual (0 for none), out,
+// ab, partial, tickets, flags, n, s, c, f, bps, slots, rows_per_block, act,
+// dtype, vec, fused, epoch.  The wrapper guarantees c / vec <= 256, f | c,
+// s * c < 2^31, 16-byte pointers where vec > 1, and for the fused route a
+// grid of bps * slots co-resident blocks.
+extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
+                                void* stream) {
+  Params p;
+  p.x = reinterpret_cast<const void*>(a[0]);
+  p.res = reinterpret_cast<const void*>(a[1]);
+  p.out = reinterpret_cast<void*>(a[2]);
+  p.ab = reinterpret_cast<float*>(a[3]);
+  p.partial = reinterpret_cast<float*>(a[4]);
+  p.tickets = reinterpret_cast<unsigned*>(a[5]);
+  p.flags = reinterpret_cast<unsigned*>(a[6]);
+  p.n = (int)a[7];
+  p.s = (int)a[8];
+  p.c = (int)a[9];
+  p.f = (int)a[10];
+  p.bps = (int)a[11];
+  const int slots = (int)a[12];
+  p.rows_per_block = (int)a[13];
+  p.act = (int)a[14];
+  const int dtype = (int)a[15], vec = (int)a[16];
+  const bool fused = a[17] != 0;
+  p.epoch = (unsigned)a[18];
+  p.staged = (int)a[19];
+  p.eps = eps;
+  p.slope = slope;
+  const bool res = p.res != nullptr;
+  if (p.c % vec || p.c / vec > kThreads || p.f < 1 || p.c % p.f ||
+      p.bps < 1 || slots < 1 || slots > 65535 || p.staged < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32 && vec == 4)
-    return launch_apply<float, 4>(x, ab, res, out, n, s, c, act, slope, st);
-  if (dtype == kF32 && vec == 1)
-    return launch_apply<float, 1>(x, ab, res, out, n, s, c, act, slope, st);
-  if (dtype == kBF16 && vec == 8)
-    return launch_apply<__nv_bfloat16, 8>(x, ab, res, out, n, s, c, act, slope, st);
-  if (dtype == kBF16 && vec == 1)
-    return launch_apply<__nv_bfloat16, 1>(x, ab, res, out, n, s, c, act, slope, st);
-  if (dtype == kF16 && vec == 8)
-    return launch_apply<__half, 8>(x, ab, res, out, n, s, c, act, slope, st);
-  if (dtype == kF16 && vec == 1)
-    return launch_apply<__half, 1>(x, ab, res, out, n, s, c, act, slope, st);
-  return cudaErrorInvalidValue;
+  const dim3 block(kThreads);
+  void* args[] = {&p};
+  if (fused) {
+    const void* k = pick<kFused>(dtype, vec, res);
+    if (!k) return cudaErrorInvalidValue;
+    const size_t pack = (size_t)vec * (dtype == kF32 ? 4 : 2);
+    return cudaLaunchCooperativeKernel(k, dim3(p.bps, slots), block, args,
+                                       (size_t)p.staged * kThreads * pack, st);
+  }
+  const void* stats = pick<kStats>(dtype, vec, false);
+  const void* apply = pick<kApply>(dtype, vec, res);
+  if (!stats || slots != p.n || p.staged) return cudaErrorInvalidValue;
+  cudaError_t err = cudaLaunchKernel(stats, dim3(p.bps, p.n), block, args, 0,
+                                     st);
+  if (err) return err;
+  return cudaLaunchKernel(apply, dim3(p.bps, p.n), block, args, 0, st);
 }
 
 // The message of an error code returned by any entry of the library

@@ -99,13 +99,14 @@ def build() -> Path:
 
 _vp, _int, _long = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
-    # (x, out_ab, partial, counter, n, s, c, fine, splits, rows_per_split,
-    #  eps, dtype, vec, stream)
-    "dctseg_fusednorm_stats": [_vp, _vp, _vp, _vp, _int, _long, _int, _int,
-                               _int, _long, ctypes.c_float, _int, _int, _vp],
-    # (x, ab, residual, out, n, s, c, act, slope, dtype, vec, stream)
-    "dctseg_fusednorm_apply": [_vp, _vp, _vp, _vp, _int, _long, _int, _int,
-                               ctypes.c_float, _int, _int, _vp],
+    # (int64 args: x, residual, out, ab, partial, tickets, flags, n, s, c,
+    #  f, blocks, slots, rows_per_block, act, dtype, vec, fused, epoch,
+    #  staged; eps, slope, stream)
+    "dctseg_fusednorm": [_vp, ctypes.c_float, ctypes.c_float, _vp],
+    # (dtype, vec, fused, residual, &blocks, &stage_bytes)
+    "dctseg_fusednorm_coresident": [_int, _int, _int, _int,
+                                    ctypes.POINTER(_int),
+                                    ctypes.POINTER(_int)],
     # (int64 args: q, k, v, out, b, h, n, n2, d, 9 strides, dtype, kernel;
     #  scale, stream)
     "dctseg_attention_fwd": [_vp, ctypes.c_float, _vp],
@@ -113,8 +114,9 @@ _SIGNATURES = {
     "dctseg_minplus_pass": [_vp, _vp, _long, _int, _long, _vp],
     # (x, out, rows, d, stream)
     "dctseg_minplus_pass_minor": [_vp, _vp, _long, _int, _vp],
-    # (values, cuts, out, c, m, t, stream)
-    "dctseg_count_leq": [_vp, _vp, _vp, _int, _long, _int, _vp],
+    # (int64 args: values, cuts, ranks, counts, tickets, bounds, out, c, m,
+    #  t, k, pass, last, narrow; vmax, stream)
+    "dctseg_orderstats": [_vp, ctypes.c_float, _vp],
     # (x, out, n, d, h, w, c, in_dtype, out_dtype, vec, stream)
     "dctseg_space_to_depth": [_vp, _vp, _int, _int, _int, _int, _int, _int,
                               _int, _int, _vp],

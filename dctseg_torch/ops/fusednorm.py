@@ -2,26 +2,44 @@
 ``dctseg/ops/pallas/fusednorm.py`` ``fused_instance_norm_act``.
 
 On a CUDA tensor the wrapper launches the hand-written kernel of
-``dctseg_torch/csrc/fusednorm.cu`` (a stats pass and an apply pass) or
-raises; on a CPU tensor it runs the plain PyTorch version below, which
-follows the kernel's order of operations: f32 per-lane sums, offsets
-folded onto fine channels, y = x*a + b, activation in f32, cast, then the
-residual added in the output dtype.  (The JAX package's XLA twin casts
-before the activation; the two differ only where a bf16 rounding crosses
-zero.)
+``dctseg_torch/csrc/fusednorm.cu`` or raises; on a CPU tensor it runs the
+plain PyTorch version below, which follows the kernel's order of
+operations: f32 per-lane sums, offsets folded onto fine channels,
+y = x*a + b, activation in f32, cast, then the residual added in the output
+dtype.  (The JAX package's XLA twin casts before the activation; the two
+differ only where a bf16 rounding crosses zero.)
+
+The kernel runs by one of two routes, which :func:`plan_launch` picks from
+the shape alone: ``fused``, one cooperative launch in which each sample's
+blocks meet at a barrier between the statistics and the apply (where the
+samples in flight fit in L2), or ``split``, a statistics launch and an
+apply launch.  Its workspace (partial sums, scales and shifts, tickets and
+flags) is kept per (device, stream) and grows on demand; the kernel leaves
+the tickets at zero, so no call allocates or fills anything but its
+output.
 """
 
 from __future__ import annotations
 
+import array
+import ctypes
+import functools
+import itertools
 import math
+from typing import NamedTuple
 
 import torch
 
 from dctseg_torch.ops import _build
 
 ACTS = {"none": 0, "relu": 1, "lrelu": 2}
-_THREADS = 256          # csrc/fusednorm.cu kThreads
-_STATS_BLOCKS = 528     # stats-pass blocks to aim for: 4 per SM on 132 SMs
+THREADS = 256           # csrc/fusednorm.cu kThreads
+# The fused route runs where all samples fit in its blocks' staging shared
+# memory plus this much of the H100's 50 MB L2, so the apply's second read
+# of x stays on the chip; larger tensors take the split route.
+FUSED_L2_BYTES = 40 << 20
+ROUTES = ("fused", "split")
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 
 
 def _act(y: torch.Tensor, act: str, slope: float) -> torch.Tensor:
@@ -55,6 +73,96 @@ def fused_instance_norm_act_plain(x: torch.Tensor, fine_channels: int,
     return y + residual if residual is not None else y
 
 
+class LaunchPlan(NamedTuple):
+    """How one call runs: ``slots`` samples in flight (grid y), each cut
+    into ``blocks`` chunks of ``rows_per_block`` rows (grid x), a block's
+    threads covering ``rows_per_iter`` rows at a time; sample n runs on
+    slot n % slots.  On the fused route each thread keeps its first
+    ``staged`` rows in shared memory for the apply.  ``workspace_bytes``:
+    partial sums, scales and shifts, tickets and flags."""
+    route: str
+    blocks: int
+    slots: int
+    rows_per_block: int
+    rows_per_iter: int
+    staged: int
+    workspace_bytes: int
+    launches: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_launch(n: int, s: int, c: int, itemsize: int, vec: int,
+                fused_blocks: int, split_blocks: int, stage_bytes: int,
+                route: str | None = None) -> LaunchPlan:
+    """The launch plan for x of shape (n, s, c) with ``itemsize`` bytes an
+    element moved ``vec`` lanes at a time, on a card that holds
+    ``fused_blocks`` blocks of the fused kernel, each with ``stage_bytes``
+    of shared memory to keep rows in, or ``split_blocks`` of each split
+    kernel, at once.  ``route`` forces 'fused' or 'split'; by default the
+    fused route runs where all n samples fit in the staging memory plus
+    FUSED_L2_BYTES.  Forced onto larger tensors, the fused route takes the
+    samples in turns, as many at a time as fit.  Both grids fill the card
+    in one wave, and the fused grid never exceeds ``fused_blocks`` (its
+    blocks wait for each other)."""
+    if min(fused_blocks, split_blocks) < 1 or c % vec or c // vec > THREADS:
+        raise ValueError(f"no plan for c={c}, vec={vec}, "
+                         f"blocks={fused_blocks, split_blocks}")
+    rows_per_iter = THREADS // (c // vec)
+    sample_bytes = s * c * itemsize
+    on_chip = fused_blocks * stage_bytes + FUSED_L2_BYTES
+    if route is None:
+        route = "fused" if n * sample_bytes <= on_chip else "split"
+    if route == "fused":
+        slots = min(n, fused_blocks, max(1, on_chip // sample_bytes))
+        slots = math.ceil(n / math.ceil(n / slots))   # even waves
+        blocks = fused_blocks // slots
+    elif route == "split":
+        slots = n
+        blocks = max(1, split_blocks // n)
+    else:
+        raise ValueError(f"unknown route {route!r}; expected one of "
+                         f"{ROUTES}")
+    # whole iterations of the block's threads, no empty block
+    rows = math.ceil(math.ceil(s / blocks) / rows_per_iter) * rows_per_iter
+    blocks = math.ceil(s / rows)
+    staged = 0
+    if route == "fused":
+        staged = min(rows // rows_per_iter,
+                     stage_bytes // (THREADS * vec * itemsize))
+    floats = 2 * n * c * (1 + blocks)
+    return LaunchPlan(route, blocks, slots, rows, rows_per_iter, staged,
+                      4 * (floats + 2 * n), 1 if route == "fused" else 2)
+
+
+class _Workspace:
+    """One (device, stream)'s scratch: ``floats`` holds the scales and
+    shifts ([n][2][c]) then the partial sums ([n][blocks][2][c]);
+    ``counters`` the tickets ([ncap], zero between calls) then the flags
+    ([ncap], the epoch of the last fused call to finish each sample)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.floats = torch.empty(0, dtype=torch.float32, device=device)
+        self.counters = torch.zeros(0, dtype=torch.int32, device=device)
+
+    def reserve(self, n: int, floats: int) -> None:
+        if self.floats.numel() < floats:
+            self.floats = torch.empty(max(floats, 2 * self.floats.numel()),
+                                      dtype=torch.float32, device=self.device)
+        if self.counters.numel() < 2 * n:
+            # zeroed once here; each call's last blocks return the tickets
+            # to zero, and flags only ever take fresh epochs
+            self.counters = torch.zeros(2 * max(n, self.counters.numel()),
+                                        dtype=torch.int32, device=self.device)
+
+
+_workspaces: dict = {}           # (device index, stream) -> _Workspace
+# (device index, dtype code, vec, fused, residual) -> (blocks, stage bytes)
+_coresident: dict = {}
+# a fresh epoch per fused call, 1 .. 2^32 - 1 (next() is atomic)
+_epochs = itertools.count(1)
+
+
 def _check(x, fine_channels, act, residual):
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; expected one of {list(ACTS)}")
@@ -64,75 +172,112 @@ def _check(x, fine_channels, act, residual):
             f"{tuple(x.shape)}, fine_channels={fine_channels}")
     if residual is not None and (residual.shape != x.shape
                                  or residual.dtype != x.dtype
-                                 or residual.device != x.device):
+                                 or residual.is_cuda != x.is_cuda
+                                 or residual.get_device() != x.get_device()):
         raise ValueError("residual must match x in shape, dtype and device")
 
 
 def fused_instance_norm_act(x: torch.Tensor, fine_channels: int,
                             eps: float = 1e-5, act: str = "none",
                             slope: float = 0.01,
-                            residual: torch.Tensor | None = None
-                            ) -> torch.Tensor:
+                            residual: torch.Tensor | None = None,
+                            route: str | None = None) -> torch.Tensor:
     """InstanceNorm (affine-free, per fine channel) + activation (+ residual
     added after the activation).
 
     ``x``: (N, *spatial, C), C = O * fine_channels, lane o*fine_channels + c
     belonging to fine channel c.  ``act``: 'none' | 'relu' | 'lrelu'.
-    On CUDA, ``x`` and ``residual`` must be contiguous (channels last).
+    On CUDA, ``x`` and ``residual`` must be contiguous (channels last);
+    ``route`` forces the kernel's 'fused' or 'split' route (default: the
+    plan's), which changes nothing but the time.
     """
     _check(x, fine_channels, act, residual)
-    if x.device.type == "cpu":
-        return fused_instance_norm_act_plain(x, fine_channels, eps, act,
-                                             slope, residual)
-    if x.device.type != "cuda":
+    if x.is_cuda:
+        return _launch(x, fine_channels, eps, act, slope, residual, route)
+    if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
-    return _launch(x, fine_channels, eps, act, slope, residual)
+    return fused_instance_norm_act_plain(x, fine_channels, eps, act, slope,
+                                         residual)
 
 
 fused_instance_norm_act.launches = 0   # kernel launches on CUDA tensors
 
 
-def _launch(x, fine_channels, eps, act, slope, residual):
+def vector_width(x: torch.Tensor, *others) -> int:
+    """Lanes per 16-byte load for the kernel: 16 bytes' worth where C and
+    every pointer allow it, else 1."""
+    vec = 16 // x.element_size()
+    aligned = not any(t.data_ptr() % 16 for t in (x, *others))
+    return vec if x.shape[-1] % vec == 0 and aligned else 1
+
+
+def coresident(device: int, dtype: torch.dtype, vec: int, fused: bool,
+               res: bool) -> tuple:
+    """(blocks, stage bytes): the blocks of the fused kernel (or of each
+    split kernel) for ``dtype``, with or without a residual, that CUDA
+    device ``device`` holds at once, and the shared memory a fused block
+    may keep rows in.  An occupancy query, once per device, dtype, width,
+    route and residual."""
+    key = (device, _build.dtype_code(dtype), vec, fused, res)
+    found = _coresident.get(key)
+    if found is None:
+        blocks, stage = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(_build.lib().dctseg_fusednorm_coresident(
+            key[1], vec, fused, res, ctypes.byref(blocks),
+            ctypes.byref(stage)), "fusednorm occupancy")
+        found = _coresident[key] = (blocks.value, stage.value)
+    return found
+
+
+@functools.lru_cache(maxsize=256)
+def plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
+             device: int, route: str | None = None) -> LaunchPlan:
+    """The plan of a call on CUDA device ``device``: x of ``shape`` and
+    ``dtype`` moved ``vec`` lanes at a time, with or without a residual."""
+    n, c = shape[0], shape[-1]
+    if c // vec > THREADS:
+        raise ValueError(f"fusednorm kernel takes C <= {THREADS * vec} "
+                         f"channels here; got C={c}")
+    fused_blocks, stage_bytes = coresident(device, dtype, vec, True, res)
+    split_blocks = coresident(device, dtype, vec, False, res)[0]
+    return plan_launch(n, math.prod(shape) // (n * c), c,
+                       _ITEMSIZE[dtype], vec, fused_blocks,
+                       split_blocks, stage_bytes, route)
+
+
+def _launch(x, fine_channels, eps, act, slope, residual, route):
     if not x.is_contiguous() or (residual is not None
                                  and not residual.is_contiguous()):
         raise ValueError("the fusednorm kernel takes contiguous "
                          "(N, *spatial, C) tensors (channels last)")
-    dtype = _build.dtype_code(x.dtype)
-    n, c = x.shape[0], x.shape[-1]
-    s = x.numel() // (n * c)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    vec = 16 // x.element_size()
-    ptrs = [x.data_ptr(), out.data_ptr()] + (
-        [residual.data_ptr()] if residual is not None else [])
-    if c % vec or any(p % 16 for p in ptrs):
-        vec = 1
-    groups = c // vec
-    if groups > _THREADS:
-        raise ValueError(f"fusednorm kernel takes C <= {_THREADS * vec} "
-                         f"channels here; got C={c}")
-    rows_per_iter = _THREADS // groups
-    splits = max(1, min(math.ceil(_STATS_BLOCKS / n),
-                        math.ceil(s / rows_per_iter)))
-    rows_per_split = math.ceil(s / splits)
-    splits = math.ceil(s / rows_per_split)
-
-    lib = _build.lib()
+    n, c = x.shape[0], x.shape[-1]
+    if x.numel() >= 2 ** 31 * n or n > 65535:
+        raise ValueError("fusednorm kernel takes < 2^31 elements a sample "
+                         "and at most 65535 samples")
+    vec = vector_width(x, out, *(() if residual is None else (residual,)))
+    device = x.get_device()
+    plan = plan_for(tuple(x.shape), x.dtype, vec, residual is not None,
+                    device, route)
     stream = _build.stream_of(x)
-    ab = torch.empty((n, 2, c), device=x.device, dtype=torch.float32)
-    partial = torch.empty((n, splits, 2, c), device=x.device,
-                          dtype=torch.float32)
-    counter = torch.zeros((n,), device=x.device, dtype=torch.int32)
-    _build.check(lib.dctseg_fusednorm_stats(
-        x.data_ptr(), ab.data_ptr(), partial.data_ptr(), counter.data_ptr(),
-        n, s, c, fine_channels, splits, rows_per_split, eps, dtype, vec,
-        stream), "fusednorm stats")
-    fused_instance_norm_act.launches += 1
-    _build.check(lib.dctseg_fusednorm_apply(
-        x.data_ptr(), ab.data_ptr(),
-        residual.data_ptr() if residual is not None else None,
-        out.data_ptr(), n, s, c, ACTS[act], slope, dtype, vec, stream),
-        "fusednorm apply")
-    fused_instance_norm_act.launches += 1
+    ws = _workspaces.get((device, stream))
+    if ws is None:
+        ws = _workspaces[device, stream] = _Workspace(x.device)
+    floats = 2 * n * c * (1 + plan.blocks)
+    ws.reserve(n, floats)
+    fp, cp = ws.floats.data_ptr(), ws.counters.data_ptr()
+    ncap = ws.counters.numel() // 2
+    fused = plan.route == "fused"
+    args = array.array("q", (
+        x.data_ptr(), 0 if residual is None else residual.data_ptr(),
+        out.data_ptr(), fp, fp + 4 * 2 * n * c, cp, cp + 4 * ncap,
+        n, x.numel() // (n * c), c, fine_channels, plan.blocks, plan.slots,
+        plan.rows_per_block, ACTS[act], _build.dtype_code(x.dtype), vec,
+        fused, (next(_epochs) - 1) % 0xFFFFFFFF + 1 if fused else 0,
+        plan.staged))
+    _build.check(_build.lib().dctseg_fusednorm(
+        args.buffer_info()[0], eps, slope, stream), "fusednorm")
+    fused_instance_norm_act.launches += plan.launches
     return out

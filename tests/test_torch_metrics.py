@@ -209,6 +209,107 @@ def test_count_leq_plain_counts():
     assert orderstats.count_leq(vals, cuts).dtype == torch.int32
 
 
+def _search_rehearsal(vals, ks, vmax):
+    """The CUDA kernel's search mode (csrc/orderstats.cu search_kernel),
+    pass by pass: the cuts and the narrowing scalar by scalar in float32,
+    the counts as the kernel takes them -- a float4 whose smallest value is
+    above every rank's hi skips, a value at or below lo - 1 counts once for
+    all 7 cuts of its rank, one above hi for none, the rest against each
+    cut -- with the counts compared to the ranks as integers."""
+    f32 = np.float32
+    c, m = vals.shape
+    k = ks.shape[1]
+    steps = orderstats.FANOUT - 1
+    quads = np.full((c, -(-m // 4) * 4), np.nan, np.float32)
+    quads[:, :m] = vals
+    if m % 4:                      # the scalar-load instantiation
+        quads = np.full((c, 4 * m), np.nan, np.float32)
+        quads[:, ::4] = vals
+    quads = quads.reshape(c, -1, 4)
+    bounds = [[(f32(0), f32(vmax))] * k for _ in range(c)]
+    passes = orderstats._passes(vmax)
+    out = np.zeros((c, k), np.float32)
+    for p in range(passes):
+        for ci in range(c):
+            cuts = []
+            for r in range(k):
+                lo, hi = bounds[ci][r]
+                length = hi - lo + f32(1)
+                cuts.append([lo - f32(1) + np.floor(f32(s) * length / f32(8))
+                             for s in range(1, steps + 1)])
+            cmax = max(hi for _, hi in bounds[ci])
+            live = np.fmin.reduce(quads[ci], axis=1) <= cmax
+            x = quads[ci][live].reshape(-1)
+            for r in range(k):
+                lo, hi = bounds[ci][r]
+                below = x <= lo - f32(1)
+                inside = ~below & (x <= hi)
+                counts = [int(below.sum()) + int((x[inside] <= cut).sum())
+                          for cut in cuts[r]]
+                need = int(ks[ci, r]) + 1
+                new_lo, new_hi = lo, hi
+                for cs, cnt in zip(cuts[r], counts):
+                    ok = cnt >= need
+                    new_lo = max(new_lo, lo if ok else cs + f32(1))
+                    new_hi = min(new_hi, cs if ok else hi)
+                bounds[ci][r] = (f32(new_lo), f32(new_hi))
+                if p == passes - 1:
+                    out[ci, r] = new_hi
+    return out
+
+
+def _search_case(kind):
+    """Small pools with the edge cases of the search: ties, all masked,
+    one finite value, ranks 0 and n - 1, a row length not a multiple of
+    4."""
+    rng = np.random.default_rng(len(kind))
+    inf = np.float32(edt.INF)
+    if kind == "ties":
+        vals = np.where(rng.random((3, 512)) < 0.5, 7.0, inf)
+        vals[1, :100] = 3.0
+    elif kind == "all_masked":
+        vals = np.full((3, 256), inf)
+    elif kind == "one_value":
+        vals = np.full((3, 300), inf)
+        vals[:, 17] = [0.0, 42.0, VMAX - 1]
+    elif kind == "extreme_ranks":
+        vals = np.where(rng.random((3, 1000)) < 0.3,
+                        rng.integers(0, 195075, (3, 1000)), inf)
+    else:                                   # "odd_length"
+        vals = np.where(rng.random((2, 333)) < 0.4,
+                        rng.integers(0, 2500, (2, 333)), inf)
+    vals = vals.astype(np.float32)
+    n = (vals < VMAX).sum(1)
+    if kind == "extreme_ranks":
+        ks = np.stack([np.zeros_like(n), n - 1], 1)
+    else:
+        ks = metrics.percentile_ranks(torch.from_numpy(n.astype(np.int32)))
+        ks = ks.numpy()
+    return vals, ks.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["ties", "all_masked", "one_value",
+                                  "extreme_ranks", "odd_length"])
+def test_search_kernel_rehearsal_matches_plain_binary_and_pallas(kind):
+    """The kernel's search rehearsed in Python equals the torch search the
+    CPU runs, its plain version, the binary search and the JAX Pallas
+    search in interpret mode."""
+    vals, ks = _search_case(kind)
+    got = _search_rehearsal(vals, ks, VMAX)
+    tv, tk = torch.from_numpy(vals), torch.from_numpy(ks)
+    np.testing.assert_array_equal(
+        got, orderstats.masked_order_stats(tv, tk, VMAX).numpy())
+    np.testing.assert_array_equal(
+        got, orderstats.masked_order_stats_plain(tv, tk, VMAX).numpy())
+    np.testing.assert_array_equal(
+        got, edt.binary_search_order_stats(tv, tk, VMAX).numpy())
+    np.testing.assert_array_equal(got, np.asarray(
+        jax_orderstats.masked_order_stats(jnp.asarray(vals), jnp.asarray(ks),
+                                          VMAX, tile_rows=4, interpret=True)))
+    if kind == "all_masked":
+        assert (got == VMAX).all()
+
+
 @pytest.mark.parametrize("shape", [(16, 16, 16), (13, 17, 9), (1, 5, 6, 7)])
 def test_erode_cross_and_surface_match_jax_and_scipy(shape):
     m = _mask(shape, 1, p=0.6)
@@ -296,9 +397,11 @@ def test_host_metrics_match_jax():
 def test_cpu_wrappers_launch_nothing():
     minplus.minplus_pass.launches = 0
     orderstats.count_leq.launches = 0
+    orderstats.masked_order_stats.launches = 0
     metrics.DeviceMetrics(device="cpu")(_blobby_labels(3), _blobby_labels(4))
     assert minplus.minplus_pass.launches == 0
     assert orderstats.count_leq.launches == 0
+    assert orderstats.masked_order_stats.launches == 0
 
 
 def test_wrappers_reject_bad_arguments():
