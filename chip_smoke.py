@@ -6,8 +6,10 @@ Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from dctseg_torch/csrc/ (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it: fusednorm (on both of its routes, one
-     launch and two, with two calls bitwise equal), attention (forward in f32,
+     shapes the main paths give it: fusednorm (on the route its launch plan
+     picks at each width, one launch at the small widths and two at the
+     large ones and the s2d views, with two calls bitwise equal, and the
+     plan's launches per forward pinned), attention (forward in f32,
      bf16 and f16, contiguous and as strided views of one (B, N, 3, H, D)
      tensor, N2 = N and N2 != N, asserting which of its two kernels ran:
      tensor cores for bf16 and f16, SIMT for f32; and its backward against
@@ -28,8 +30,8 @@ Phases (any failure raises and the script exits non-zero):
          seeded 240x240x160x4 volumes, on the direct path and on the s2d
          path (its 13 attention calls per volume on the tensor-core
          kernel), then one B=8 bf16 forward under torch.profiler for the
-         fusednorm kernel's device time in context and the copies around
-         it;
+         fusednorm kernel's device time in context (its launches checked
+         against the plan's, and no norm input copied around it);
        - evaluation: DeviceMetrics on the card against the host scipy
          metrics (exact) on 2 synthetic 128^3 label pairs in both HD95
          modes, then the evaluate CLI (dctseg_torch.cli.evaluate:
@@ -100,6 +102,10 @@ NORM_WIDTHS = [(128, 16), (64, 32), (32, 64), (16, 128)]
 NORM_CALLS = {"nores": 6, "res": 2}
 # the levels (spatial edge) that run on the s2d view on the s2d path
 S2D_LEVELS = (128, 64)
+# fusednorm launches per B=8 forward on the H100, on either path: the plan
+# runs 32^3x64 and 16^3x128 fused (1 launch) in bf16, 16^3x128 only in f32,
+# the rest split (2 launches)
+NORM_LAUNCHES = {torch.bfloat16: 48, torch.float32: 56}
 ATTN_SHAPE = (8, 8, 129, 64)     # B, heads, top_num + 1, head dim
 ATTN_CALLS = 13                  # 3 couplers x 4 + the fusion coupler
 VOLUME = (1, 240, 240, 160, 4)
@@ -210,11 +216,27 @@ def gen(dev, seed):
 
 # ---------------------------------------------------------------- phase 3
 
+def check_norm_plan():
+    """The launch plan's fusednorm launches per B=8 forward, on the direct
+    and the s2d path, against the counts pinned in NORM_LAUNCHES: a plan
+    that changes a route at a main-path width shows here."""
+    for dt, want in NORM_LAUNCHES.items():
+        for s2d in (False, True):
+            got = norm_launches(dt, s2d)
+            log(check="fusednorm_plan", dtype=str(dt), s2d=s2d,
+                launches_per_forward=got, pinned=want, ok=got == want)
+            if got != want:
+                raise AssertionError(
+                    f"fusednorm plan: {got} launches per {dt} forward "
+                    f"(s2d={s2d}), pinned {want}")
+
+
 def check_fusednorm(dev, widths, batch=8):
     """Kernel vs plain version at the main path's B=8 shapes (the kernel's
-    partition of each sample depends on the batch), on both of its routes
-    (the planned one and the other), with a second call bitwise equal to
-    the first (every f32 sum in a fixed order).
+    partition of each sample depends on the batch), on the route its plan
+    picks (fused at the small widths, split at the large ones and the s2d
+    views; both must occur), with a second call bitwise equal to the first
+    (every f32 sum in a fixed order).
 
     f32: within 1e-4.  The kernel's f32 statistics differ from the plain
     version's in the last bits, so y = x*a + b differs by some delta.
@@ -237,7 +259,7 @@ def check_fusednorm(dev, widths, batch=8):
               ((batch, 16, 16, 16, 128), 16, "lrelu", True),
               ((batch, 8, 8, 8, 24), 3, "none", True),
               ((batch, 8, 8, 8, 12), 12, "relu", False)]
-    worst_bf16 = 0.0
+    worst_bf16, routes = 0.0, set()
     for shape, fine, act, with_res in cases:
         x32 = torch.randn(shape, device=dev, generator=g) * 3 + 1
         r32 = torch.randn(shape, device=dev, generator=g)
@@ -246,48 +268,47 @@ def check_fusednorm(dev, widths, batch=8):
             want = fusednorm.fused_instance_norm_act_plain(x, fine, act=act,
                                                            residual=r)
             vec = fusednorm.vector_width(x)
-            planned = fusednorm.plan_for(shape, dt, vec, with_res, 0).route
-            for route in (planned, ) + tuple(
-                    o for o in fusednorm.ROUTES if o != planned):
-                before = fusednorm.fused_instance_norm_act.launches
-                got = fusednorm.fused_instance_norm_act(
-                    x, fine, act=act, residual=r, route=route)
-                launched = fusednorm.fused_instance_norm_act.launches - before
-                again = fusednorm.fused_instance_norm_act(
-                    x, fine, act=act, residual=r, route=route)
-                bitwise = torch.equal(got, again)
-                err = (got.float() - want.float()).abs()
-                over_ulps = None
-                if dt == torch.float32:
-                    ok, tol = bool(err.max() <= 1e-4), "atol 1e-4"
-                else:
-                    ulps = bf16_ulp(torch.maximum(got.float().abs(),
-                                                  want.float().abs()))
-                    tol = "1e-4 + 1 bf16 ulp of the output"
-                    if with_res:
-                        pre = fusednorm.fused_instance_norm_act_plain(
-                            x, fine, act=act)
-                        ulps = ulps + bf16_ulp(pre.float())
-                        tol += " + 1 of the activation"
-                    ok = bool((err <= 1e-4 + ulps).all())
-                    # elements that only the absolute term admits
-                    over_ulps = int((err > ulps).sum())
-                    if shape[-1] == fine and shape[1:] != (8, 8, 8, 12):
-                        worst_bf16 = max(worst_bf16, err.max().item())
-                ok = ok and bitwise and launched == (1 if route == "fused"
-                                                     else 2)
-                log(check="fusednorm", shape=list(shape), fine=fine, act=act,
-                    residual=with_res, dtype=str(dt), route=route,
-                    planned=route == planned, launches=launched,
-                    max_abs_err=err.max().item(),
-                    differing=(err > 0).float().mean().item(),
-                    over_ulps=over_ulps, bitwise_repeat=bitwise, tol=tol,
-                    ok=ok)
-                if not ok:
-                    raise AssertionError(
-                        f"fusednorm kernel disagrees: {shape} {fine} {act} "
-                        f"{with_res} {dt} {route}")
-                del got, again, err
+            route = fusednorm.plan_for(shape, dt, vec, with_res, 0).route
+            routes.add(route)
+            before = fusednorm.fused_instance_norm_act.launches
+            got = fusednorm.fused_instance_norm_act(x, fine, act=act,
+                                                    residual=r)
+            launched = fusednorm.fused_instance_norm_act.launches - before
+            again = fusednorm.fused_instance_norm_act(x, fine, act=act,
+                                                      residual=r)
+            bitwise = torch.equal(got, again)
+            err = (got.float() - want.float()).abs()
+            over_ulps = None
+            if dt == torch.float32:
+                ok, tol = bool(err.max() <= 1e-4), "atol 1e-4"
+            else:
+                ulps = bf16_ulp(torch.maximum(got.float().abs(),
+                                              want.float().abs()))
+                tol = "1e-4 + 1 bf16 ulp of the output"
+                if with_res:
+                    pre = fusednorm.fused_instance_norm_act_plain(
+                        x, fine, act=act)
+                    ulps = ulps + bf16_ulp(pre.float())
+                    tol += " + 1 of the activation"
+                ok = bool((err <= 1e-4 + ulps).all())
+                # elements that only the absolute term admits
+                over_ulps = int((err > ulps).sum())
+                if shape[-1] == fine and shape[1:] != (8, 8, 8, 12):
+                    worst_bf16 = max(worst_bf16, err.max().item())
+            ok = ok and bitwise and launched == (1 if route == "fused"
+                                                 else 2)
+            log(check="fusednorm", shape=list(shape), fine=fine, act=act,
+                residual=with_res, dtype=str(dt), route=route,
+                launches=launched, max_abs_err=err.max().item(),
+                differing=(err > 0).float().mean().item(),
+                over_ulps=over_ulps, bitwise_repeat=bitwise, tol=tol, ok=ok)
+            if not ok:
+                raise AssertionError(
+                    f"fusednorm kernel disagrees: {shape} {fine} {act} "
+                    f"{with_res} {dt} {route}")
+            del got, again, err
+    if routes != {"fused", "split"}:
+        raise AssertionError(f"fusednorm checked on routes {routes} only")
     torch.cuda.synchronize()
     return worst_bf16
 
@@ -909,8 +930,7 @@ def time_fusednorm(dev, widths, batch=8, iters=10):
     """Per-width ms of the kernel (call time back to back, CUDA events, and
     the card's own time, queued_ms), its plain version and the
     library's InstanceNorm + act (+ add), bf16, at the main path's B=8
-    shapes; also the call and device time of the route the plan did not
-    pick."""
+    shapes, on the route the plan picks at each."""
     g = gen(dev, SEED + 3)
     rows = []
     for edge, c in widths:
@@ -922,15 +942,14 @@ def time_fusednorm(dev, widths, batch=8, iters=10):
         for kind, res in (("nores", None), ("res", r)):
             act = "relu" if res is None else "lrelu"
             plan = fusednorm.plan_for(shape, x.dtype, 8, res is not None, 0)
-            other = next(o for o in fusednorm.ROUTES if o != plan.route)
             row[f"{kind}_route"] = plan.route
             row[f"{kind}_launches"] = plan.launches
-            for route, key in ((None, kind), (other, f"{kind}_{other}")):
-                def call():
-                    return fusednorm.fused_instance_norm_act(
-                        x, c, act=act, residual=res, route=route)
-                row[f"{key}_ms"] = time_ms(call, iters)
-                row[f"{key}_device_ms"] = queued_ms(call, iters)
+
+            def call():
+                return fusednorm.fused_instance_norm_act(x, c, act=act,
+                                                         residual=res)
+            row[f"{kind}_ms"] = time_ms(call, iters)
+            row[f"{kind}_device_ms"] = queued_ms(call, iters)
             row[f"{kind}_plain_ms"] = time_ms(
                 lambda: fusednorm.fused_instance_norm_act_plain(
                     x, c, act=act, residual=res), max(2, iters // 4))
@@ -956,7 +975,8 @@ def profile_forward(predictor, vol):
     the forward's device busy time, the copy kernels (aten::copy_) of the
     whole forward, and how many norm calls got a non-contiguous input or
     residual, which the UNet's .contiguous() would copy around the
-    kernel."""
+    kernel.  Fails unless the profiler saw the plan's launches and no norm
+    input was copied."""
     x = Predictor.crops(vol)
     predictor.seg_probs(x)
     torch.cuda.synchronize()
@@ -990,6 +1010,12 @@ def profile_forward(predictor, vol):
                copy_device_ms=sum(r.self_device_time_total
                                   for r in copies) / 1e3)
     log(timing="fusednorm_in_forward", **row)
+    if (row["fusednorm_kernels"] != row["expected_fusednorm_kernels"]
+            or row["norm_calls_copying_input"]):
+        raise AssertionError(
+            f"fusednorm in the profiled forward: {row['fusednorm_kernels']} "
+            f"kernels (plan {row['expected_fusednorm_kernels']}), "
+            f"{row['norm_calls_copying_input']} inputs copied")
     return row
 
 
@@ -1115,6 +1141,7 @@ def main() -> int:
                if "registers" in ln or "spill" in ln])
 
     # ---- 3. kernels vs plain versions
+    check_norm_plan()
     norm_err = check_fusednorm(dev, NORM_WIDTHS)
     attn_err = check_attention(dev)
     check_attention_backward(dev)

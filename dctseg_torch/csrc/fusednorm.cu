@@ -32,16 +32,13 @@
 //   * The apply walks each thread's rows in reverse, so it starts on the
 //     rows the statistics read last, the ones most likely still in L2.
 //   * Two routes (ops/fusednorm.py plan_launch picks one by the shape):
-//       fused -- one cooperative launch.  `slots` samples are in flight at
-//         a time, each on `bps` co-resident blocks.  Each thread keeps its
-//         first `staged` packs in shared memory; the blocks of a sample
-//         meet at a barrier after the statistics (the last block publishes
-//         a and b and raises the sample's flag to this call's epoch), then
-//         apply, re-reading the staged packs from shared memory and the
-//         rest from L2, and go on to the next sample of their slot.  Taken
-//         where all samples fit on the chip at once: a barrier costs a few
-//         microseconds of a drained memory pipe, more than the L2 saves on
-//         samples that take turns.
+//       fused -- one cooperative launch, every sample on `bps` co-resident
+//         blocks.  Each thread keeps its first `staged` packs in shared
+//         memory; the blocks of a sample meet at a barrier after the
+//         statistics (the last block publishes a and b and raises the
+//         sample's flag to this call's epoch), then apply, re-reading the
+//         staged packs from shared memory and the rest from L2.  Taken
+//         where all samples fit on the chip at once.
 //       split -- a statistics launch and an apply launch over the same
 //         partition, for larger tensors.
 //   * The workspace (partials, a and b, tickets, flags) is the caller's,
@@ -176,154 +173,153 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
   // re-read
   const int staged = MODE == kFused ? min(nk, p.staged) : 0;
 
-  for (int n = blockIdx.y; n < p.n; n += gridDim.y) {
-    const size_t base = (size_t)n * p.s * c + g * VEC;
-    const T* xs = static_cast<const T*>(p.x) + base;
-    if (MODE != kApply) {
-      float s[VEC], q[VEC];
+  const int n = blockIdx.y;
+  const size_t base = (size_t)n * p.s * c + g * VEC;
+  const T* xs = static_cast<const T*>(p.x) + base;
+  if (MODE != kApply) {
+    float s[VEC], q[VEC];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
-      auto add = [&](const P& v) {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float f = to_f32(v.v[j]);
-          s[j] += f;
-          q[j] += f * f;
-        }
-      };
-      int k = 0;
-      for (; k + kStatsUnroll <= nk; k += kStatsUnroll) {
-        P v[kStatsUnroll];
-#pragma unroll
-        for (int u = 0; u < kStatsUnroll; ++u)
-          v[u] = load_pack<T, VEC>(xs + (first + (k + u) * rpi) * c);
-#pragma unroll
-        for (int u = 0; u < kStatsUnroll; ++u) {
-          if (k + u < staged) stage[(k + u) * kThreads + tid] = v[u];
-          add(v[u]);
-        }
-      }
-      for (; k < nk; ++k) {
-        const P v = load_pack<T, VEC>(xs + (first + k * rpi) * c);
-        if (k < staged) stage[k * kThreads + tid] = v;
-        add(v);
-      }
-      // thread tid = r0 * groups + g holds lanes g*VEC.. of row r0
-      if (active) {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          rowsum[tid * VEC + j] = s[j];
-          rowsum[kThreads * VEC + tid * VEC + j] = q[j];
-        }
-      }
-      __syncthreads();
-      fold(rpi, c,
-           [&](int r, int l) {
-             return make_float2(rowsum[r * c + l],
-                                rowsum[kThreads * VEC + r * c + l]);
-           },
-           part, tot);
-      float* pb = p.partial + ((size_t)n * p.bps + blockIdx.x) * 2 * c;
-      for (int l = tid; l < 2 * c; l += kThreads) pb[l] = tot[l];
-      // Publish the partials, then take a ticket: the block that draws the
-      // last one for sample n finishes its statistics.
-      __threadfence();
-      __syncthreads();
-      if (tid == 0)
-        is_last = atomicAdd(p.tickets + n, 1u) == (unsigned)(p.bps - 1);
-      __syncthreads();
-      if (is_last) {
-        __threadfence();
-        const float* pn = p.partial + (size_t)n * p.bps * 2 * c;
-        fold(p.bps, c,
-             [&](int r, int l) {
-               return make_float2(__ldcg(pn + (size_t)r * 2 * c + l),
-                                  __ldcg(pn + (size_t)r * 2 * c + c + l));
-             },
-             part, tot);
-        const int offsets = c / p.f;
-        const float cnt = (float)((long long)p.s * offsets);
-        float* abn = p.ab + (size_t)n * 2 * c;
-        for (int ch = tid; ch < p.f; ch += kThreads) {
-          float a = 0.f, b = 0.f;
-          for (int o = 0; o < offsets; ++o) {
-            a += tot[o * p.f + ch];
-            b += tot[c + o * p.f + ch];
-          }
-          const float mean = a / cnt;
-          const float var = fmaxf(b / cnt - mean * mean, 0.f);
-          const float scale = 1.f / sqrtf(var + p.eps);
-          const float shift = -mean * scale;
-          for (int o = 0; o < offsets; ++o) {
-            abn[o * p.f + ch] = scale;
-            abn[c + o * p.f + ch] = shift;
-          }
-        }
-        __threadfence();
-        __syncthreads();
-        if (tid == 0) {
-          p.tickets[n] = 0;
-          if (MODE == kFused) atomicExch(p.flags + n, p.epoch);
-        }
-      }
-    }
-    if (MODE == kStats) continue;
-    if (MODE == kFused) {
-      if (tid == 0) {
-        unsigned spins = 0;
-        while (*reinterpret_cast<volatile unsigned*>(p.flags + n) != p.epoch) {
-          __nanosleep(64);
-          if (++spins > kMaxSpins) __trap();
-        }
-        __threadfence();
-      }
-      __syncthreads();
-    }
-    if (nk == 0) continue;
-    float sa[VEC], sb[VEC];
-    const float* abn = p.ab + (size_t)n * 2 * c + g * VEC;
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      sa[j] = __ldcg(abn + j);
-      sb[j] = __ldcg(abn + c + j);
-    }
-    const T* rs = RES ? static_cast<const T*>(p.res) + base : nullptr;
-    T* os = static_cast<T*>(p.out) + base;
-    // rows from the last read to the first: the re-read ones (from L2
-    // where they are still there), then the staged ones from shared memory
-    auto fetch = [&](int k) {
-      return k < staged ? stage[k * kThreads + tid]
-                        : load_pack<T, VEC>(xs + (first + k * rpi) * c);
-    };
-    auto apply = [&](const P& v, const P& r) {
-      P o;
+    for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
+    auto add = [&](const P& v) {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        const float y = to_f32(v.v[j]) * sa[j] + sb[j];
-        const T yc = from_f32<T>(activate(y, p.act, p.slope));
-        o.v[j] = RES ? from_f32<T>(to_f32(yc) + to_f32(r.v[j])) : yc;
+        const float f = to_f32(v.v[j]);
+        s[j] += f;
+        q[j] += f * f;
       }
-      return o;
     };
-    int k = nk - 1;
-    for (; k >= kApplyUnroll - 1; k -= kApplyUnroll) {
-      P v[kApplyUnroll], r[kApplyUnroll];
+    int k = 0;
+    for (; k + kStatsUnroll <= nk; k += kStatsUnroll) {
+      P v[kStatsUnroll];
 #pragma unroll
-      for (int u = 0; u < kApplyUnroll; ++u) {
-        v[u] = fetch(k - u);
-        if (RES) r[u] = load_pack<T, VEC>(rs + (first + (k - u) * rpi) * c);
+      for (int u = 0; u < kStatsUnroll; ++u)
+        v[u] = load_pack<T, VEC>(xs + (first + (k + u) * rpi) * c);
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u) {
+        if (k + u < staged) stage[(k + u) * kThreads + tid] = v[u];
+        add(v[u]);
       }
+    }
+    for (; k < nk; ++k) {
+      const P v = load_pack<T, VEC>(xs + (first + k * rpi) * c);
+      if (k < staged) stage[k * kThreads + tid] = v;
+      add(v);
+    }
+    // thread tid = r0 * groups + g holds lanes g*VEC.. of row r0
+    if (active) {
 #pragma unroll
-      for (int u = 0; u < kApplyUnroll; ++u)
-        *reinterpret_cast<P*>(os + (first + (k - u) * rpi) * c) =
-            apply(v[u], r[u]);
+      for (int j = 0; j < VEC; ++j) {
+        rowsum[tid * VEC + j] = s[j];
+        rowsum[kThreads * VEC + tid * VEC + j] = q[j];
+      }
     }
-    for (; k >= 0; --k) {
-      const int off = (first + k * rpi) * c;
-      P r;
-      if (RES) r = load_pack<T, VEC>(rs + off);
-      *reinterpret_cast<P*>(os + off) = apply(fetch(k), r);
+    __syncthreads();
+    fold(rpi, c,
+         [&](int r, int l) {
+           return make_float2(rowsum[r * c + l],
+                              rowsum[kThreads * VEC + r * c + l]);
+         },
+         part, tot);
+    float* pb = p.partial + ((size_t)n * p.bps + blockIdx.x) * 2 * c;
+    for (int l = tid; l < 2 * c; l += kThreads) pb[l] = tot[l];
+    // Publish the partials, then take a ticket: the block that draws the
+    // last one for sample n finishes its statistics.
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      is_last = atomicAdd(p.tickets + n, 1u) == (unsigned)(p.bps - 1);
+    __syncthreads();
+    if (is_last) {
+      __threadfence();
+      const float* pn = p.partial + (size_t)n * p.bps * 2 * c;
+      fold(p.bps, c,
+           [&](int r, int l) {
+             return make_float2(__ldcg(pn + (size_t)r * 2 * c + l),
+                                __ldcg(pn + (size_t)r * 2 * c + c + l));
+           },
+           part, tot);
+      const int offsets = c / p.f;
+      const float cnt = (float)((long long)p.s * offsets);
+      float* abn = p.ab + (size_t)n * 2 * c;
+      for (int ch = tid; ch < p.f; ch += kThreads) {
+        float a = 0.f, b = 0.f;
+        for (int o = 0; o < offsets; ++o) {
+          a += tot[o * p.f + ch];
+          b += tot[c + o * p.f + ch];
+        }
+        const float mean = a / cnt;
+        const float var = fmaxf(b / cnt - mean * mean, 0.f);
+        const float scale = 1.f / sqrtf(var + p.eps);
+        const float shift = -mean * scale;
+        for (int o = 0; o < offsets; ++o) {
+          abn[o * p.f + ch] = scale;
+          abn[c + o * p.f + ch] = shift;
+        }
+      }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) {
+        p.tickets[n] = 0;
+        if (MODE == kFused) atomicExch(p.flags + n, p.epoch);
+      }
     }
+  }
+  if (MODE == kStats) return;
+  if (MODE == kFused) {
+    if (tid == 0) {
+      unsigned spins = 0;
+      while (*reinterpret_cast<volatile unsigned*>(p.flags + n) != p.epoch) {
+        __nanosleep(64);
+        if (++spins > kMaxSpins) __trap();
+      }
+      __threadfence();
+    }
+    __syncthreads();
+  }
+  if (nk == 0) return;
+  float sa[VEC], sb[VEC];
+  const float* abn = p.ab + (size_t)n * 2 * c + g * VEC;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    sa[j] = __ldcg(abn + j);
+    sb[j] = __ldcg(abn + c + j);
+  }
+  const T* rs = RES ? static_cast<const T*>(p.res) + base : nullptr;
+  T* os = static_cast<T*>(p.out) + base;
+  // rows from the last read to the first: the re-read ones (from L2
+  // where they are still there), then the staged ones from shared memory
+  auto fetch = [&](int k) {
+    return k < staged ? stage[k * kThreads + tid]
+                      : load_pack<T, VEC>(xs + (first + k * rpi) * c);
+  };
+  auto apply = [&](const P& v, const P& r) {
+    P o;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float y = to_f32(v.v[j]) * sa[j] + sb[j];
+      const T yc = from_f32<T>(activate(y, p.act, p.slope));
+      o.v[j] = RES ? from_f32<T>(to_f32(yc) + to_f32(r.v[j])) : yc;
+    }
+    return o;
+  };
+  int k = nk - 1;
+  for (; k >= kApplyUnroll - 1; k -= kApplyUnroll) {
+    P v[kApplyUnroll], r[kApplyUnroll];
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      v[u] = fetch(k - u);
+      if (RES) r[u] = load_pack<T, VEC>(rs + (first + (k - u) * rpi) * c);
+    }
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u)
+      *reinterpret_cast<P*>(os + (first + (k - u) * rpi) * c) =
+          apply(v[u], r[u]);
+  }
+  for (; k >= 0; --k) {
+    const int off = (first + k * rpi) * c;
+    P r;
+    if (RES) r = load_pack<T, VEC>(rs + off);
+    *reinterpret_cast<P*>(os + off) = apply(fetch(k), r);
   }
 }
 
@@ -402,10 +398,10 @@ extern "C" int dctseg_fusednorm_coresident(int dtype, int vec, int fused,
 }
 
 // args (int64, ops/fusednorm.py _launch): x, residual (0 for none), out,
-// ab, partial, tickets, flags, n, s, c, f, bps, slots, rows_per_block, act,
-// dtype, vec, fused, epoch.  The wrapper guarantees c / vec <= 256, f | c,
+// ab, partial, tickets, flags, n, s, c, f, bps, rows_per_block, act, dtype,
+// vec, fused, epoch, staged.  The wrapper guarantees c / vec <= 256, f | c,
 // s * c < 2^31, 16-byte pointers where vec > 1, and for the fused route a
-// grid of bps * slots co-resident blocks.
+// grid of bps * n co-resident blocks.
 extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
                                 void* stream) {
   Params p;
@@ -421,18 +417,17 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
   p.c = (int)a[9];
   p.f = (int)a[10];
   p.bps = (int)a[11];
-  const int slots = (int)a[12];
-  p.rows_per_block = (int)a[13];
-  p.act = (int)a[14];
-  const int dtype = (int)a[15], vec = (int)a[16];
-  const bool fused = a[17] != 0;
-  p.epoch = (unsigned)a[18];
-  p.staged = (int)a[19];
+  p.rows_per_block = (int)a[12];
+  p.act = (int)a[13];
+  const int dtype = (int)a[14], vec = (int)a[15];
+  const bool fused = a[16] != 0;
+  p.epoch = (unsigned)a[17];
+  p.staged = (int)a[18];
   p.eps = eps;
   p.slope = slope;
   const bool res = p.res != nullptr;
   if (p.c % vec || p.c / vec > kThreads || p.f < 1 || p.c % p.f ||
-      p.bps < 1 || slots < 1 || slots > 65535 || p.staged < 0)
+      p.bps < 1 || p.n < 1 || p.n > 65535 || p.staged < 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 block(kThreads);
@@ -441,12 +436,12 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
     const void* k = pick<kFused>(dtype, vec, res);
     if (!k) return cudaErrorInvalidValue;
     const size_t pack = (size_t)vec * (dtype == kF32 ? 4 : 2);
-    return cudaLaunchCooperativeKernel(k, dim3(p.bps, slots), block, args,
+    return cudaLaunchCooperativeKernel(k, dim3(p.bps, p.n), block, args,
                                        (size_t)p.staged * kThreads * pack, st);
   }
   const void* stats = pick<kStats>(dtype, vec, false);
   const void* apply = pick<kApply>(dtype, vec, res);
-  if (!stats || slots != p.n || p.staged) return cudaErrorInvalidValue;
+  if (!stats || p.staged) return cudaErrorInvalidValue;
   cudaError_t err = cudaLaunchKernel(stats, dim3(p.bps, p.n), block, args, 0,
                                      st);
   if (err) return err;

@@ -100,8 +100,8 @@ def build() -> Path:
 _vp, _int, _long = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
     # (int64 args: x, residual, out, ab, partial, tickets, flags, n, s, c,
-    #  f, blocks, slots, rows_per_block, act, dtype, vec, fused, epoch,
-    #  staged; eps, slope, stream)
+    #  f, blocks, rows_per_block, act, dtype, vec, fused, epoch, staged;
+    #  eps, slope, stream)
     "dctseg_fusednorm": [_vp, ctypes.c_float, ctypes.c_float, _vp],
     # (dtype, vec, fused, residual, &blocks, &stage_bytes)
     "dctseg_fusednorm_coresident": [_int, _int, _int, _int,

@@ -10,10 +10,10 @@ dtype.  (The JAX package's XLA twin casts before the activation; the two
 differ only where a bf16 rounding crosses zero.)
 
 The kernel runs by one of two routes, which :func:`plan_launch` picks from
-the shape alone: ``fused``, one cooperative launch in which each sample's
-blocks meet at a barrier between the statistics and the apply (where the
-samples in flight fit in L2), or ``split``, a statistics launch and an
-apply launch.  Its workspace (partial sums, scales and shifts, tickets and
+the shape and the card's occupancy: ``fused``, one cooperative launch in
+which each sample's blocks meet at a barrier between the statistics and the
+apply (where all samples fit on the chip at once), or ``split``, a
+statistics launch and an apply launch.  Its workspace (partial sums, scales and shifts, tickets and
 flags) is kept per (device, stream) and grows on demand; the kernel leaves
 the tickets at zero, so no call allocates or fills anything but its
 output.
@@ -38,7 +38,6 @@ THREADS = 256           # csrc/fusednorm.cu kThreads
 # memory plus this much of the H100's 50 MB L2, so the apply's second read
 # of x stays on the chip; larger tensors take the split route.
 FUSED_L2_BYTES = 40 << 20
-ROUTES = ("fused", "split")
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 
 
@@ -74,15 +73,14 @@ def fused_instance_norm_act_plain(x: torch.Tensor, fine_channels: int,
 
 
 class LaunchPlan(NamedTuple):
-    """How one call runs: ``slots`` samples in flight (grid y), each cut
-    into ``blocks`` chunks of ``rows_per_block`` rows (grid x), a block's
-    threads covering ``rows_per_iter`` rows at a time; sample n runs on
-    slot n % slots.  On the fused route each thread keeps its first
-    ``staged`` rows in shared memory for the apply.  ``workspace_bytes``:
-    partial sums, scales and shifts, tickets and flags."""
+    """How one call runs: each of the n samples (grid y) is cut into
+    ``blocks`` chunks of ``rows_per_block`` rows (grid x), a block's
+    threads covering ``rows_per_iter`` rows at a time.  On the fused route
+    each thread keeps its first ``staged`` rows in shared memory for the
+    apply.  ``workspace_bytes``: partial sums, scales and shifts, tickets
+    and flags."""
     route: str
     blocks: int
-    slots: int
     rows_per_block: int
     rows_per_iter: int
     staged: int
@@ -92,46 +90,34 @@ class LaunchPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def plan_launch(n: int, s: int, c: int, itemsize: int, vec: int,
-                fused_blocks: int, split_blocks: int, stage_bytes: int,
-                route: str | None = None) -> LaunchPlan:
+                fused_blocks: int, split_blocks: int,
+                stage_bytes: int) -> LaunchPlan:
     """The launch plan for x of shape (n, s, c) with ``itemsize`` bytes an
     element moved ``vec`` lanes at a time, on a card that holds
     ``fused_blocks`` blocks of the fused kernel, each with ``stage_bytes``
     of shared memory to keep rows in, or ``split_blocks`` of each split
-    kernel, at once.  ``route`` forces 'fused' or 'split'; by default the
-    fused route runs where all n samples fit in the staging memory plus
-    FUSED_L2_BYTES.  Forced onto larger tensors, the fused route takes the
-    samples in turns, as many at a time as fit.  Both grids fill the card
-    in one wave, and the fused grid never exceeds ``fused_blocks`` (its
-    blocks wait for each other)."""
+    kernel, at once.  The fused route runs where all n samples fit in the
+    staging memory plus FUSED_L2_BYTES and each gets a block of its own;
+    its grid never exceeds ``fused_blocks`` (its blocks wait for each
+    other).  Both grids fill the card in one wave."""
     if min(fused_blocks, split_blocks) < 1 or c % vec or c // vec > THREADS:
         raise ValueError(f"no plan for c={c}, vec={vec}, "
                          f"blocks={fused_blocks, split_blocks}")
     rows_per_iter = THREADS // (c // vec)
-    sample_bytes = s * c * itemsize
     on_chip = fused_blocks * stage_bytes + FUSED_L2_BYTES
-    if route is None:
-        route = "fused" if n * sample_bytes <= on_chip else "split"
-    if route == "fused":
-        slots = min(n, fused_blocks, max(1, on_chip // sample_bytes))
-        slots = math.ceil(n / math.ceil(n / slots))   # even waves
-        blocks = fused_blocks // slots
-    elif route == "split":
-        slots = n
-        blocks = max(1, split_blocks // n)
-    else:
-        raise ValueError(f"unknown route {route!r}; expected one of "
-                         f"{ROUTES}")
+    fused = n <= fused_blocks and n * s * c * itemsize <= on_chip
+    blocks = fused_blocks // n if fused else max(1, split_blocks // n)
     # whole iterations of the block's threads, no empty block
     rows = math.ceil(math.ceil(s / blocks) / rows_per_iter) * rows_per_iter
     blocks = math.ceil(s / rows)
     staged = 0
-    if route == "fused":
+    if fused:
         staged = min(rows // rows_per_iter,
                      stage_bytes // (THREADS * vec * itemsize))
     floats = 2 * n * c * (1 + blocks)
-    return LaunchPlan(route, blocks, slots, rows, rows_per_iter, staged,
-                      4 * (floats + 2 * n), 1 if route == "fused" else 2)
+    return LaunchPlan("fused" if fused else "split", blocks, rows,
+                      rows_per_iter, staged, 4 * (floats + 2 * n),
+                      1 if fused else 2)
 
 
 class _Workspace:
@@ -180,20 +166,18 @@ def _check(x, fine_channels, act, residual):
 def fused_instance_norm_act(x: torch.Tensor, fine_channels: int,
                             eps: float = 1e-5, act: str = "none",
                             slope: float = 0.01,
-                            residual: torch.Tensor | None = None,
-                            route: str | None = None) -> torch.Tensor:
+                            residual: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """InstanceNorm (affine-free, per fine channel) + activation (+ residual
     added after the activation).
 
     ``x``: (N, *spatial, C), C = O * fine_channels, lane o*fine_channels + c
     belonging to fine channel c.  ``act``: 'none' | 'relu' | 'lrelu'.
-    On CUDA, ``x`` and ``residual`` must be contiguous (channels last);
-    ``route`` forces the kernel's 'fused' or 'split' route (default: the
-    plan's), which changes nothing but the time.
+    On CUDA, ``x`` and ``residual`` must be contiguous (channels last).
     """
     _check(x, fine_channels, act, residual)
     if x.is_cuda:
-        return _launch(x, fine_channels, eps, act, slope, residual, route)
+        return _launch(x, fine_channels, eps, act, slope, residual)
     if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
     return fused_instance_norm_act_plain(x, fine_channels, eps, act, slope,
@@ -231,7 +215,7 @@ def coresident(device: int, dtype: torch.dtype, vec: int, fused: bool,
 
 @functools.lru_cache(maxsize=256)
 def plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
-             device: int, route: str | None = None) -> LaunchPlan:
+             device: int) -> LaunchPlan:
     """The plan of a call on CUDA device ``device``: x of ``shape`` and
     ``dtype`` moved ``vec`` lanes at a time, with or without a residual."""
     n, c = shape[0], shape[-1]
@@ -242,10 +226,10 @@ def plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
     split_blocks = coresident(device, dtype, vec, False, res)[0]
     return plan_launch(n, math.prod(shape) // (n * c), c,
                        _ITEMSIZE[dtype], vec, fused_blocks,
-                       split_blocks, stage_bytes, route)
+                       split_blocks, stage_bytes)
 
 
-def _launch(x, fine_channels, eps, act, slope, residual, route):
+def _launch(x, fine_channels, eps, act, slope, residual):
     if not x.is_contiguous() or (residual is not None
                                  and not residual.is_contiguous()):
         raise ValueError("the fusednorm kernel takes contiguous "
@@ -260,7 +244,7 @@ def _launch(x, fine_channels, eps, act, slope, residual, route):
     vec = vector_width(x, out, *(() if residual is None else (residual,)))
     device = x.get_device()
     plan = plan_for(tuple(x.shape), x.dtype, vec, residual is not None,
-                    device, route)
+                    device)
     stream = _build.stream_of(x)
     ws = _workspaces.get((device, stream))
     if ws is None:
@@ -273,7 +257,7 @@ def _launch(x, fine_channels, eps, act, slope, residual, route):
     args = array.array("q", (
         x.data_ptr(), 0 if residual is None else residual.data_ptr(),
         out.data_ptr(), fp, fp + 4 * 2 * n * c, cp, cp + 4 * ncap,
-        n, x.numel() // (n * c), c, fine_channels, plan.blocks, plan.slots,
+        n, x.numel() // (n * c), c, fine_channels, plan.blocks,
         plan.rows_per_block, ACTS[act], _build.dtype_code(x.dtype), vec,
         fused, (next(_epochs) - 1) % 0xFFFFFFFF + 1 if fused else 0,
         plan.staged))

@@ -77,57 +77,60 @@ def test_fusednorm_plain_matches_port_norms():
                                leaky_relu(instance_norm(xt)).numpy(), **TOL)
 
 
-# (n, s, c, itemsize, vec): the main path's four B=8 widths in bf16 and
-# f32, its s2d views, and odd shapes (C = 12 and 24, vec 1, S not a
-# multiple of the rows a block covers at a time)
-PLAN_SHAPES = [(8, e ** 3, c, 2, 8) for e, c in
+# (s, c, itemsize, vec): the main path's four widths in bf16 and f32, its
+# s2d views, and odd shapes (C = 12 and 24, vec 1, S not a multiple of the
+# rows a block covers at a time)
+PLAN_SHAPES = [(e ** 3, c, 2, 8) for e, c in
                ((128, 16), (64, 32), (32, 64), (16, 128))]
-PLAN_SHAPES += [(8, e ** 3, c, 4, 4) for e, c in ((128, 16), (32, 64))]
-PLAN_SHAPES += [(8, 64 ** 3, 128, 2, 8), (8, 32 ** 3, 256, 2, 8),
-                (8, 512, 24, 2, 8), (8, 512, 12, 2, 1), (8, 512, 12, 4, 4),
-                (3, 5 * 7 * 11, 16, 2, 8), (2, 4099, 24, 4, 4),
-                (1, 1, 256, 2, 1), (5, 1000, 2048, 2, 8)]
+PLAN_SHAPES += [(e ** 3, c, 4, 4) for e, c in ((128, 16), (32, 64))]
+PLAN_SHAPES += [(64 ** 3, 128, 2, 8), (32 ** 3, 256, 2, 8), (512, 24, 2, 8),
+                (512, 12, 2, 1), (512, 12, 4, 4), (5 * 7 * 11, 16, 2, 8),
+                (4099, 24, 4, 4), (1, 256, 2, 1), (1000, 2048, 2, 8)]
+# samples: one, an odd count, the main path's B=8
+PLAN_BATCHES = [1, 3, 8]
 # (fused blocks, split blocks, stage bytes): the H100's bf16 counts (two
 # fused blocks an SM with 76 KB to stage rows in), a small card, one block
 PLAN_CARDS = [(264, 396, 77824), (528, 660, 36864), (132, 132, 0),
               (1, 1, 4096)]
 
 
-@pytest.mark.parametrize("route", [None, "fused", "split"])
+@pytest.mark.parametrize("n", PLAN_BATCHES)
 @pytest.mark.parametrize("card", PLAN_CARDS,
                          ids=["h100", "small", "no_stage", "one_block"])
 @pytest.mark.parametrize("shape", PLAN_SHAPES,
                          ids=["x".join(map(str, s)) for s in PLAN_SHAPES])
-def test_fusednorm_plan_covers_every_row_once(shape, card, route):
+def test_fusednorm_plan_covers_every_row_once(shape, card, n):
     """Every row of every sample falls in exactly one block's chunk, the
     chunks are whole iterations of the block's threads and none is empty,
-    the staged rows fit the block's shared memory, and the fused grid never
-    exceeds the co-resident count it was given."""
-    n, s, c, itemsize, vec = shape
+    the fused route is taken exactly where the samples fit on the chip and
+    each gets a block, the staged rows fit the block's shared memory, and
+    the fused grid never exceeds the co-resident count it was given."""
+    s, c, itemsize, vec = shape
     fused_blocks, split_blocks, stage = card
     plan = fusednorm.plan_launch(n, s, c, itemsize, vec, fused_blocks,
-                                 split_blocks, stage, route)
-    assert plan.route == route or route is None
+                                 split_blocks, stage)
+    fits = n * s * c * itemsize <= (fused_blocks * stage
+                                    + fusednorm.FUSED_L2_BYTES)
+    assert plan.route == ("fused" if fits and n <= fused_blocks
+                          else "split")
     assert plan.rows_per_iter == fusednorm.THREADS // (c // vec)
     assert plan.rows_per_block % plan.rows_per_iter == 0
     assert (plan.blocks - 1) * plan.rows_per_block < s   # no empty block
     assert plan.blocks * plan.rows_per_block >= s
-    # each sample runs on slot n % slots; difference array of its chunks
-    hits = np.zeros((n, s + 1), np.int64)
-    for slot in range(plan.slots):
-        for sample in range(slot, n, plan.slots):
-            for b in range(plan.blocks):
-                lo = b * plan.rows_per_block
-                hits[sample, lo] += 1
-                hits[sample, min(s, lo + plan.rows_per_block)] -= 1
-    assert (np.cumsum(hits, 1)[:, :s] == 1).all()
+    # every sample on its own row of the grid; difference array of chunks
+    hits = np.zeros(s + 1, np.int64)
+    for b in range(plan.blocks):
+        lo = b * plan.rows_per_block
+        hits[lo] += 1
+        hits[min(s, lo + plan.rows_per_block)] -= 1
+    assert (np.cumsum(hits)[:s] == 1).all()
     if plan.route == "fused":
         assert plan.launches == 1
-        assert plan.blocks * plan.slots <= fused_blocks
+        assert plan.blocks * n <= fused_blocks
         assert plan.staged <= plan.rows_per_block // plan.rows_per_iter
         assert plan.staged * fusednorm.THREADS * vec * itemsize <= stage
     else:
-        assert (plan.launches, plan.slots, plan.staged) == (2, n, 0)
+        assert (plan.launches, plan.staged) == (2, 0)
     assert plan.workspace_bytes == 4 * (2 * n * c * (1 + plan.blocks) + 2 * n)
 
 
@@ -146,7 +149,8 @@ def test_fusednorm_threads_cover_their_block_rows_once():
 def test_fusednorm_plan_routes_on_the_h100():
     """At the H100's bf16 counts the main path's two small widths fit the
     chip (shared memory plus L2) and run fused, one launch; the two large
-    ones and the s2d views run split."""
+    ones and the s2d views run split.  A channel axis wider than the
+    block's threads take in 16-byte loads has no plan."""
     routes = {(s, c): fusednorm.plan_launch(8, s, c, 2, 8, 264, 396,
                                             77824).route
               for s, c in ((128 ** 3, 16), (64 ** 3, 32), (32 ** 3, 64),
@@ -154,8 +158,8 @@ def test_fusednorm_plan_routes_on_the_h100():
     assert routes == {(128 ** 3, 16): "split", (64 ** 3, 32): "split",
                       (32 ** 3, 64): "fused", (16 ** 3, 128): "fused",
                       (64 ** 3, 128): "split", (32 ** 3, 256): "split"}
-    with pytest.raises(ValueError, match="route"):
-        fusednorm.plan_launch(8, 4096, 128, 2, 8, 264, 396, 77824, "both")
+    with pytest.raises(ValueError, match="no plan"):
+        fusednorm.plan_launch(8, 4096, 4096, 2, 8, 264, 396, 77824)
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 129, 64), (2, 4, 33, 16)])
