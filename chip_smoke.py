@@ -14,7 +14,9 @@ Phases (any failure raises and the script exits non-zero):
      tensor, N2 = N and N2 != N, asserting which of its two kernels ran:
      tensor cores for bf16 and f16, SIMT for f32; and its backward against
      the einsum formulation's gradient), the s2d relayout (torch.equal at
-     both UNet call sites, B=1 and B=8, with its gradient), the min-plus
+     both UNet call sites, B=1 and B=8, on the route its launch plan picks
+     and on the other one, with both routes among the plan's picks, one
+     launch a call, and its gradient), the min-plus
      EDT pass (torch.equal, on the EDTs of synthetic label volumes at
      240x240x155 and 128^3, odd extents and an all-False mask, then single
      passes in both layouts on integer costs at D = 1, 155, 240, 256) and
@@ -48,9 +50,10 @@ Phases (any failure raises and the script exits non-zero):
          with the last steps under torch.profiler, for the card's busy time
          per step and the ops that take it;
   5. time the engines, each kernel, its plain version and a PyTorch library
-     call that computes the same function (CUDA events; for fusednorm and
-     the search also the card's own time with the calls queued behind a
-     sleep, for attention and the EDT under torch.profiler), and the host
+     call that computes the same function (CUDA events; for fusednorm, the
+     relayout and the search also the card's own time with the calls
+     queued behind a sleep, the relayout's in turns and repeated, on both
+     its routes; for attention and the EDT under torch.profiler), and the host
      scipy HD95 of one volume (host clock);
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
@@ -58,9 +61,11 @@ The last line of stdout is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import array
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -122,7 +127,12 @@ RELAYOUT_CALLS = {
                            torch.bfloat16),
               "half_res_b8": ((8, 64, 64, 64, 32), torch.bfloat16,
                               torch.bfloat16)}}
+# the route K3's plan picks at each call: bulk where the call fits in L2
+# with 4 KB row segments
+RELAYOUT_ROUTES = {"input_b1": "vector", "half_res_b1": "bulk",
+                   "input_b8": "vector", "half_res_b8": "vector"}
 RELAYOUT_PER_FORWARD = 2         # both sites, s2d at both resolutions
+RELAYOUT_REPEATS = 7             # K3's timed comparison, in turns
 TRAIN_SAMPLES = 2
 TRAIN_EPOCHS = 3                 # 6 steps of B=1
 TRAIN_SHAPE = ("144", "144", "128")
@@ -393,35 +403,77 @@ def check_attention_backward(dev, shape=ATTN_SHAPE):
     torch.cuda.synchronize()
 
 
+def relayout_plan(x, out):
+    """The launch plan K3's wrapper runs for ``x`` into ``out``."""
+    return relayout.plan_for(tuple(x.shape), x.dtype, out.dtype,
+                             relayout.alignment(x.data_ptr(),
+                                                out.data_ptr()),
+                             x.get_device())
+
+
 def check_relayout(dev):
-    """K3 vs its plain version, torch.equal: both UNet call sites as the
-    training step and the serving engine give them (input bf16 -> bf16 at
-    B=1, f32 -> bf16 at B=8, and f32 -> f32 for the fp32 model; half-res
-    bf16 -> bf16), rows whose width is not a multiple of 16 bytes (C = 3,
-    5, 6: the narrow instantiations), and the gradient (the kernel's
-    backward vs autograd through the plain version)."""
+    """K3 vs its plain version, torch.equal, one launch per call, on the
+    route its launch plan picks (RELAYOUT_ROUTES at both UNet call sites
+    as the training step, B=1 bf16, and the serving engine, B=8 f32 ->
+    bf16 and bf16, give them; the vector route for the fp32 model's f32
+    input, for row segments that are not a multiple of 16 bytes (C = 3,
+    5), channels that break the 16-byte vector (C = 6), and an input that
+    starts one element into its buffer) and, where it takes the shape, on
+    the other route too: the bulk kernel at every call site and on a shape
+    whose last tile is ragged.  Both routes must occur in the plan's
+    picks.  The logged bulk grid is the occupancy API's count, beside the
+    plan's H100 estimate.  Then the gradient (the kernel's backward vs
+    autograd through the plain version)."""
     g = gen(dev, SEED + 9)
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(name, *call) for calls in RELAYOUT_CALLS.values()
+    cases = [(name, *call, RELAYOUT_ROUTES[name])
+             for calls in RELAYOUT_CALLS.values()
              for name, call in calls.items()]
-    cases += [("input_f32_b1", (1, 128, 128, 128, 4), f32, f32),
-              ("c3", (2, 6, 8, 10, 3), f32, bf16),
-              ("c5", (2, 6, 8, 10, 5), bf16, f32),
-              ("c6_f16", (1, 4, 4, 4, 6), torch.float16, bf16)]
-    for name, shape, idt, odt in cases:
-        x = torch.randn(shape, device=dev, generator=g).to(idt)
+    cases += [("input_f32_b1", (1, 128, 128, 128, 4), f32, f32, "vector"),
+              ("ragged_tile", (1, 2, 40, 8, 16), bf16, bf16, "vector"),
+              ("c3", (2, 6, 8, 10, 3), f32, bf16, "vector"),
+              ("c5", (2, 6, 8, 10, 5), bf16, f32, "vector"),
+              ("c6_f16", (1, 4, 4, 4, 6), torch.float16, bf16, "vector"),
+              ("offset_1", (1, 64, 64, 64, 32), bf16, bf16, "vector")]
+    routes = set()
+    for name, shape, idt, odt, route in cases:
+        if name == "offset_1":
+            buf = torch.randn(math.prod(shape) + 1, device=dev,
+                              generator=g).to(idt)
+            x = buf[1:].view(shape)
+        else:
+            x = torch.randn(shape, device=dev, generator=g).to(idt)
         before = relayout.space_to_depth.launches
         got = relayout.space_to_depth(x, odt)
         launched = relayout.space_to_depth.launches - before
         want = relayout.space_to_depth_plain(x, odt)
+        plan = relayout_plan(x, got)
+        other = other_route(x, got, plan)
+        other_ok = other is None or torch.equal(relayout_on(x, odt, other),
+                                                want)
         torch.cuda.synchronize()
-        ok = launched == 1 and got.dtype == odt and torch.equal(got, want)
+        estimate = relayout.plan_relayout(tuple(shape), idt, odt,
+                                          relayout.alignment(x.data_ptr(),
+                                                             got.data_ptr()))
+        ok = (launched == 1 and got.dtype == odt and plan.route == route
+              and torch.equal(got, want) and other_ok)
+        if name == "ragged_tile":
+            ok = ok and other.route == "bulk" and other.tiles > 1 and \
+                math.prod(shape[:3]) // 4 % other.rows_per_block != 0
+        routes.add(plan.route)
         log(check="relayout", case=name, shape=list(shape), dtype_in=str(idt),
-            dtype_out=str(odt), vec=relayout._vector_width(x, got),
+            dtype_out=str(odt), plan=plan._asdict(),
+            estimated_grid=estimate.grid,
+            other_route=other._asdict() if other else None,
             tol="torch.equal", ok=ok)
         if not ok:
-            raise AssertionError(f"relayout kernel disagrees: {name}")
+            raise AssertionError(f"relayout kernel disagrees: {name} "
+                                 f"({plan.route}, expected {route}, "
+                                 f"{launched} launches, other route "
+                                 f"{'equal' if other_ok else 'differs'})")
         del x, got, want
+    if routes != {"bulk", "vector"}:
+        raise AssertionError(f"relayout routes {routes}: both must occur")
     x = torch.randn((1, 16, 16, 16, 4), device=dev, generator=g,
                     requires_grad=True)
     ct = torch.randn((1, 8, 8, 8, 32), device=dev, generator=g)
@@ -894,36 +946,109 @@ def relayout_library(x, out):
     return out
 
 
-def time_relayout(dev, iters=20):
-    """K3 at each call of RELAYOUT_CALLS: kernel, plain version and one
-    PyTorch call for the same function (a permuted copy_ into the output,
-    checked equal to the kernel's result) (CUDA events), and the bytes
-    bound (input read once, output written once).  Returns {use: {key: sum
-    over the use's two sites}}."""
+def relayout_on(x, odt, plan):
+    """K3 on ``plan``, through the kernel's C entry as the wrapper calls
+    it: the other route at a call site, for its time beside the plan's."""
+    n, d, h, w, c = x.shape
+    out = torch.empty((n, d // 2, h // 2, w // 2, 8 * c), dtype=odt,
+                      device=x.device)
+    args = array.array("q", (x.data_ptr(), out.data_ptr()))
+    args.extend(relayout.arguments(tuple(x.shape), x.dtype, odt, plan))
+    _build.check(_build.lib().dctseg_space_to_depth(
+        args.buffer_info()[0], _build.stream_of(x)), "space_to_depth")
+    return out
+
+
+def other_route(x, out, plan):
+    """The plan of the route K3's plan does not pick for ``x`` into
+    ``out``, as the wrapper would make it on this card (None where that
+    route does not take the shape)."""
+    shape = tuple(x.shape)
+    aligned = relayout.alignment(x.data_ptr(), out.data_ptr())
+    if plan.route == "bulk":
+        return relayout.vector_plan(shape, x.dtype, out.dtype, aligned)
+    bulk = relayout.bulk_plan(shape, x.dtype, out.dtype, aligned)
+    return bulk and relayout.device_grid(bulk, x.dtype, out.dtype,
+                                         x.get_device())
+
+
+def time_relayout(dev, iters=20, repeats=RELAYOUT_REPEATS):
+    """K3 at each call of RELAYOUT_CALLS, on the route its plan picks:
+    the kernel, its plain version and one PyTorch call for the same
+    function (a permuted copy_ into the output, checked equal to the
+    kernel's result), call time back to back (CUDA events) in turns,
+    ``repeats`` times, and the card's time of the kernel and the copy_
+    (queued_ms) each time; the other route's kernel (checked equal) the
+    same way; the bytes bound (input read once, output written once).  The
+    training step calls its half-res site on an input that needs a
+    gradient, through the autograd Function: timed too (``grad_ms``).
+    Returns {use: row}: medians and min-max over the repeats of the sums
+    over the use's two sites, the routes and the other route's times."""
     g = gen(dev, SEED + 10)
-    sums = {}
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms",
+            "other_ms", "other_device_ms", "grad_ms")
+    rows = {}
     for use, calls in RELAYOUT_CALLS.items():
-        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        step = {k: [0.0] * repeats for k in keys}
+        routes, other_routes, bound = {}, {}, 0.0
         for name, (shape, idt, odt) in calls.items():
             x = torch.randn(shape, device=dev, generator=g).to(idt)
+            xg = x.detach().requires_grad_()
             out = relayout.space_to_depth(x, odt)
+            plan = relayout_plan(x, out)
+            other = other_route(x, out, plan)
             if not torch.equal(relayout_library(x, torch.empty_like(out)),
                                out):
                 raise AssertionError("the relayout library call disagrees")
-            row = dict(
-                ms=time_ms(lambda: relayout.space_to_depth(x, odt), iters),
-                plain_ms=time_ms(
-                    lambda: relayout.space_to_depth_plain(x, odt), iters),
-                library_ms=time_ms(lambda: relayout_library(x, out), iters),
-                bound_ms=x.numel() * (x.element_size()
-                                      + torch.finfo(odt).bits // 8)
-                / HBM_BYTES_PER_S * 1e3)
+            if other and not torch.equal(relayout_on(x, odt, other), out):
+                raise AssertionError(f"relayout's {other.route} route "
+                                     f"disagrees at {name}")
+            fns = {"ms": lambda: relayout.space_to_depth(x, odt),
+                   "plain_ms": lambda: relayout.space_to_depth_plain(x, odt),
+                   "library_ms": lambda: relayout_library(x, out),
+                   "grad_ms": lambda: relayout.space_to_depth(xg, odt)}
+            if other:
+                fns["other_ms"] = lambda: relayout_on(x, odt, other)
+            site = {k: [] for k in keys}
+            for rep in range(repeats):
+                for k, fn in (list(fns.items()) if rep % 2
+                              else list(fns.items())[::-1]):
+                    site[k].append(time_ms(fn, iters))
+                site["device_ms"].append(queued_ms(fns["ms"], iters))
+                site["library_device_ms"].append(
+                    queued_ms(fns["library_ms"], iters))
+                if other:
+                    site["other_device_ms"].append(
+                        queued_ms(fns["other_ms"], iters))
+            row = {k: statistics.median(v) for k, v in site.items() if v}
+            row.update(bound_ms=x.numel() * (x.element_size()
+                                             + torch.finfo(odt).bits // 8)
+                       / HBM_BYTES_PER_S * 1e3,
+                       route=plan.route, grid=plan.grid,
+                       other_route=other.route if other else None,
+                       spread={k: [min(v), max(v)] for k, v in site.items()
+                               if v})
             log(timing="relayout", use=use, site=name, shape=list(shape),
-                dtype_in=str(idt), dtype_out=str(odt), **row)
-            total = {k: total[k] + row[k] for k in total}
-            del x, out
-        sums[use] = total
-    return sums
+                dtype_in=str(idt), dtype_out=str(odt), repeats=repeats,
+                **row)
+            for k, v in site.items():
+                for i, t in enumerate(v):
+                    step[k][i] += t
+            routes[name] = plan.route
+            if other:
+                other_routes[name] = other.route
+            bound += row["bound_ms"]
+            del x, xg, out
+        if len(other_routes) < len(calls):
+            step.pop("other_ms")
+            step.pop("other_device_ms")
+        rows[use] = dict(
+            {k: statistics.median(v) for k, v in step.items()},
+            bound_ms=bound, route=routes, other_route=other_routes,
+            repeats=repeats,
+            spread={k: [min(v), max(v)] for k, v in step.items()})
+        log(timing="relayout_sum", use=use, **rows[use])
+    return rows
 
 
 def time_fusednorm(dev, widths, batch=8, iters=10):
@@ -1304,10 +1429,13 @@ def main() -> int:
              source="dctseg_torch/csrc/relayout.cu",
              replaces="dctseg/ops/pallas/relayout.py:90",
              launches=train_rows["s2d_remat_none"]["launches"]["relayout"],
-             max_abs_err=relayout_err,
-             **relayout_rows["train"], bound_by="bytes",
+             max_abs_err=relayout_err, bound_by="bytes",
+             **{k: v for k, v in relayout_rows["train"].items()
+                if k != "route"},
+             routes=relayout_rows["train"]["route"],
              serve_b8=relayout_rows["serve"],
-             unit="per B=1 bf16 train step (both sites, 2 launches)"),
+             unit="per B=1 bf16 train step (both sites, 2 launches; "
+                  "medians of the repeats)"),
         dict(name="minplus", route="cuda",
              source="dctseg_torch/csrc/minplus.cu",
              replaces="dctseg/ops/pallas/minplus.py:80",

@@ -11,9 +11,11 @@ Strategies:
               mean dice per checkpoint in <output-dir>/save_pth.csv
 
 With no --root it evaluates synthetic volumes (dataset-free smoke).  It runs
-on the GPU unless given ``--device cpu``, loads a reference-format ``.pth``
-with ``--checkpoint`` (random seeded weights otherwise), and prints the mean
-metrics as one JSON line at the end (per epoch for the sweep).
+on the GPU unless given ``--device cpu``.  Its weights: a reference-format
+``.pth`` given with ``--checkpoint``; else, unless ``--random-params``, epoch
+``--epoch`` (default: the newest) of --checkpoint-dir, as the train driver
+saved it (random seeded weights when the directory holds none).  It prints
+the mean metrics as one JSON line at the end (per epoch for the sweep).
 ``--multimodel`` ensembles the newest 4 checkpoints of --checkpoint-dir.
 """
 
@@ -34,11 +36,12 @@ def parse_args(argv=None):
     p.add_argument("--root", default="")
     p.add_argument("--valid-file", default="valid.txt")
     p.add_argument("--checkpoint", default="",
-                   help="reference-format .pth to load (strict); random "
-                        "seeded weights when empty")
+                   help="reference-format .pth to load (strict); when "
+                        "empty, the --checkpoint-dir epoch loads")
     p.add_argument("--checkpoint-dir", default="checkpoints",
-                   help="the train driver's checkpoints (model_epoch_*.pth) "
-                        "for --strategy sweep and --multimodel")
+                   help="the train driver's checkpoints (model_epoch_*.pth)")
+    p.add_argument("--epoch", type=int, default=None,
+                   help="checkpoint epoch to load (default: latest)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain kernels")
     p.add_argument("--drop-modal", action="store_true")
@@ -122,11 +125,20 @@ def main(argv=None) -> dict:
            else {"top_num": min(128, (a.img_dim // 16) ** 3)}))
     model = build_model(mcfg, device=device,
                         generator=torch.Generator().manual_seed(0))
-    if a.checkpoint and not a.random_params:
+    ckpt = Checkpointer(a.checkpoint_dir)
+    if a.random_params:
+        log.info("using random params (seed 0)")
+    elif a.checkpoint:
         load_reference_checkpoint(model, a.checkpoint)
         log.info("loaded checkpoint %s", a.checkpoint)
-    else:
-        log.info("using random params (seed 0)")
+    elif a.strategy != "sweep":
+        epoch = a.epoch if a.epoch is not None else ckpt.latest_epoch()
+        if epoch is None:
+            log.info("no checkpoint found in %s; using random params",
+                     a.checkpoint_dir)
+        else:
+            model.load_state_dict(ckpt.restore_params(epoch), strict=True)
+            log.info("loaded checkpoint epoch %s", epoch)
 
     names = DataConfig().modalities
     missing = tuple(
@@ -157,7 +169,6 @@ def main(argv=None) -> dict:
 
     predictor = Predictor(model, device=device)
     log.info("sum===== %d", sum(p.numel() for p in model.parameters()))
-    ckpt = Checkpointer(a.checkpoint_dir)
     if a.strategy == "sweep":
         csv_path = os.path.join(a.output_dir, "save_pth.csv")
         results = {}
