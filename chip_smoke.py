@@ -62,7 +62,9 @@ The last line of stdout is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import array
+import collections
 import contextlib
+import itertools
 import json
 import math
 import statistics
@@ -133,6 +135,9 @@ RELAYOUT_ROUTES = {"input_b1": "vector", "half_res_b1": "bulk",
                    "input_b8": "vector", "half_res_b8": "vector"}
 RELAYOUT_PER_FORWARD = 2         # both sites, s2d at both resolutions
 RELAYOUT_REPEATS = 7             # K3's timed comparison, in turns
+# K3's timed calls walk buffers of this many bytes, four times the H100's
+# 50 MB L2, so that each reads its input from HBM and writes a cold output
+RELAYOUT_ROTATE_BYTES = 200 << 20
 TRAIN_SAMPLES = 2
 TRAIN_EPOCHS = 3                 # 6 steps of B=1
 TRAIN_SHAPE = ("144", "144", "128")
@@ -403,12 +408,10 @@ def check_attention_backward(dev, shape=ATTN_SHAPE):
     torch.cuda.synchronize()
 
 
-def relayout_plan(x, out):
-    """The launch plan K3's wrapper runs for ``x`` into ``out``."""
-    return relayout.plan_for(tuple(x.shape), x.dtype, out.dtype,
-                             relayout.alignment(x.data_ptr(),
-                                                out.data_ptr()),
-                             x.get_device())
+def launched_plan(x, out):
+    """The launch plan K3's wrapper ran for ``x`` into ``out``: the one it
+    cached under that call's key."""
+    return relayout._calls[relayout.call_key(x, out)].plan
 
 
 def check_relayout(dev):
@@ -447,7 +450,7 @@ def check_relayout(dev):
         got = relayout.space_to_depth(x, odt)
         launched = relayout.space_to_depth.launches - before
         want = relayout.space_to_depth_plain(x, odt)
-        plan = relayout_plan(x, got)
+        plan = launched_plan(x, got)
         other = other_route(x, got, plan)
         other_ok = other is None or torch.equal(relayout_on(x, odt, other),
                                                 want)
@@ -972,6 +975,27 @@ def other_route(x, out, plan):
                                          x.get_device())
 
 
+def rotation(x, odt, grad=False):
+    """Copies of ``x`` (requiring a gradient if ``grad``), each with an
+    output buffer, enough that the pairs fill RELAYOUT_ROTATE_BYTES:
+    calls that walk them in turn find neither input nor output in L2."""
+    pair = x.numel() * (x.element_size() + torch.finfo(odt).bits // 8)
+    n, d, h, w, c = x.shape
+    return [(x.clone().requires_grad_(grad),
+             torch.empty((n, d // 2, h // 2, w // 2, 8 * c), dtype=odt,
+                         device=x.device))
+            for _ in range(max(2, -(-RELAYOUT_ROTATE_BYTES // pair)))]
+
+
+def rotating(fn, pairs):
+    """A call of ``fn(x, out)`` on the next of ``pairs``.  Its result is
+    kept until the ring comes round, so an output that the call allocates
+    is not the block that the last call freed (still in L2)."""
+    turn = itertools.cycle(pairs)
+    kept = collections.deque(maxlen=len(pairs))
+    return lambda: kept.append(fn(*next(turn)))
+
+
 def time_relayout(dev, iters=20, repeats=RELAYOUT_REPEATS):
     """K3 at each call of RELAYOUT_CALLS, on the route its plan picks:
     the kernel, its plain version and one PyTorch call for the same
@@ -979,11 +1003,13 @@ def time_relayout(dev, iters=20, repeats=RELAYOUT_REPEATS):
     kernel's result), call time back to back (CUDA events) in turns,
     ``repeats`` times, and the card's time of the kernel and the copy_
     (queued_ms) each time; the other route's kernel (checked equal) the
-    same way; the bytes bound (input read once, output written once).  The
-    training step calls its half-res site on an input that needs a
-    gradient, through the autograd Function: timed too (``grad_ms``).
-    Returns {use: row}: medians and min-max over the repeats of the sums
-    over the use's two sites, the routes and the other route's times."""
+    same way; the bytes bound at HBM's rate (input read once, output
+    written once).  Every timed call reads and writes buffers that L2 no
+    longer holds (``rotation``).  The training step calls its half-res
+    site on an input that needs a gradient, through the autograd
+    Function: timed too (``grad_ms``).  Returns {use: row}: medians and
+    min-max over the repeats of the sums over the use's two sites, the
+    routes and the other route's times."""
     g = gen(dev, SEED + 10)
     keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms",
             "other_ms", "other_device_ms", "grad_ms")
@@ -993,9 +1019,8 @@ def time_relayout(dev, iters=20, repeats=RELAYOUT_REPEATS):
         routes, other_routes, bound = {}, {}, 0.0
         for name, (shape, idt, odt) in calls.items():
             x = torch.randn(shape, device=dev, generator=g).to(idt)
-            xg = x.detach().requires_grad_()
             out = relayout.space_to_depth(x, odt)
-            plan = relayout_plan(x, out)
+            plan = launched_plan(x, out)
             other = other_route(x, out, plan)
             if not torch.equal(relayout_library(x, torch.empty_like(out)),
                                out):
@@ -1003,12 +1028,19 @@ def time_relayout(dev, iters=20, repeats=RELAYOUT_REPEATS):
             if other and not torch.equal(relayout_on(x, odt, other), out):
                 raise AssertionError(f"relayout's {other.route} route "
                                      f"disagrees at {name}")
-            fns = {"ms": lambda: relayout.space_to_depth(x, odt),
-                   "plain_ms": lambda: relayout.space_to_depth_plain(x, odt),
-                   "library_ms": lambda: relayout_library(x, out),
-                   "grad_ms": lambda: relayout.space_to_depth(xg, odt)}
+            pairs = rotation(x, odt)
+            fns = {"ms": rotating(
+                       lambda a, o: relayout.space_to_depth(a, odt), pairs),
+                   "plain_ms": rotating(
+                       lambda a, o: relayout.space_to_depth_plain(a, odt),
+                       pairs),
+                   "library_ms": rotating(relayout_library, pairs),
+                   "grad_ms": rotating(
+                       lambda a, o: relayout.space_to_depth(a, odt),
+                       rotation(x, odt, grad=True))}
             if other:
-                fns["other_ms"] = lambda: relayout_on(x, odt, other)
+                fns["other_ms"] = rotating(
+                    lambda a, o: relayout_on(a, odt, other), pairs)
             site = {k: [] for k in keys}
             for rep in range(repeats):
                 for k, fn in (list(fns.items()) if rep % 2
@@ -1024,7 +1056,7 @@ def time_relayout(dev, iters=20, repeats=RELAYOUT_REPEATS):
             row.update(bound_ms=x.numel() * (x.element_size()
                                              + torch.finfo(odt).bits // 8)
                        / HBM_BYTES_PER_S * 1e3,
-                       route=plan.route, grid=plan.grid,
+                       route=plan.route, grid=plan.grid, rotation=len(pairs),
                        other_route=other.route if other else None,
                        spread={k: [min(v), max(v)] for k, v in site.items()
                                if v})
@@ -1038,7 +1070,7 @@ def time_relayout(dev, iters=20, repeats=RELAYOUT_REPEATS):
             if other:
                 other_routes[name] = other.route
             bound += row["bound_ms"]
-            del x, xg, out
+            del x, out, pairs, fns
         if len(other_routes) < len(calls):
             step.pop("other_ms")
             step.pop("other_device_ms")

@@ -231,6 +231,12 @@ def _prepare(shape, in_dtype, out_dtype, aligned, device) -> _Call:
                  _build.lib().dctseg_space_to_depth)
 
 
+def call_key(x: torch.Tensor, out: torch.Tensor) -> tuple:
+    """The key of a call on ``x`` into ``out`` in ``_calls``."""
+    return (x.shape, x.dtype, out.dtype,
+            alignment(x.data_ptr(), out.data_ptr()), x.get_device())
+
+
 def _launch(x: torch.Tensor, out_dtype) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("the relayout kernel takes a contiguous "
@@ -240,12 +246,11 @@ def _launch(x: torch.Tensor, out_dtype) -> torch.Tensor:
                       device=x.device)
     if out.numel() == 0:
         return out
-    xp, op = x.data_ptr(), out.data_ptr()
-    key = (x.shape, x.dtype, out_dtype, alignment(xp, op), x.get_device())
+    key = call_key(x, out)
     call = _calls.get(key)
     if call is None:
         call = _calls[key] = _prepare(*key)
-    args = array.array("q", (xp, op))
+    args = array.array("q", (x.data_ptr(), out.data_ptr()))
     args.extend(call.tail)
     _build.check(call.fn(args.buffer_info()[0], _build.stream_of(x)),
                  "space_to_depth")
