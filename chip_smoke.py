@@ -14,8 +14,8 @@ Phases (any failure raises and the script exits non-zero):
      tensor, N2 = N and N2 != N, asserting which of its two kernels ran:
      tensor cores for bf16 and f16, SIMT for f32; and its backward against
      the einsum formulation's gradient), the s2d relayout (torch.equal at
-     both UNet call sites, B=1 and B=8, on the route its launch plan picks
-     and on the other one, with both routes among the plan's picks, one
+     both UNet call sites, B=1 and B=8, and where vectors narrow, with
+     the vector width of the plan the wrapper launched asserted, one
      launch a call, and its gradient), the min-plus
      EDT pass (torch.equal, on the EDTs of synthetic label volumes at
      240x240x155 and 128^3, odd extents and an all-False mask, then single
@@ -52,8 +52,9 @@ Phases (any failure raises and the script exits non-zero):
   5. time the engines, each kernel, its plain version and a PyTorch library
      call that computes the same function (CUDA events; for fusednorm, the
      relayout and the search also the card's own time with the calls
-     queued behind a sleep, the relayout's in turns and repeated, on both
-     its routes; for attention and the EDT under torch.profiler), and the host
+     queued behind a sleep, the relayout's in turns, repeated and on
+     buffers that L2 no longer holds; for attention and the EDT under
+     torch.profiler), and the host
      scipy HD95 of one volume (host clock);
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
@@ -61,7 +62,6 @@ The last line of stdout is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
-import array
 import collections
 import contextlib
 import itertools
@@ -129,10 +129,6 @@ RELAYOUT_CALLS = {
                            torch.bfloat16),
               "half_res_b8": ((8, 64, 64, 64, 32), torch.bfloat16,
                               torch.bfloat16)}}
-# the route K3's plan picks at each call: bulk where the call fits in L2
-# with 4 KB row segments
-RELAYOUT_ROUTES = {"input_b1": "vector", "half_res_b1": "bulk",
-                   "input_b8": "vector", "half_res_b8": "vector"}
 RELAYOUT_PER_FORWARD = 2         # both sites, s2d at both resolutions
 RELAYOUT_REPEATS = 7             # K3's timed comparison, in turns
 # K3's timed calls walk buffers of this many bytes, four times the H100's
@@ -415,31 +411,25 @@ def launched_plan(x, out):
 
 
 def check_relayout(dev):
-    """K3 vs its plain version, torch.equal, one launch per call, on the
-    route its launch plan picks (RELAYOUT_ROUTES at both UNet call sites
-    as the training step, B=1 bf16, and the serving engine, B=8 f32 ->
-    bf16 and bf16, give them; the vector route for the fp32 model's f32
-    input, for row segments that are not a multiple of 16 bytes (C = 3,
-    5), channels that break the 16-byte vector (C = 6), and an input that
-    starts one element into its buffer) and, where it takes the shape, on
-    the other route too: the bulk kernel at every call site and on a shape
-    whose last tile is ragged.  Both routes must occur in the plan's
-    picks.  The logged bulk grid is the occupancy API's count, beside the
-    plan's H100 estimate.  Then the gradient (the kernel's backward vs
-    autograd through the plain version)."""
+    """K3 vs its plain version, torch.equal, one launch per call, with the
+    vector width of the plan the wrapper launched asserted: 16 bytes of
+    output at both UNet call sites as the training step (B=1 bf16) and
+    the serving engine (B=8, f32 -> bf16 and bf16) give them, and at the
+    fp32 model's f32 input; narrower where 2C breaks the 16-byte vector
+    (C = 3, 5, 6) or the input starts one element into its buffer.  Then
+    the gradient (the kernel's backward vs autograd through the plain
+    version)."""
     g = gen(dev, SEED + 9)
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(name, *call, RELAYOUT_ROUTES[name])
-             for calls in RELAYOUT_CALLS.values()
+    cases = [(name, *call, 8) for calls in RELAYOUT_CALLS.values()
              for name, call in calls.items()]
-    cases += [("input_f32_b1", (1, 128, 128, 128, 4), f32, f32, "vector"),
-              ("ragged_tile", (1, 2, 40, 8, 16), bf16, bf16, "vector"),
-              ("c3", (2, 6, 8, 10, 3), f32, bf16, "vector"),
-              ("c5", (2, 6, 8, 10, 5), bf16, f32, "vector"),
-              ("c6_f16", (1, 4, 4, 4, 6), torch.float16, bf16, "vector"),
-              ("offset_1", (1, 64, 64, 64, 32), bf16, bf16, "vector")]
-    routes = set()
-    for name, shape, idt, odt, route in cases:
+    cases += [("input_f32_b1", (1, 128, 128, 128, 4), f32, f32, 4),
+              ("rows_20", (1, 2, 40, 8, 16), bf16, bf16, 8),
+              ("c3", (2, 6, 8, 10, 3), f32, bf16, 2),
+              ("c5", (2, 6, 8, 10, 5), bf16, f32, 2),
+              ("c6_f16", (1, 4, 4, 4, 6), torch.float16, bf16, 4),
+              ("offset_1", (1, 64, 64, 64, 32), bf16, bf16, 1)]
+    for name, shape, idt, odt, vec in cases:
         if name == "offset_1":
             buf = torch.randn(math.prod(shape) + 1, device=dev,
                               generator=g).to(idt)
@@ -451,32 +441,17 @@ def check_relayout(dev):
         launched = relayout.space_to_depth.launches - before
         want = relayout.space_to_depth_plain(x, odt)
         plan = launched_plan(x, got)
-        other = other_route(x, got, plan)
-        other_ok = other is None or torch.equal(relayout_on(x, odt, other),
-                                                want)
         torch.cuda.synchronize()
-        estimate = relayout.plan_relayout(tuple(shape), idt, odt,
-                                          relayout.alignment(x.data_ptr(),
-                                                             got.data_ptr()))
-        ok = (launched == 1 and got.dtype == odt and plan.route == route
-              and torch.equal(got, want) and other_ok)
-        if name == "ragged_tile":
-            ok = ok and other.route == "bulk" and other.tiles > 1 and \
-                math.prod(shape[:3]) // 4 % other.rows_per_block != 0
-        routes.add(plan.route)
+        ok = (launched == 1 and got.dtype == odt and plan.vec == vec
+              and torch.equal(got, want))
         log(check="relayout", case=name, shape=list(shape), dtype_in=str(idt),
-            dtype_out=str(odt), plan=plan._asdict(),
-            estimated_grid=estimate.grid,
-            other_route=other._asdict() if other else None,
-            tol="torch.equal", ok=ok)
+            dtype_out=str(odt), plan=plan._asdict(), tol="torch.equal",
+            ok=ok)
         if not ok:
             raise AssertionError(f"relayout kernel disagrees: {name} "
-                                 f"({plan.route}, expected {route}, "
-                                 f"{launched} launches, other route "
-                                 f"{'equal' if other_ok else 'differs'})")
+                                 f"(vec {plan.vec}, expected {vec}, "
+                                 f"{launched} launches)")
         del x, got, want
-    if routes != {"bulk", "vector"}:
-        raise AssertionError(f"relayout routes {routes}: both must occur")
     x = torch.randn((1, 16, 16, 16, 4), device=dev, generator=g,
                     requires_grad=True)
     ct = torch.randn((1, 8, 8, 8, 32), device=dev, generator=g)
@@ -949,32 +924,6 @@ def relayout_library(x, out):
     return out
 
 
-def relayout_on(x, odt, plan):
-    """K3 on ``plan``, through the kernel's C entry as the wrapper calls
-    it: the other route at a call site, for its time beside the plan's."""
-    n, d, h, w, c = x.shape
-    out = torch.empty((n, d // 2, h // 2, w // 2, 8 * c), dtype=odt,
-                      device=x.device)
-    args = array.array("q", (x.data_ptr(), out.data_ptr()))
-    args.extend(relayout.arguments(tuple(x.shape), x.dtype, odt, plan))
-    _build.check(_build.lib().dctseg_space_to_depth(
-        args.buffer_info()[0], _build.stream_of(x)), "space_to_depth")
-    return out
-
-
-def other_route(x, out, plan):
-    """The plan of the route K3's plan does not pick for ``x`` into
-    ``out``, as the wrapper would make it on this card (None where that
-    route does not take the shape)."""
-    shape = tuple(x.shape)
-    aligned = relayout.alignment(x.data_ptr(), out.data_ptr())
-    if plan.route == "bulk":
-        return relayout.vector_plan(shape, x.dtype, out.dtype, aligned)
-    bulk = relayout.bulk_plan(shape, x.dtype, out.dtype, aligned)
-    return bulk and relayout.device_grid(bulk, x.dtype, out.dtype,
-                                         x.get_device())
-
-
 def rotation(x, odt, grad=False):
     """Copies of ``x`` (requiring a gradient if ``grad``), each with an
     output buffer, enough that the pairs fill RELAYOUT_ROTATE_BYTES:
@@ -997,37 +946,31 @@ def rotating(fn, pairs):
 
 
 def time_relayout(dev, iters=20, repeats=RELAYOUT_REPEATS):
-    """K3 at each call of RELAYOUT_CALLS, on the route its plan picks:
-    the kernel, its plain version and one PyTorch call for the same
-    function (a permuted copy_ into the output, checked equal to the
-    kernel's result), call time back to back (CUDA events) in turns,
-    ``repeats`` times, and the card's time of the kernel and the copy_
-    (queued_ms) each time; the other route's kernel (checked equal) the
-    same way; the bytes bound at HBM's rate (input read once, output
-    written once).  Every timed call reads and writes buffers that L2 no
-    longer holds (``rotation``).  The training step calls its half-res
-    site on an input that needs a gradient, through the autograd
-    Function: timed too (``grad_ms``).  Returns {use: row}: medians and
-    min-max over the repeats of the sums over the use's two sites, the
-    routes and the other route's times."""
+    """K3 at each call of RELAYOUT_CALLS: the kernel, its plain version
+    and one PyTorch call for the same function (a permuted copy_ into the
+    output, checked equal to the kernel's result), call time back to back
+    (CUDA events) in turns, ``repeats`` times, and the card's time of the
+    kernel and the copy_ (queued_ms) each time; the bytes bound at HBM's
+    rate (input read once, output written once).  Every timed call reads
+    and writes buffers that L2 no longer holds (``rotation``).  The
+    training step calls its half-res site on an input that needs a
+    gradient, through the autograd Function: timed too (``grad_ms``).
+    Returns {use: row}: medians and min-max over the repeats of the sums
+    over the use's two sites, and each site's launch plan."""
     g = gen(dev, SEED + 10)
     keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms",
-            "other_ms", "other_device_ms", "grad_ms")
+            "grad_ms")
     rows = {}
     for use, calls in RELAYOUT_CALLS.items():
         step = {k: [0.0] * repeats for k in keys}
-        routes, other_routes, bound = {}, {}, 0.0
+        plans, bound = {}, 0.0
         for name, (shape, idt, odt) in calls.items():
             x = torch.randn(shape, device=dev, generator=g).to(idt)
             out = relayout.space_to_depth(x, odt)
             plan = launched_plan(x, out)
-            other = other_route(x, out, plan)
             if not torch.equal(relayout_library(x, torch.empty_like(out)),
                                out):
                 raise AssertionError("the relayout library call disagrees")
-            if other and not torch.equal(relayout_on(x, odt, other), out):
-                raise AssertionError(f"relayout's {other.route} route "
-                                     f"disagrees at {name}")
             pairs = rotation(x, odt)
             fns = {"ms": rotating(
                        lambda a, o: relayout.space_to_depth(a, odt), pairs),
@@ -1038,9 +981,6 @@ def time_relayout(dev, iters=20, repeats=RELAYOUT_REPEATS):
                    "grad_ms": rotating(
                        lambda a, o: relayout.space_to_depth(a, odt),
                        rotation(x, odt, grad=True))}
-            if other:
-                fns["other_ms"] = rotating(
-                    lambda a, o: relayout_on(a, odt, other), pairs)
             site = {k: [] for k in keys}
             for rep in range(repeats):
                 for k, fn in (list(fns.items()) if rep % 2
@@ -1049,35 +989,24 @@ def time_relayout(dev, iters=20, repeats=RELAYOUT_REPEATS):
                 site["device_ms"].append(queued_ms(fns["ms"], iters))
                 site["library_device_ms"].append(
                     queued_ms(fns["library_ms"], iters))
-                if other:
-                    site["other_device_ms"].append(
-                        queued_ms(fns["other_ms"], iters))
-            row = {k: statistics.median(v) for k, v in site.items() if v}
+            row = {k: statistics.median(v) for k, v in site.items()}
             row.update(bound_ms=x.numel() * (x.element_size()
                                              + torch.finfo(odt).bits // 8)
                        / HBM_BYTES_PER_S * 1e3,
-                       route=plan.route, grid=plan.grid, rotation=len(pairs),
-                       other_route=other.route if other else None,
-                       spread={k: [min(v), max(v)] for k, v in site.items()
-                               if v})
+                       plan=plan._asdict(), rotation=len(pairs),
+                       spread={k: [min(v), max(v)] for k, v in site.items()})
             log(timing="relayout", use=use, site=name, shape=list(shape),
                 dtype_in=str(idt), dtype_out=str(odt), repeats=repeats,
                 **row)
             for k, v in site.items():
                 for i, t in enumerate(v):
                     step[k][i] += t
-            routes[name] = plan.route
-            if other:
-                other_routes[name] = other.route
+            plans[name] = plan._asdict()
             bound += row["bound_ms"]
             del x, out, pairs, fns
-        if len(other_routes) < len(calls):
-            step.pop("other_ms")
-            step.pop("other_device_ms")
         rows[use] = dict(
             {k: statistics.median(v) for k, v in step.items()},
-            bound_ms=bound, route=routes, other_route=other_routes,
-            repeats=repeats,
+            bound_ms=bound, plan=plans, repeats=repeats,
             spread={k: [min(v), max(v)] for k, v in step.items()})
         log(timing="relayout_sum", use=use, **rows[use])
     return rows
@@ -1462,10 +1391,7 @@ def main() -> int:
              replaces="dctseg/ops/pallas/relayout.py:90",
              launches=train_rows["s2d_remat_none"]["launches"]["relayout"],
              max_abs_err=relayout_err, bound_by="bytes",
-             **{k: v for k, v in relayout_rows["train"].items()
-                if k != "route"},
-             routes=relayout_rows["train"]["route"],
-             serve_b8=relayout_rows["serve"],
+             **relayout_rows["train"], serve_b8=relayout_rows["serve"],
              unit="per B=1 bf16 train step (both sites, 2 launches; "
                   "medians of the repeats)"),
         dict(name="minplus", route="cuda",

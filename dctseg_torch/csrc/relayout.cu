@@ -8,41 +8,21 @@
 // bit-identical to space_to_depth(x.to(out_dtype)) in plain PyTorch.
 //
 // Bound on the H100: bytes.  The function reads the input once and writes
-// the output once and does no arithmetic.  The structure both routes use:
+// the output once and does no arithmetic.  The structure the kernel uses:
 // output row (n, z, y) -- W/2 pixels of 8C channels, contiguous -- is the
 // four input rows (n, 2z + iz, 2y + iy, :, :), each W*C elements long and
 // contiguous, interleaved in 2C-element runs: pixel x's channels
 // (iz*2 + iy)*2C + (ix*C + c) are run x of input row (iz, iy).
 //
-// Two routes; the wrapper's launch plan (ops/relayout.py plan_relayout)
-// picks one from the shape, its size and the input's alignment before the
-// launch.  Measured at the UNet's call sites: the bulk route wins only where
-// the call fits in L2 and its row segments are 4 KB long; where the call
-// streams from HBM (B=8) the vector route is 4-6 % faster.
-//
-// bulk: a persistent grid (the occupancy API's count of co-resident
-//   blocks, capped by the tiles) whose blocks walk tiles of T output rows.
-//   A tile's 4T input row segments come into shared memory with 1-D bulk
-//   asynchronous copies (cp.async.bulk, the TMA's linear mode: warp 0's
-//   lanes issue one copy each; completion on one mbarrier per stage with
-//   expect_tx), through a ring of 2-4 stages, so the next tiles' loads are
-//   in flight while the current tile is shuffled.  Each thread then reads
-//   16 output bytes' worth of one run from shared memory, casts in
-//   registers, and stores 16 contiguous output bytes; a tile's output is
-//   contiguous, so a warp's stores cover 512 contiguous bytes.  The index
-//   arithmetic is per thread once per kernel (its shared-memory offsets
-//   within a row) and per copy once per tile (the source row).  Segments
-//   sit 32 bytes apart beyond their length in shared memory, so the four
-//   runs a group of 8 threads reads fall on distinct banks at C = 4.
-//   Needs 16-byte-aligned pointers, segments of a multiple of 16 bytes,
-//   2C a multiple of the 16-byte output vector, and an output row of
-//   256*k (k <= 8) or 256/k vectors.
-//
-// vector: every other call.  A grid-stride loop in which one thread moves
-//   V consecutive output elements (16 bytes where the widths allow) with one
-//   vector store, reading the V matching input elements of one run; V is
-//   the largest of 8, 4, 2, 1 that divides 2C, fits 16 bytes of output and
-//   finds both pointers aligned.  Four integer divisions per vector.
+// A grid-stride loop in which one thread moves V consecutive output
+// elements (16 bytes where the widths allow) with one vector store, reading
+// the V matching input elements of one run with one vector load; V is the
+// largest of 8, 4, 2, 1 that divides 2C, fits 16 bytes of output and finds
+// both pointers aligned.  Neighbouring threads cover neighbouring output
+// vectors, so a warp stores one contiguous stretch and reads four.  The
+// wrapper's launch plan (ops/relayout.py plan_relayout) gives one thread a
+// vector up to 64 blocks per SM: enough independent loads in flight to
+// stream from HBM.
 
 #include <cstdint>
 #include <type_traits>
@@ -53,168 +33,14 @@ namespace dctseg {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxK = 8;          // output vectors per thread and row, bulk
-constexpr int kSlotPad = 32;      // bytes between segments in shared memory
-constexpr int kBarrierBytes = 128;  // the stages' mbarriers, then the ring
-constexpr int kMaxStages = 4;
-enum Route : int { kBulk = 0, kVector = 1 };
-
-struct Params {
-  const unsigned char* x;
-  unsigned char* out;
-  int d2, h2, w2, c;
-  long long rows;          // output rows, n * d2 * h2
-  // bulk
-  int rows_per_tile, tiles, stages, seg_bytes, slot_bytes, stage_bytes;
-  int row_vec, k, rows_step;
-  // vector
-  unsigned int vectors;
-};
-
-// A V-element piece of one input run in shared memory, loaded as one (or
-// two) 16-byte accesses or one narrower one.
-template <typename T, int V>
-struct alignas(sizeof(T) * V > 16 ? 16 : sizeof(T) * V) Piece {
-  T v[V];
-};
-
-template <typename Tin, typename Tout, int V>
-__device__ __forceinline__ Pack<Tout, V> cast(const Tin* v) {
-  Pack<Tout, V> o;
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    if constexpr (std::is_same<Tin, Tout>::value) {
-      o.v[j] = v[j];
-    } else {
-      o.v[j] = from_f32<Tout>(to_f32(v[j]));
-    }
-  }
-  return o;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// Warp 0: tile `tile`'s 4T input row segments into ring stage `stage`,
-// completing on `bar`.  Copy i is segment (r, q) = (i / 4, i % 4): input
-// row (2t + iz)*H + 2y + iy for output row t*h2 + y, (iz, iy) = q.
-__device__ __forceinline__ void issue_tile(const Params& p, int tile,
-                                           unsigned char* stage,
-                                           uint32_t bar, int lane) {
-  const long long row0 = (long long)tile * p.rows_per_tile;
-  const int rows_here = (int)min((long long)p.rows_per_tile, p.rows - row0);
-  if (lane == 0) {
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-        "r"(4 * rows_here * p.seg_bytes) : "memory");
-  }
-  __syncwarp();
-  for (int i = lane; i < 4 * rows_here; i += 32) {
-    const long long r = row0 + (i >> 2);
-    const long long t = r / p.h2;
-    const int y = (int)(r - t * p.h2);
-    const int iz = (i >> 1) & 1, iy = i & 1;
-    const long long in_row = (2 * t + iz) * (2LL * p.h2) + 2 * y + iy;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(stage + i * p.slot_bytes)),
-        "l"(p.x + in_row * p.seg_bytes), "r"(p.seg_bytes), "r"(bar)
-        : "memory");
-  }
-}
-
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(kThreads)
-s2d_bulk_kernel(const Params p) {
-  constexpr int V = 16 / sizeof(Tout);   // one 16-byte output vector
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31;
-  const uint32_t bars = smem_addr(smem);
-  unsigned char* ring = smem + kBarrierBytes;
-
-  if (tid == 0) {
-    for (int s = 0; s < p.stages; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-          bars + 8 * s) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid < 32) {
-    for (int s = 0; s < p.stages; ++s) {
-      const int tile = blockIdx.x + s * gridDim.x;
-      if (tile < p.tiles)
-        issue_tile(p, tile, ring + s * p.stage_bytes, bars + 8 * s, lane);
-    }
-  }
-
-  // this thread's output vectors in a row: j = j0 + 256k (k < K) of row
-  // rho + m*rows_step; their runs' byte offsets in a row's 4 slots
-  const int rho = p.row_vec >= kThreads ? 0 : tid / p.row_vec;
-  const int j0 = p.row_vec >= kThreads ? tid : tid % p.row_vec;
-  const int per_pixel = 8 * p.c / V, per_run = 2 * p.c / V;
-  int off[kMaxK];
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    const int j = j0 + k * kThreads;
-    const int px = j / per_pixel, cv = j - px * per_pixel;
-    const int q = cv / per_run;
-    const int within = (cv - q * per_run) * V;
-    off[k] = q * p.slot_bytes +
-             (px * 2 * p.c + within) * (int)sizeof(Tin);
-  }
-
-  for (int i = 0;; ++i) {
-    const int tile = blockIdx.x + i * gridDim.x;
-    if (tile >= p.tiles) break;
-    const int s = i % p.stages;
-    mbar_wait(bars + 8 * s, (i / p.stages) & 1);
-    const unsigned char* stage = ring + s * p.stage_bytes;
-    const long long row0 = (long long)tile * p.rows_per_tile;
-    const int rows_here =
-        (int)min((long long)p.rows_per_tile, p.rows - row0);
-    for (int r = rho; r < rows_here; r += p.rows_step) {
-      const unsigned char* src = stage + 4 * r * p.slot_bytes;
-      uint4* dst = reinterpret_cast<uint4*>(p.out) + (row0 + r) * p.row_vec;
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k < p.k) {
-          const Piece<Tin, V> in =
-              *reinterpret_cast<const Piece<Tin, V>*>(src + off[k]);
-          const Pack<Tout, V> o = cast<Tin, Tout, V>(in.v);
-          dst[j0 + k * kThreads] = *reinterpret_cast<const uint4*>(&o);
-        }
-      }
-    }
-    // the stage's generic reads before the async proxy's next writes
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    const int next = tile + p.stages * gridDim.x;
-    if (tid < 32 && next < p.tiles)
-      issue_tile(p, next, ring + s * p.stage_bytes, bars + 8 * s, lane);
-  }
-}
 
 template <typename Tin, typename Tout, int V>
 __global__ void __launch_bounds__(kThreads)
-s2d_vector_kernel(const Params p) {
-  const Tin* x = reinterpret_cast<const Tin*>(p.x);
-  Tout* out = reinterpret_cast<Tout*>(p.out);
-  const int D2 = p.d2, H2 = p.h2, W2 = p.w2, C = p.c;
+s2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
+           unsigned int vectors, int D2, int H2, int W2, int C) {
   const int two_c = 2 * C;
   const int vec_per_row = 8 * C / V;
-  for (unsigned int v = blockIdx.x * kThreads + threadIdx.x; v < p.vectors;
+  for (unsigned int v = blockIdx.x * kThreads + threadIdx.x; v < vectors;
        v += gridDim.x * kThreads) {
     unsigned int r = v / vec_per_row;                // output pixel
     const int ch = (int)(v - r * vec_per_row) * V;    // first output channel
@@ -230,48 +56,50 @@ s2d_vector_kernel(const Params p) {
     const long in_row =
         ((((long)n * 2 * D2 + 2 * zo + iz) * 2 * H2 + 2 * yo + iy) * 2 * W2
          + 2 * xo);
-    const Pack<Tin, V> in =
+    const Pack<Tin, V> p =
         *reinterpret_cast<const Pack<Tin, V>*>(x + in_row * C + within);
-    *reinterpret_cast<Pack<Tout, V>*>(out + (long)v * V) =
-        cast<Tin, Tout, V>(in.v);
+    Pack<Tout, V> o;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if constexpr (std::is_same<Tin, Tout>::value) {
+        o.v[j] = p.v[j];
+      } else {
+        o.v[j] = from_f32<Tout>(to_f32(p.v[j]));
+      }
+    }
+    *reinterpret_cast<Pack<Tout, V>*>(out + (long)v * V) = o;
   }
 }
 
 template <typename Tin, typename Tout>
-const void* pick_vec(int route, int vec) {
-  if (route == kBulk)
-    return reinterpret_cast<const void*>(&s2d_bulk_kernel<Tin, Tout>);
+const void* pick_vec(int vec) {
   switch (vec) {
     case 8:
       if constexpr (sizeof(Tout) <= 2)
-        return reinterpret_cast<const void*>(
-            &s2d_vector_kernel<Tin, Tout, 8>);
+        return reinterpret_cast<const void*>(&s2d_kernel<Tin, Tout, 8>);
       return nullptr;
-    case 4:
-      return reinterpret_cast<const void*>(&s2d_vector_kernel<Tin, Tout, 4>);
-    case 2:
-      return reinterpret_cast<const void*>(&s2d_vector_kernel<Tin, Tout, 2>);
-    case 1:
-      return reinterpret_cast<const void*>(&s2d_vector_kernel<Tin, Tout, 1>);
+    case 4: return reinterpret_cast<const void*>(&s2d_kernel<Tin, Tout, 4>);
+    case 2: return reinterpret_cast<const void*>(&s2d_kernel<Tin, Tout, 2>);
+    case 1: return reinterpret_cast<const void*>(&s2d_kernel<Tin, Tout, 1>);
     default: return nullptr;
   }
 }
 
 template <typename Tin>
-const void* pick_out(int out_dtype, int route, int vec) {
+const void* pick_out(int out_dtype, int vec) {
   switch (out_dtype) {
-    case kF32: return pick_vec<Tin, float>(route, vec);
-    case kBF16: return pick_vec<Tin, __nv_bfloat16>(route, vec);
-    case kF16: return pick_vec<Tin, __half>(route, vec);
+    case kF32: return pick_vec<Tin, float>(vec);
+    case kBF16: return pick_vec<Tin, __nv_bfloat16>(vec);
+    case kF16: return pick_vec<Tin, __half>(vec);
     default: return nullptr;
   }
 }
 
-const void* pick(int in_dtype, int out_dtype, int route, int vec) {
+const void* pick(int in_dtype, int out_dtype, int vec) {
   switch (in_dtype) {
-    case kF32: return pick_out<float>(out_dtype, route, vec);
-    case kBF16: return pick_out<__nv_bfloat16>(out_dtype, route, vec);
-    case kF16: return pick_out<__half>(out_dtype, route, vec);
+    case kF32: return pick_out<float>(out_dtype, vec);
+    case kBF16: return pick_out<__nv_bfloat16>(out_dtype, vec);
+    case kF16: return pick_out<__half>(out_dtype, vec);
     default: return nullptr;
   }
 }
@@ -283,88 +111,24 @@ int itemsize(int dtype) { return dtype == kF32 ? 4 : 2; }
 
 using namespace dctseg;
 
-// Blocks of the bulk kernel that one SM holds at once with `smem` bytes of
-// dynamic shared memory, and the card's SM count; first lets the kernel
-// take all the dynamic shared memory a block may opt in to (one kernel
-// serves several sizes).  An occupancy query, once per device, dtypes and
-// size (ops/relayout.py device_grid), before the first launch of that size.
-extern "C" int dctseg_space_to_depth_resident(int in_dtype, int out_dtype,
-                                              int smem, int* blocks,
-                                              int* sms) {
-  const void* k = pick(in_dtype, out_dtype, kBulk, 0);
-  if (!k || smem < 0) return cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (!err) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
-                                         dev);
-  if (!err) err = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (!err && smem > optin) err = cudaErrorInvalidValue;
-  if (!err)
-    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-  if (!err)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads,
-                                                        smem);
-  return err;
-}
-
 // args (int64, ops/relayout.py _launch): x, out, n, d, h, w, c, in_dtype,
-// out_dtype, route, vec, grid, rows_per_tile, stages, smem, tiles.  x:
-// contiguous (n, d, h, w, c); out: contiguous (n, d/2, h/2, w/2, 8c).  The
-// plan's choices are checked against the shape here; a launch that does
-// not fit them is refused.
+// out_dtype, vec, grid.  x: contiguous (n, d, h, w, c); out: contiguous
+// (n, d/2, h/2, w/2, 8c).  The plan's vector width is checked against the
+// shape and the pointers here; a launch that does not fit them is refused.
 extern "C" int dctseg_space_to_depth(const int64_t* a, void* stream) {
-  Params p;
-  p.x = reinterpret_cast<const unsigned char*>(a[0]);
-  p.out = reinterpret_cast<unsigned char*>(a[1]);
   const long long n = a[2], d = a[3], h = a[4], w = a[5], c = a[6];
-  const int in_dtype = (int)a[7], out_dtype = (int)a[8], route = (int)a[9];
-  const int vec = (int)a[10], grid = (int)a[11];
-  const int smem = (int)a[14];
-  if (n < 1 || c < 1 || d < 2 || h < 2 || w < 2 || (d | h | w) & 1 ||
-      grid < 1 || n * d * h * w * c > 0x7fffffffLL)
+  const int in_dtype = (int)a[7], out_dtype = (int)a[8];
+  const int vec = (int)a[9], grid = (int)a[10];
+  const void* k = pick(in_dtype, out_dtype, vec);
+  if (!k || n < 1 || c < 1 || d < 2 || h < 2 || w < 2 || (d | h | w) & 1 ||
+      grid < 1 || n * d * h * w * c > 0x7fffffffLL || (2 * c) % vec ||
+      a[0] % (vec * itemsize(in_dtype)) || a[1] % (vec * itemsize(out_dtype)))
     return cudaErrorInvalidValue;
-  const int isz = itemsize(in_dtype), osz = itemsize(out_dtype);
-  p.d2 = (int)d / 2;
-  p.h2 = (int)h / 2;
-  p.w2 = (int)w / 2;
-  p.c = (int)c;
-  p.rows = n * p.d2 * p.h2;
-  const void* k = pick(in_dtype, out_dtype, route, vec);
-  if (!k) return cudaErrorInvalidValue;
-  if (route == kBulk) {
-    p.rows_per_tile = (int)a[12];
-    p.stages = (int)a[13];
-    p.tiles = (int)a[15];
-    p.seg_bytes = (int)(w * c) * isz;
-    p.slot_bytes = p.seg_bytes + kSlotPad;
-    p.stage_bytes = 4 * p.rows_per_tile * p.slot_bytes;
-    if (vec * osz != 16 || (2 * c) % vec || p.seg_bytes % 16 ||
-        (a[0] | a[1]) & 15 || p.rows_per_tile < 1 || p.stages < 2 ||
-        p.stages > kMaxStages ||
-        (long long)p.tiles * p.rows_per_tile < p.rows ||
-        (long long)(p.tiles - 1) * p.rows_per_tile >= p.rows ||
-        smem != kBarrierBytes + p.stages * p.stage_bytes)
-      return cudaErrorInvalidValue;
-    p.row_vec = (int)(p.w2 * 8 * c / vec);
-    if (p.row_vec >= kThreads) {
-      p.k = p.row_vec / kThreads;
-      p.rows_step = 1;
-      if (p.row_vec % kThreads || p.k > kMaxK) return cudaErrorInvalidValue;
-    } else {
-      p.k = 1;
-      p.rows_step = kThreads / p.row_vec;
-      if (kThreads % p.row_vec) return cudaErrorInvalidValue;
-    }
-  } else if (route == kVector) {
-    if ((2 * c) % vec || a[0] % (vec * isz) || a[1] % (vec * osz) || smem)
-      return cudaErrorInvalidValue;
-    p.vectors = (unsigned int)(n * d * h * w * c / vec);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  void* args[] = {&p};
-  return cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, (size_t)smem,
+  const void* x = reinterpret_cast<const void*>(a[0]);
+  void* out = reinterpret_cast<void*>(a[1]);
+  unsigned int vectors = (unsigned int)(n * d * h * w * c / vec);
+  int d2 = (int)d / 2, h2 = (int)h / 2, w2 = (int)w / 2, ci = (int)c;
+  void* args[] = {&x, &out, &vectors, &d2, &h2, &w2, &ci};
+  return cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, 0,
                           static_cast<cudaStream_t>(stream));
 }

@@ -117,13 +117,9 @@ _SIGNATURES = {
     # (int64 args: values, cuts, ranks, counts, tickets, bounds, out, c, m,
     #  t, k, pass, last, narrow; vmax, stream)
     "dctseg_orderstats": [_vp, ctypes.c_float, _vp],
-    # (int64 args: x, out, n, d, h, w, c, in_dtype, out_dtype, route, vec,
-    #  grid, rows_per_tile, stages, smem, tiles; stream)
+    # (int64 args: x, out, n, d, h, w, c, in_dtype, out_dtype, vec, grid;
+    #  stream)
     "dctseg_space_to_depth": [_vp, _vp],
-    # (in_dtype, out_dtype, smem, &blocks, &sms)
-    "dctseg_space_to_depth_resident": [_int, _int, _int,
-                                       ctypes.POINTER(_int),
-                                       ctypes.POINTER(_int)],
 }
 
 

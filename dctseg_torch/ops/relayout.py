@@ -10,21 +10,17 @@ the plain relayout there, because XLA fuses it into the next conv's input
 gather; eager PyTorch has no such fusion, and the kernel does the cast and
 the relayout in one pass where the plain version takes two.)
 
-The kernel runs by one of two routes, which :func:`plan_relayout` picks
-from the shape, its size and the input's alignment before the launch:
-``bulk``, a persistent grid that stages each tile's input row segments in
-shared memory with bulk asynchronous copies, or ``vector``, a grid-stride
-loop of vector loads and stores.  A call
-whose input needs no gradient makes one ``ctypes`` call and nothing else;
-one that does goes through an autograd ``Function`` whose backward is the
-inverse relayout cast back to the input's dtype, in plain PyTorch, as the
-TPU kernel's custom VJP does it in XLA.
+The launch plan (:func:`plan_relayout`: the vector width and the grid) is
+worked out once per shape, dtypes and alignment.  A call whose input needs
+no gradient makes one ``ctypes`` call and nothing else; one that does goes
+through an autograd ``Function`` whose backward is the inverse relayout
+cast back to the input's dtype, in plain PyTorch, as the TPU kernel's
+custom VJP does it in XLA.
 """
 
 from __future__ import annotations
 
 import array
-import ctypes
 import math
 from typing import NamedTuple
 
@@ -34,31 +30,10 @@ from dctseg_torch.ops import _build
 from dctseg_torch.ops import s2d as s2dops
 
 THREADS = 256           # csrc/relayout.cu kThreads
-MAX_K = 8               # kMaxK: output vectors per thread and row (bulk)
-SLOT_PAD = 32           # kSlotPad: bytes between segments in shared memory
-BARRIER_BYTES = 128     # kBarrierBytes: the stages' mbarriers
-STAGES = 2              # the ring (the kernel takes 2 to 4)
-STAGE_BYTES = 32 << 10  # a tile's 4-segment slots fill at most this much
-# Routes, as measured at the UNet's call sites on the H100: calls whose
-# input and output fit in this much of the 50 MB L2 (the training step's
-# B=1 calls) run the bulk route where its row segments are this long (the
-# half-res site), the vector route (one wave of resident blocks) where they
-# are shorter (the input site); larger calls stream from HBM and run the
-# vector route over more blocks.
-L2_BYTES = 40 << 20
-BULK_MIN_SEGMENT = 4096
-VECTOR_BLOCKS_PER_SM = {True: 8, False: 64}   # by "fits L2"
-ROUTES = {"bulk": 0, "vector": 1}
-# the H100 SXM: SMs, shared memory per SM and per block (opt-in), the 1 KB
-# the SM reserves per block, threads and registers per SM; the bulk kernels
-# take up to 64 registers a thread (ptxas)
+# blocks per SM at most: one thread a vector up to this many, enough
+# independent loads in flight to stream from HBM on the H100
+BLOCKS_PER_SM = 64
 H100_SMS = 132
-SMEM_PER_SM = 233472
-SMEM_PER_BLOCK = 232448
-SMEM_RESERVED = 1024
-THREADS_PER_SM = 2048
-REGS_PER_SM = 65536
-BULK_REGS = 64
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 
 
@@ -69,18 +44,10 @@ def space_to_depth_plain(x: torch.Tensor, out_dtype=None) -> torch.Tensor:
 
 
 class RelayoutPlan(NamedTuple):
-    """How one call runs.  ``bulk``: ``grid`` blocks walk ``tiles`` tiles
-    of ``rows_per_block`` output rows, a ring of ``stages`` stages in
-    ``smem_bytes`` of shared memory, ``vec`` output elements (16 bytes) per
-    vector.  ``vector``: ``grid`` blocks stride over the output ``vec``
-    elements at a time, no shared memory."""
-    route: str
+    """How one call runs: ``grid`` blocks stride over the output ``vec``
+    elements at a time."""
     vec: int
     grid: int
-    rows_per_block: int
-    stages: int
-    smem_bytes: int
-    tiles: int
 
 
 def alignment(*ptrs: int) -> int:
@@ -93,80 +60,20 @@ def alignment(*ptrs: int) -> int:
     return low & -low if low else 32
 
 
-def _fits_l2(shape: tuple, in_dtype: torch.dtype,
-             out_dtype: torch.dtype) -> bool:
-    return (math.prod(shape) * (_ITEMSIZE[in_dtype] + _ITEMSIZE[out_dtype])
-            <= L2_BYTES)
-
-
-def vector_plan(shape: tuple, in_dtype: torch.dtype, out_dtype: torch.dtype,
-                aligned: int) -> RelayoutPlan:
-    """The vector route's plan: the widest of 8, 4, 2, 1 output elements
-    that divides 2C, moves at most 16 bytes of output and finds both
-    tensors aligned, over a grid of one thread per vector capped at
-    VECTOR_BLOCKS_PER_SM blocks per SM: one wave of resident blocks where
-    the call fits in L2, eight beyond."""
+def plan_relayout(shape: tuple, in_dtype: torch.dtype,
+                  out_dtype: torch.dtype, aligned: int) -> RelayoutPlan:
+    """The launch plan for a contiguous input of ``shape`` (N, D, H, W, C)
+    whose address (and the fresh output's) is a multiple of ``aligned``
+    bytes (a power of two up to 32): the widest of 8, 4, 2, 1 output
+    elements that divides 2C, moves at most 16 bytes of output and finds
+    both tensors aligned, over a grid of one thread per vector capped at
+    BLOCKS_PER_SM blocks per SM."""
     in_size, out_size = _ITEMSIZE[in_dtype], _ITEMSIZE[out_dtype]
     vec = next(v for v in (8, 4, 2, 1)
                if v * out_size <= 16 and (2 * shape[-1]) % v == 0
                and v * max(in_size, out_size) <= aligned)
     blocks = math.ceil(math.prod(shape) // vec / THREADS)
-    per_sm = VECTOR_BLOCKS_PER_SM[_fits_l2(shape, in_dtype, out_dtype)]
-    return RelayoutPlan("vector", vec, min(blocks, H100_SMS * per_sm),
-                        0, 0, 0, 0)
-
-
-def bulk_plan(shape: tuple, in_dtype: torch.dtype, out_dtype: torch.dtype,
-              aligned: int) -> RelayoutPlan | None:
-    """The bulk route's plan, or None where its copies and vectors do not
-    fit the shape.  They need both pointers 16-byte aligned, an input row
-    segment (W*C elements) of a multiple of 16 bytes, 2C a multiple of the
-    16-byte output vector (V = 16 / output itemsize), and an output row of
-    256*k vectors (k <= 8, a thread then moves k of a row) or of 256/k (k
-    rows at once).  A tile is the largest power-of-two count of row steps
-    (of k rows there) whose 4-segment slots fit STAGE_BYTES, at least one
-    step; the ring holds STAGES tiles.  The grid is the H100's co-resident
-    blocks by threads, registers and shared memory, capped by the tiles
-    (:func:`device_grid` asks the card)."""
-    n, d, h, w, c = shape
-    in_size, out_size = _ITEMSIZE[in_dtype], _ITEMSIZE[out_dtype]
-    rows = n * (d // 2) * (h // 2)
-    vec = 16 // out_size
-    seg = w * c * in_size
-    row_vec = (w // 2) * 8 * c // vec
-    if not (aligned >= 16 and seg % 16 == 0 and (2 * c) % vec == 0
-            and (row_vec % THREADS == 0 and row_vec // THREADS <= MAX_K
-                 or THREADS % row_vec == 0)):
-        return None
-    step = max(1, THREADS // row_vec)
-    fit = max(1, STAGE_BYTES // (4 * step * (seg + SLOT_PAD)))
-    rows_per_block = step * min(1 << (fit.bit_length() - 1),
-                                math.ceil(rows / step))
-    smem = BARRIER_BYTES + STAGES * 4 * rows_per_block * (seg + SLOT_PAD)
-    if smem > SMEM_PER_BLOCK:
-        return None
-    blocks_per_sm = min(THREADS_PER_SM // THREADS,
-                        REGS_PER_SM // (BULK_REGS * THREADS),
-                        SMEM_PER_SM // (smem + SMEM_RESERVED))
-    tiles = math.ceil(rows / rows_per_block)
-    return RelayoutPlan("bulk", vec, min(tiles, H100_SMS * blocks_per_sm),
-                        rows_per_block, STAGES, smem, tiles)
-
-
-def plan_relayout(shape: tuple, in_dtype: torch.dtype,
-                  out_dtype: torch.dtype, aligned: int) -> RelayoutPlan:
-    """The launch plan for a contiguous input of ``shape`` (N, D, H, W, C)
-    whose address (and the fresh output's) is a multiple of ``aligned``
-    bytes (a power of two up to 32): the bulk route where it takes the
-    shape, the input and the output fit L2_BYTES and the input row
-    segments (W*C elements) are at least BULK_MIN_SEGMENT bytes long, else
-    the vector route."""
-    if (_fits_l2(shape, in_dtype, out_dtype)
-            and shape[3] * shape[4] * _ITEMSIZE[in_dtype] >= BULK_MIN_SEGMENT):
-        plan = bulk_plan(shape, in_dtype, out_dtype, aligned)
-        if plan is not None:
-            return plan
-    return vector_plan(shape, in_dtype, out_dtype, aligned)
+    return RelayoutPlan(vec, min(blocks, H100_SMS * BLOCKS_PER_SM))
 
 
 class _Call(NamedTuple):
@@ -177,64 +84,26 @@ class _Call(NamedTuple):
     fn: object
 
 
-_resident: dict = {}   # (device, in, out, smem) -> (blocks per SM, SMs)
-_calls: dict = {}      # (shape, in, out, aligned, device) -> _Call
+_calls: dict = {}      # (shape, in, out, aligned) -> _Call
 
 
-def device_grid(plan: RelayoutPlan, in_dtype: torch.dtype,
-                out_dtype: torch.dtype, device: int) -> RelayoutPlan:
-    """A bulk ``plan`` with its grid from the occupancy API of CUDA device
-    ``device``: the blocks one SM holds at once with the plan's shared
-    memory, times the SMs, capped by the tiles (one query per device,
-    dtypes and size)."""
-    key = (device, _build.dtype_code(in_dtype), _build.dtype_code(out_dtype),
-           plan.smem_bytes)
-    found = _resident.get(key)
-    if found is None:
-        blocks, sms = ctypes.c_int(0), ctypes.c_int(0)
-        _build.check(_build.lib().dctseg_space_to_depth_resident(
-            key[1], key[2], plan.smem_bytes, ctypes.byref(blocks),
-            ctypes.byref(sms)), "relayout occupancy")
-        found = _resident[key] = (blocks.value, sms.value)
-    if found[0] < 1:
-        raise RuntimeError(f"the relayout kernel does not fit an SM with "
-                           f"{plan.smem_bytes} bytes of shared memory")
-    return plan._replace(grid=min(plan.tiles, found[0] * found[1]))
-
-
-def plan_for(shape: tuple, in_dtype: torch.dtype, out_dtype: torch.dtype,
-             aligned: int, device: int) -> RelayoutPlan:
-    """The plan of a call on CUDA device ``device``."""
-    plan = plan_relayout(shape, in_dtype, out_dtype, aligned)
-    return (device_grid(plan, in_dtype, out_dtype, device)
-            if plan.route == "bulk" else plan)
-
-
-def arguments(shape: tuple, in_dtype: torch.dtype, out_dtype: torch.dtype,
-              plan: RelayoutPlan) -> array.array:
-    """The C entry's int64 arguments after the two pointers, for a call of
-    ``shape`` that runs ``plan``."""
-    return array.array("q", (
-        *shape, _build.dtype_code(in_dtype), _build.dtype_code(out_dtype),
-        ROUTES[plan.route], plan.vec, plan.grid, plan.rows_per_block,
-        plan.stages, plan.smem_bytes, plan.tiles))
-
-
-def _prepare(shape, in_dtype, out_dtype, aligned, device) -> _Call:
+def _prepare(shape, in_dtype, out_dtype, aligned) -> _Call:
     for dtype in (in_dtype, out_dtype):
         _build.dtype_code(dtype)      # TypeError on a dtype it does not take
     if math.prod(shape) > 0x7fffffff:
         raise ValueError(f"{tuple(shape)} has more elements than one "
                          "launch takes")
-    plan = plan_for(tuple(shape), in_dtype, out_dtype, aligned, device)
-    return _Call(plan, arguments(shape, in_dtype, out_dtype, plan),
-                 _build.lib().dctseg_space_to_depth)
+    plan = plan_relayout(tuple(shape), in_dtype, out_dtype, aligned)
+    tail = array.array("q", (*shape, _build.dtype_code(in_dtype),
+                             _build.dtype_code(out_dtype), plan.vec,
+                             plan.grid))
+    return _Call(plan, tail, _build.lib().dctseg_space_to_depth)
 
 
 def call_key(x: torch.Tensor, out: torch.Tensor) -> tuple:
     """The key of a call on ``x`` into ``out`` in ``_calls``."""
     return (x.shape, x.dtype, out.dtype,
-            alignment(x.data_ptr(), out.data_ptr()), x.get_device())
+            alignment(x.data_ptr(), out.data_ptr()))
 
 
 def _launch(x: torch.Tensor, out_dtype) -> torch.Tensor:

@@ -1,18 +1,15 @@
-"""K3's launch plan and the bulk route's arithmetic, on the CPU.
+"""K3's launch plan and the kernel's arithmetic, on the CPU.
 
-The CUDA kernels run only on the card (``chip_smoke.py`` holds both
-routes to the plain version there).  Here the pure launch plan is held to
-what ``csrc/relayout.cu`` takes: the bulk kernel takes the four call-site
-shapes of the UNet (16-byte segments, stages within the H100's shared
-memory per block, tiles covering every output row once) and the plan
-gives it the one that fits in L2 with 4 KB segments, the vector route the
-rest and rows that are not a multiple of 16 bytes or misaligned inputs.
-A rehearsal of the bulk kernel in torch -- blocks walking tiles through
-the ring of stages, the four row segments of each output row copied into
-padded shared-memory slots, each thread's 16-byte pieces of the 2C runs
-read at its precomputed offsets, cast and stored -- must equal the plain
-version and the JAX relayout (the Pallas kernel in interpret mode) bit for
-bit.
+The CUDA kernel runs only on the card (``chip_smoke.py`` holds it to the
+plain version there).  Here the pure launch plan is held to what
+``csrc/relayout.cu`` takes: 16-byte output vectors at the UNet's call
+sites, narrower ones where 2C or the pointers break them, and a grid of
+one thread a vector up to BLOCKS_PER_SM blocks per SM.  A rehearsal of the
+kernel in torch -- the grid-stride loop over output vectors, each
+vector's output pixel, its (iz, iy) run and the input row it reads, the
+V-element load (aligned to V elements), the cast and the store -- must
+equal the plain version and the JAX relayout (the Pallas kernel in
+interpret mode) bit for bit.
 """
 
 import math
@@ -35,74 +32,44 @@ JNP = {F32: jnp.float32, BF16: jnp.bfloat16, F16: jnp.float16}
 ITEMSIZE = {F32: 4, BF16: 2, F16: 2}
 # the two UNet call sites at full width, as the training step (B=1, bf16)
 # and the serving engine (B=8, f32 volumes) give them, and the fp32 model's
-# input site, with the route the plan gives each: the bulk route where the
-# call fits in L2 and its row segments are 4 KB long
-CALL_SITES = [((1, 128, 128, 128, 4), BF16, BF16, "vector"),
-              ((1, 64, 64, 64, 32), BF16, BF16, "bulk"),
-              ((8, 128, 128, 128, 4), F32, BF16, "vector"),
-              ((8, 64, 64, 64, 32), BF16, BF16, "vector"),
-              ((1, 128, 128, 128, 4), F32, F32, "vector")]
+# input site
+CALL_SITES = [((1, 128, 128, 128, 4), BF16, BF16),
+              ((1, 64, 64, 64, 32), BF16, BF16),
+              ((8, 128, 128, 128, 4), F32, BF16),
+              ((8, 64, 64, 64, 32), BF16, BF16),
+              ((1, 128, 128, 128, 4), F32, F32)]
 # the shapes of tests/test_torch_s2d.py RELAYOUT_CASES (the JAX package's
-# relayout test), and one whose last tile is ragged (20 rows, tiles of 12)
-REHEARSAL_CASES = [((2, 4, 32, 32, 4), F32, BF16),
-                   ((2, 4, 32, 32, 4), F32, F32),
-                   ((1, 4, 32, 4, 32), F32, BF16),
-                   ((1, 4, 32, 4, 32), BF16, BF16),
-                   ((1, 2, 40, 8, 16), BF16, BF16)]
+# relayout test), one of 20 output rows, and two whose vectors narrow
+REHEARSAL_CASES = [((2, 4, 32, 32, 4), F32, BF16, 32),
+                   ((2, 4, 32, 32, 4), F32, F32, 32),
+                   ((1, 4, 32, 4, 32), F32, BF16, 32),
+                   ((1, 4, 32, 4, 32), BF16, BF16, 32),
+                   ((1, 2, 40, 8, 16), BF16, BF16, 32),
+                   ((2, 6, 8, 10, 3), F32, BF16, 32),
+                   ((1, 8, 8, 8, 32), BF16, BF16, 2)]
 
 
-def _rows(shape):
-    n, d, h = shape[:3]
-    return n * (d // 2) * (h // 2)
-
-
-def _vector_grid(shape, in_dt, out_dt, vec):
-    fits = (math.prod(shape) * (ITEMSIZE[in_dt] + ITEMSIZE[out_dt])
-            <= relayout.L2_BYTES)
+def _grid(shape, vec):
     blocks = math.ceil(math.prod(shape) // vec / relayout.THREADS)
-    return min(blocks, relayout.H100_SMS
-               * relayout.VECTOR_BLOCKS_PER_SM[fits])
+    return min(blocks, relayout.H100_SMS * relayout.BLOCKS_PER_SM)
 
 
-@pytest.mark.parametrize("shape,in_dt,out_dt,route", CALL_SITES)
-def test_plan_at_the_call_sites(shape, in_dt, out_dt, route):
-    """The bulk kernel takes every call site (16-byte segments, whole
-    16-byte output vectors, its ring within the H100's 227 KB of shared
-    memory per block, tiles covering every output row once); the plan
-    gives it the calls that fit L2_BYTES with segments of at least
-    BULK_MIN_SEGMENT bytes, and the rest to the vector route."""
+@pytest.mark.parametrize("shape,in_dt,out_dt", CALL_SITES)
+def test_plan_at_the_call_sites(shape, in_dt, out_dt):
+    """16 bytes of output a vector, whole runs of 2C, one thread a vector
+    up to BLOCKS_PER_SM blocks per SM (the B=8 calls stride)."""
     plan = relayout.plan_relayout(shape, in_dt, out_dt, 32)
-    bulk = relayout.bulk_plan(shape, in_dt, out_dt, 32)
-    n, d, h, w, c = shape
-    seg = w * c * ITEMSIZE[in_dt]
-    assert seg % 16 == 0 and (2 * c) % (16 // ITEMSIZE[out_dt]) == 0
-    fits = (math.prod(shape) * (ITEMSIZE[in_dt] + ITEMSIZE[out_dt])
-            <= relayout.L2_BYTES)
-    assert plan.route == route
-    assert (route == "bulk") == (fits and seg >= relayout.BULK_MIN_SEGMENT)
-    assert bulk.vec * ITEMSIZE[out_dt] == 16
-    assert bulk.stages == relayout.STAGES
-    stage = 4 * bulk.rows_per_block * (seg + relayout.SLOT_PAD)
-    assert stage <= relayout.STAGE_BYTES
-    assert bulk.smem_bytes == relayout.BARRIER_BYTES + bulk.stages * stage
-    assert bulk.smem_bytes <= relayout.SMEM_PER_BLOCK   # 227 KB
-    assert bulk.tiles == math.ceil(_rows(shape) / bulk.rows_per_block)
-    # the grid is the co-resident blocks: threads, registers and shared
-    # memory per SM
-    per_sm = min(8, 4, relayout.SMEM_PER_SM
-                 // (bulk.smem_bytes + relayout.SMEM_RESERVED))
-    assert bulk.grid == min(bulk.tiles, relayout.H100_SMS * per_sm)
-    if route == "bulk":
-        assert plan == bulk
-    else:
-        assert plan.vec * ITEMSIZE[out_dt] == 16 and plan.smem_bytes == 0
-        assert plan.grid == _vector_grid(shape, in_dt, out_dt, plan.vec)
+    assert plan.vec * ITEMSIZE[out_dt] == 16
+    assert (2 * shape[-1]) % plan.vec == 0
+    assert plan.grid == _grid(shape, plan.vec)
+    vectors = math.prod(shape) // plan.vec
+    assert (plan.grid * relayout.THREADS >= vectors) == (shape[0] == 1)
 
 
 @pytest.mark.parametrize("shape,in_dt,out_dt,aligned,vec", [
-    ((2, 6, 8, 10, 3), F32, BF16, 32, 2),     # 120-byte segments
-    ((2, 6, 8, 10, 5), BF16, F32, 32, 2),     # 2C = 10, 100-byte segments
-    ((1, 4, 4, 4, 6), F16, BF16, 32, 4),      # 2C = 12, 48 bytes, 24 vectors
+    ((2, 6, 8, 10, 3), F32, BF16, 32, 2),     # 2C = 6
+    ((2, 6, 8, 10, 5), BF16, F32, 32, 2),     # 2C = 10
+    ((1, 4, 4, 4, 6), F16, BF16, 32, 4),      # 2C = 12
     ((1, 128, 128, 128, 4), BF16, BF16, 2, 1),   # one element in
     ((1, 64, 64, 64, 32), BF16, BF16, 4, 2),
     ((8, 128, 128, 128, 4), F32, BF16, 8, 2),
@@ -110,97 +77,55 @@ def test_plan_at_the_call_sites(shape, in_dt, out_dt, route):
 def test_plan_gives_ragged_or_misaligned_inputs_the_vector_route(
         shape, in_dt, out_dt, aligned, vec):
     plan = relayout.plan_relayout(shape, in_dt, out_dt, aligned)
-    assert relayout.bulk_plan(shape, in_dt, out_dt, aligned) is None
-    assert plan.route == "vector" and plan.vec == vec
+    assert plan.vec == vec
     assert (2 * shape[-1]) % vec == 0
     assert vec * max(ITEMSIZE[in_dt], ITEMSIZE[out_dt]) <= aligned
-    assert (plan.rows_per_block, plan.stages, plan.smem_bytes,
-            plan.tiles) == (0, 0, 0, 0)
-    assert plan.grid == _vector_grid(shape, in_dt, out_dt, vec)
+    assert plan.grid == _grid(shape, vec)
 
 
-def _rehearse_bulk(x: torch.Tensor, out_dtype, plan) -> torch.Tensor:
-    """csrc/relayout.cu s2d_bulk_kernel in torch, on bytes: each block
-    walks tiles blockIdx + i*grid through the ring (stage i % stages, its
-    (i // stages)-th fill); warp 0's copy i of a tile brings segment
-    (r, q) = (i // 4, i % 4), input row (2t + iz)*H + 2y + iy, into slot i;
-    thread tid moves output vectors j0 + 256k of rows rho + m*rows_step,
-    reading V input elements at its offsets q*slot + (px*2C + within)*size
-    in the row's 4 slots, casting, and storing 16 bytes."""
+def _rehearse(x: torch.Tensor, out_dtype, plan) -> torch.Tensor:
+    """csrc/relayout.cu s2d_kernel in torch: thread t of the grid takes
+    output vectors v = t + p * grid * 256, p = 0, 1, ...; vector v is
+    output pixel r = v // (8C/V) at channel ch = (v mod 8C/V) * V, run
+    q = ch // 2C (iz, iy) = (q >> 1, q & 1) at ``within`` = ch mod 2C, which
+    it reads as V elements of input row (n, 2z + iz, 2y + iy, 2x), casts
+    and stores at v * V."""
     n, d, h, w, c = x.shape
-    h2, isz, vec = h // 2, x.element_size(), plan.vec
-    rows, seg = _rows(x.shape), w * c * isz
-    slot = seg + relayout.SLOT_PAD
-    row_vec = (w // 2) * 8 * c // vec
-    k_count = max(1, row_vec // relayout.THREADS)
-    rows_step = max(1, relayout.THREADS // row_vec)
-    src = x.contiguous().view(torch.uint8).reshape(-1)
-    out = torch.zeros(rows * row_vec * 16, dtype=torch.uint8)
-
-    tid = torch.arange(relayout.THREADS)
-    rho = tid // row_vec if row_vec < relayout.THREADS else tid * 0
-    j0 = tid % row_vec if row_vec < relayout.THREADS else tid
-    per_pixel, per_run = 8 * c // vec, 2 * c // vec
-    j = j0[:, None] + relayout.THREADS * torch.arange(k_count)[None, :]
-    px, cv = j // per_pixel, j % per_pixel
-    q, within = cv // per_run, cv % per_run * vec
-    off = q * slot + (px * 2 * c + within) * isz          # (threads, K)
-    piece = torch.arange(vec * isz)
-
-    def issue(tile):
-        row0 = tile * plan.rows_per_block
-        rows_here = min(plan.rows_per_block, rows - row0)
-        stage = torch.zeros(4 * plan.rows_per_block * slot,
-                            dtype=torch.uint8)
-        for i in range(4 * rows_here):
-            t, y = divmod(row0 + i // 4, h2)
-            in_row = (2 * t + (i >> 1 & 1)) * h + 2 * y + (i & 1)
-            stage[i * slot:i * slot + seg] = src[in_row * seg:
-                                                 (in_row + 1) * seg]
-        return tile, stage
-
-    def consume(tile, stage):
-        row0 = tile * plan.rows_per_block
-        rows_here = min(plan.rows_per_block, rows - row0)
-        for m in range(math.ceil(plan.rows_per_block / rows_step)):
-            r = rho + m * rows_step                           # (threads,)
-            live = r < rows_here
-            at = (4 * r * slot)[:, None] + off                # (threads, K)
-            got = stage[at[live][..., None] + piece]
-            vals = got.reshape(-1, vec * isz).contiguous().view(x.dtype)
-            o = vals.to(out_dtype).contiguous().view(torch.uint8)
-            dst = ((row0 + r[live])[:, None] * row_vec + j[live]) * 16
-            out[(dst.reshape(-1, 1) + torch.arange(16)).reshape(-1)] = \
-                o.reshape(-1)
-
-    done = []
-    for block in range(plan.grid):
-        ring, fills = [None] * plan.stages, [0] * plan.stages
-        for s in range(plan.stages):
-            if block + s * plan.grid < plan.tiles:
-                ring[s], fills[s] = issue(block + s * plan.grid), 1
-        i = 0
-        while block + i * plan.grid < plan.tiles:
-            tile, s = block + i * plan.grid, i % plan.stages
-            assert fills[s] == i // plan.stages + 1 and ring[s][0] == tile
-            consume(*ring[s])
-            done.append(tile)
-            nxt = tile + plan.stages * plan.grid
-            if nxt < plan.tiles:
-                ring[s], fills[s] = issue(nxt), fills[s] + 1
-            i += 1
-    assert sorted(done) == list(range(plan.tiles))
-    return out.view(out_dtype).reshape(n, d // 2, h2, w // 2, 8 * c)
+    d2, h2, w2, vec = d // 2, h // 2, w // 2, plan.vec
+    src = x.contiguous().reshape(-1)
+    vectors = src.numel() // vec
+    out = torch.zeros(vectors * vec, dtype=out_dtype)
+    seen = torch.zeros(vectors, dtype=torch.int64)
+    stride = plan.grid * relayout.THREADS
+    lanes = torch.arange(vec)
+    for p in range(math.ceil(vectors / stride)):
+        v = torch.arange(p * stride, min((p + 1) * stride, vectors))
+        r = v // (8 * c // vec)
+        ch = (v - r * (8 * c // vec)) * vec
+        q = ch // (2 * c)
+        within = ch - q * 2 * c
+        iz, iy = q >> 1, q & 1
+        xo, r = r % w2, r // w2
+        yo, r = r % h2, r // h2
+        zo, nn = r % d2, r // d2
+        in_row = (((nn * 2 * d2 + 2 * zo + iz) * 2 * h2 + 2 * yo + iy)
+                  * 2 * w2 + 2 * xo)
+        first = in_row * c + within
+        assert bool((first % vec == 0).all())      # the aligned V-load
+        vals = src[first[:, None] + lanes]
+        out[(v * vec)[:, None] + lanes] = vals.to(out_dtype)
+        seen[v] += 1
+    assert bool((seen == 1).all())
+    return out.reshape(n, d2, h2, w2, 8 * c)
 
 
-@pytest.mark.parametrize("shape,in_dt,out_dt", REHEARSAL_CASES)
-def test_bulk_kernel_rehearsal_equals_plain_and_pallas(shape, in_dt, out_dt):
+@pytest.mark.parametrize("shape,in_dt,out_dt,aligned", REHEARSAL_CASES)
+def test_kernel_rehearsal_equals_plain_and_pallas(shape, in_dt, out_dt,
+                                                  aligned):
     rng = np.random.default_rng(sum(shape))
     x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(in_dt)
-    plan = relayout.bulk_plan(shape, in_dt, out_dt, 32)
-    if shape == REHEARSAL_CASES[-1][0]:
-        assert plan.tiles > 1 and _rows(shape) % plan.rows_per_block
-    got = _rehearse_bulk(x, out_dt, plan)
+    plan = relayout.plan_relayout(shape, in_dt, out_dt, aligned)
+    got = _rehearse(x, out_dt, plan)
     assert torch.equal(got, relayout.space_to_depth_plain(x, out_dt))
     xj = jnp.asarray(x.float().numpy()).astype(JNP[in_dt])
     want = jax.jit(lambda a: jax_relayout.space_to_depth(
@@ -210,15 +135,16 @@ def test_bulk_kernel_rehearsal_equals_plain_and_pallas(shape, in_dt, out_dt):
 
 
 @pytest.mark.parametrize("blocks", [1, 2])
-def test_bulk_rehearsal_on_fewer_blocks_than_tiles(blocks):
-    """Blocks that walk several tiles each refill every stage of the ring
-    (the call-site grids give most blocks two or more tiles)."""
+def test_rehearsal_on_fewer_threads_than_vectors(blocks):
+    """Threads that stride over several vectors each cover every vector
+    once (the B=8 call-site grids give each thread about four)."""
     shape = (1, 8, 64, 4, 32)
     x = torch.from_numpy(np.random.default_rng(blocks).normal(size=shape)
                          .astype(np.float32)).to(BF16)
-    plan = relayout.bulk_plan(shape, BF16, BF16, 32)._replace(grid=blocks)
-    assert plan.grid == blocks and plan.tiles > plan.stages * blocks
-    assert torch.equal(_rehearse_bulk(x, BF16, plan),
+    plan = relayout.plan_relayout(shape, BF16, BF16, 32)._replace(
+        grid=blocks)
+    assert blocks * relayout.THREADS < math.prod(shape) // plan.vec
+    assert torch.equal(_rehearse(x, BF16, plan),
                        relayout.space_to_depth_plain(x, BF16))
 
 
