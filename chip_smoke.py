@@ -49,13 +49,26 @@ Phases (any failure raises and the script exits non-zero):
          peak memory, then once more on each of the s2d and direct paths
          with the last steps under torch.profiler, for the card's busy time
          per step and the ops that take it;
+       - serving bundles (phase 4d): a bf16 ``tiling`` bundle exported on
+         the card (torch.export, the kernels as dctseg operators) and
+         loaded fresh, held to Predictor.tiled_probs on a seeded
+         240x240x160x4 volume (labels equal), then served by BundleServer
+         on port 0: 3 labels and 1 probs requests over HTTP, each equal to
+         the bundle's answer and each launching one forward's kernels;
+         an s2d ``single`` bundle at 128^3 exported on the CPU and moved
+         to the card at load (2 relayout launches a forward, labels equal
+         to seg_probs'); a paired V=2 ``tiling`` bundle that coalesces 2
+         concurrent requests into one group, labels equal to the V=1
+         bundle's;
   5. time the engines, each kernel, its plain version and a PyTorch library
      call that computes the same function (CUDA events; for fusednorm, the
      relayout and the search also the card's own time with the calls
      queued behind a sleep, the relayout's in turns, repeated and on
      buffers that L2 no longer holds; for attention and the EDT under
      torch.profiler), and the host
-     scipy HD95 of one volume (host clock);
+     scipy HD95 of one volume (host clock); the host time per call that
+     the operator registration adds to K1, K2 and K3; the serving
+     bundle's export, load and request times;
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
 """
@@ -64,14 +77,18 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -83,6 +100,8 @@ from dctseg_torch.config import DataConfig, ModelConfig
 from dctseg_torch.data import synthetic
 from dctseg_torch.data.brats import BraTSDataset
 from dctseg_torch.infer.engine import Predictor
+from dctseg_torch.infer.server import BundleServer
+from dctseg_torch.infer.serving import ServingBundle, export_bundle
 from dctseg_torch.models import clswiseformer as cwf
 from dctseg_torch.models import unet
 from dctseg_torch.ops import _build
@@ -131,6 +150,7 @@ RELAYOUT_CALLS = {
                               torch.bfloat16)}}
 RELAYOUT_PER_FORWARD = 2         # both sites, s2d at both resolutions
 RELAYOUT_REPEATS = 7             # K3's timed comparison, in turns
+BUNDLE_ROUNDS = 3                # phase 4d's timed volumes, engine in turns
 # K3's timed calls walk buffers of this many bytes, four times the H100's
 # 50 MB L2, so that each reads its input from HBM and writes a cold output
 RELAYOUT_ROTATE_BYTES = 200 << 20
@@ -912,6 +932,231 @@ def run_train_path(dev, extra, check, profile=False):
     return row
 
 
+# --------------------------------------------------------------- phase 4d
+
+def post_volume(base, vol, output):
+    """POST one volume as ``.npy``; returns the answer, the server's
+    X-Latency-Ms and the client's wall ms (encode, send, wait, decode)."""
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    np.save(buf, vol)
+    req = urllib.request.Request(f"{base}/v1/predict?output={output}",
+                                 data=buf.getvalue(), method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        latency = float(r.headers["X-Latency-Ms"])
+        out = np.load(io.BytesIO(r.read()))
+    return out, latency, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def serving(bundle, **kw):
+    """A BundleServer on an ephemeral port, serving from a thread; yields
+    its base URL and stops it (and the thread) on the way out."""
+    server = BundleServer(bundle, port=0, **kw)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server, f"http://127.0.0.1:{server.port}"
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+
+
+def bundle_mb(path) -> float:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path)) / 1e6
+
+
+def expect_launches(what, got, expected):
+    sub = {k: got[k] for k in expected}
+    if sub != expected:
+        raise AssertionError(f"{what}: launches {sub}, expected {expected}")
+    return sub
+
+
+def run_serving_bundles(dev, cfg_kw, weights):
+    """Phase 4d, the serving bundles at full width, bf16, the direct path
+    with the kernels on: export a ``tiling`` bundle on the card and load it
+    fresh; its probabilities against Predictor.tiled_probs on a seeded
+    240x240x160x4 volume (labels equal); then a BundleServer on it answers
+    3 labels and 1 probs request, each equal to the bundle's own answer,
+    with each request's kernel launches those of one forward.  Then a
+    ``single`` s2d bundle at 128^3, exported on the CPU and moved to the
+    card at load, launches the relayout twice a forward; then a paired V=2
+    ``tiling`` bundle coalesces 2 concurrent single-volume requests into
+    one group whose labels equal the V=1 bundle's."""
+    rng = np.random.default_rng(SEED + 6)
+    vols = [rng.standard_normal(VOLUME, dtype=np.float32)
+            for _ in range(N_VOLUMES)]
+    model = cwf.build_model(ModelConfig(**cfg_kw), device=dev)
+    model.load_state_dict(weights, strict=True)
+    predictor = Predictor(model, device=dev)
+    forward = {"fusednorm": norm_launches(torch.bfloat16),
+               "attention": ATTN_CALLS, "attention_mma": ATTN_CALLS,
+               "relayout": 0}
+    row = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tiling")
+        t0 = time.perf_counter()
+        export_bundle(predictor, path, strategy="tiling")
+        row["export_s"] = time.perf_counter() - t0
+        row["bundle_mb"] = bundle_mb(path)
+        t0 = time.perf_counter()
+        bundle = ServingBundle.load(path)
+        row["load_s"] = time.perf_counter() - t0
+        row["forward_graph_nodes"] = len(bundle._p["forward"].graph.nodes)
+
+        # the bundle against the live engine, and each one's time a volume
+        # (host clock to a synchronise, volumes on the card)
+        dvols = [torch.from_numpy(v).to(dev) for v in vols]
+        reset_launches()
+        probs = bundle.predict(dvols[0])
+        torch.cuda.synchronize()
+        row["predict_launches"] = expect_launches(
+            "bundle.predict", read_launches(), forward)
+        live = predictor.tiled_probs(dvols[0])
+        row["max_abs_dprob"] = (probs - live).abs().max().item()
+        row["labels_equal_tiled_probs"] = torch.equal(probs.argmax(-1),
+                                                      live.argmax(-1))
+        if not (row["labels_equal_tiled_probs"]
+                and bool(torch.isfinite(probs).all())):
+            raise AssertionError(f"bundle vs tiled_probs: {row}")
+        del probs, live
+        # in turns, BUNDLE_ROUNDS over the volumes
+        for _ in range(BUNDLE_ROUNDS):
+            for v in dvols:
+                for name, fn in (("tiled_probs_ms", predictor.tiled_probs),
+                                 ("bundle_predict_ms", bundle.predict)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(v)
+                    torch.cuda.synchronize()
+                    row.setdefault(name, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+        del dvols
+
+        # the HTTP server on the bundle
+        requests, v1_labels = [], {}
+        with serving(bundle) as (_, base):
+            for i, output in enumerate(("labels", "labels", "labels",
+                                        "probs")):
+                vol = vols[i % N_VOLUMES]
+                reset_launches()
+                got, latency, wall = post_volume(base, vol, output)
+                launches = expect_launches(f"request {i}", read_launches(),
+                                           forward)
+                want = (bundle.labels(vol) if output == "labels"
+                        else bundle.predict(vol)).cpu().numpy()
+                if output == "labels":
+                    v1_labels[i] = got
+                err = float(np.abs(got.astype(np.float32)
+                                   - want.astype(np.float32)).max())
+                requests.append(dict(output=output, latency_ms=latency,
+                                     client_ms=wall, max_abs_err=err,
+                                     launches=launches))
+                if got.shape != want.shape or err > 1e-6 or (
+                        output == "labels" and err):
+                    raise AssertionError(f"request {i}: {requests[-1]}")
+        row["requests"] = requests
+        del bundle
+
+        # a single s2d bundle at 128^3, exported on the CPU, moved to the
+        # card at load: two relayout launches a forward
+        s2d_cfg = ModelConfig(**cfg_kw, s2d_fullres=True, s2d_halfres=True)
+        cpu_model = cwf.build_model(s2d_cfg, device="cpu")
+        cpu_model.load_state_dict(weights, strict=True)
+        path = os.path.join(tmp, "single_s2d")
+        t0 = time.perf_counter()
+        export_bundle(Predictor(cpu_model, device="cpu"), path,
+                      strategy="single", input_shape=(128, 128, 128))
+        row["s2d_export_cpu_s"] = time.perf_counter() - t0
+        del cpu_model
+        t0 = time.perf_counter()
+        s2d_bundle = ServingBundle.load(path)
+        row["s2d_load_s"] = time.perf_counter() - t0
+        x = torch.from_numpy(vols[0][:, :128, :128, :128]).to(dev)
+        reset_launches()
+        probs = s2d_bundle.predict(x)
+        torch.cuda.synchronize()
+        row["s2d_launches"] = expect_launches(
+            "s2d single bundle", read_launches(),
+            {"fusednorm": norm_launches(torch.bfloat16, True, batch=1),
+             "attention_mma": ATTN_CALLS,
+             "relayout": RELAYOUT_PER_FORWARD})
+        s2d_model = cwf.build_model(s2d_cfg, device=dev)
+        s2d_model.load_state_dict(weights, strict=True)
+        live = Predictor(s2d_model, device=dev).seg_probs(x)
+        row["s2d_max_abs_dprob"] = (probs - live).abs().max().item()
+        row["s2d_labels_equal_seg_probs"] = torch.equal(probs.argmax(-1),
+                                                        live.argmax(-1))
+        if not row["s2d_labels_equal_seg_probs"]:
+            raise AssertionError(f"s2d bundle vs seg_probs: {row}")
+        del s2d_bundle, s2d_model, probs, live, x
+
+        # a paired V=2 tiling bundle: 2 concurrent single-volume requests
+        # run as one B=16 forward
+        path = os.path.join(tmp, "paired")
+        t0 = time.perf_counter()
+        export_bundle(predictor, path, strategy="tiling", batch_volumes=2)
+        row["paired_export_s"] = time.perf_counter() - t0
+        paired = ServingBundle.load(path)
+        with serving(paired, coalesce_wait_s=5.0) as (server, base):
+            answers = [None, None]
+
+            def post(i):
+                answers[i] = post_volume(base, vols[i], "labels")
+            reset_launches()
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            launches = read_launches()
+            group = server._coalescer.last_group_size
+        if any(a is None for a in answers):
+            raise AssertionError("a paired request got no answer")
+        # the paired engine on the same two volumes (one B=16 forward), and
+        # its own difference from the B=8 engine: in bf16 the batch changes
+        # K1's launch plan and cuDNN's algorithms, so sums run in another
+        # order, and random weights leave many near-tied classes
+        both = torch.from_numpy(np.concatenate(vols[:2])).to(dev)
+        batch = predictor.tiled_probs_batch(both)
+        batch_labels = batch.argmax(-1).to(torch.uint8).cpu().numpy()
+        single = [predictor.tiled_probs(both[i:i + 1]) for i in range(2)]
+        paired_forward = {"fusednorm": norm_launches(torch.bfloat16,
+                                                     batch=16),
+                          "attention": ATTN_CALLS,
+                          "attention_mma": ATTN_CALLS}
+        row["paired"] = dict(
+            last_group_size=group,
+            launches={k: launches[k] for k in paired_forward},
+            expected_launches=paired_forward,
+            latency_ms=[a[1] for a in answers],
+            client_ms=[a[2] for a in answers],
+            labels_equal_paired_engine=[
+                bool(np.array_equal(answers[i][0], batch_labels[i:i + 1]))
+                for i in range(2)],
+            voxels_differing_v1_bundle=[
+                int((answers[i][0] != v1_labels[i]).sum()) for i in range(2)],
+            engine_b16_vs_b8_voxels=[
+                int((batch[i].argmax(-1) != single[i][0].argmax(-1)).sum())
+                for i in range(2)],
+            engine_b16_vs_b8_max_abs_dprob=max(
+                (batch[i] - single[i][0]).abs().max().item()
+                for i in range(2)))
+        del both, batch, single
+        if group != 2 or row["paired"]["launches"] != paired_forward or \
+                not all(row["paired"]["labels_equal_paired_engine"]):
+            raise AssertionError(f"paired bundle: {row['paired']}")
+        del paired
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    log(phase="serving_bundles", dtype="bfloat16", **row)
+    return row
+
+
 # ---------------------------------------------------------------- phase 5
 
 def relayout_library(x, out):
@@ -1137,6 +1382,49 @@ def time_attention(dev, shape=ATTN_SHAPE, iters=50):
     return row
 
 
+DISPATCH_REPEATS = 5
+
+
+def time_dispatch(dev, iters=200, repeats=DISPATCH_REPEATS):
+    """The host time per call that the operator registration adds to K1,
+    K2 and K3: each called back to back (CUDA events; at these shapes the
+    host sets the time of a call) through its wrapper, which calls the
+    dctseg operator, under torch.inference_mode() as the engines call it
+    and with grad mode on, and through its launch function directly;
+    medians of ``repeats`` turns.  Shapes: K1 at 16^3x128 (B=8, its
+    smallest call), K2 at the model's strided views, K3 at the B=1
+    half-res site."""
+    g = gen(dev, SEED + 7)
+    x = torch.randn((8, 16, 16, 16, 128), device=dev, generator=g).bfloat16()
+    q, k, v = attention_inputs(dev, g, ATTN_SHAPE, torch.bfloat16, True)
+    scale = ATTN_SHAPE[-1] ** -0.5
+    xr = torch.randn((1, 64, 64, 64, 32), device=dev, generator=g).bfloat16()
+    cases = {
+        "fusednorm": (
+            lambda: fusednorm.fused_instance_norm_act(x, 128, act="relu"),
+            lambda: fusednorm._launch(x, None, 128, 1e-5, "relu", 0.01)),
+        "attention": (lambda: attn.fused_attention(q, k, v, scale),
+                      lambda: attn._launch(q, k, v, scale)),
+        "relayout": (lambda: relayout.space_to_depth(xr, torch.bfloat16),
+                     lambda: relayout._launch(xr, torch.bfloat16))}
+    rows = {}
+    for name, (op, direct) in cases.items():
+        got = collections.defaultdict(list)
+        for _ in range(repeats):
+            got["direct_us"].append(time_ms(direct, iters) * 1e3)
+            with torch.inference_mode():
+                got["op_inference_us"].append(time_ms(op, iters) * 1e3)
+            got["op_grad_mode_us"].append(time_ms(op, iters) * 1e3)
+        row = {k: statistics.median(v) for k, v in got.items()}
+        row["spread"] = {k: [min(v), max(v)] for k, v in got.items()}
+        row["dispatch_us"] = row["op_inference_us"] - row["direct_us"]
+        row["grad_mode_dispatch_us"] = (row["op_grad_mode_us"]
+                                        - row["direct_us"])
+        log(timing="op_dispatch", kernel=name, **row)
+        rows[name] = row
+    return rows
+
+
 def time_metrics(dev, pred, tgt):
     """Per 240x240x155 volume pair (HD95 'reference'): the two EDTs (K4),
     the whole order-statistic search (K5), each through the kernel and
@@ -1331,6 +1619,9 @@ def main() -> int:
             device_busy_ms=sum(busy) / len(busy),
             idle_share=1 - sum(busy) / len(busy) / step)
 
+    # ---- 4d. serving bundles and the HTTP server, full width
+    bundle_row = run_serving_bundles(dev, cfg_kw, weights)
+
     # ---- 5. timing
     for name, vol_ms in serving.items():
         steady = vol_ms[1:]
@@ -1343,6 +1634,25 @@ def main() -> int:
     attn_row = time_attention(dev)
     relayout_rows = time_relayout(dev)
     met = time_metrics(dev, full_pred, full_tgt)
+    dispatch = time_dispatch(dev)
+    reqs = bundle_row["requests"]
+    log(timing="serving_bundle", strategy="tiling", dtype="bfloat16",
+        export_s=bundle_row["export_s"], load_s=bundle_row["load_s"],
+        bundle_mb=bundle_row["bundle_mb"],
+        first_request_ms=reqs[0]["latency_ms"],
+        first_request_client_ms=reqs[0]["client_ms"],
+        steady_request_ms=statistics.mean(r["latency_ms"]
+                                          for r in reqs[1:3]),
+        steady_request_client_ms=statistics.mean(r["client_ms"]
+                                                 for r in reqs[1:3]),
+        probs_request_ms=reqs[3]["latency_ms"],
+        probs_request_client_ms=reqs[3]["client_ms"],
+        tiled_probs_ms=statistics.median(bundle_row["tiled_probs_ms"]),
+        bundle_predict_ms=statistics.median(bundle_row["bundle_predict_ms"]),
+        spread_ms={k: [min(bundle_row[k]), max(bundle_row[k])]
+                   for k in ("tiled_probs_ms", "bundle_predict_ms")},
+        max_abs_dprob=bundle_row["max_abs_dprob"],
+        peak_memory_bytes=bundle_row["peak_memory_bytes"])
 
     def per_forward(key):
         return sum(NORM_CALLS["nores"] * r[f"nores_{key}"]
@@ -1369,6 +1679,7 @@ def main() -> int:
                  k: r[k] for k in ("nores_route", "nores_ms",
                                    "nores_device_ms", "res_ms",
                                    "res_device_ms")} for r in norm_rows},
+             dispatch_us=dispatch["fusednorm"]["dispatch_us"],
              unit="per B=8 bf16 forward (32 calls)"),
         dict(name="attention", route="cuda",
              source="dctseg_torch/csrc/attention.cu",
@@ -1385,6 +1696,7 @@ def main() -> int:
              library_device_ms=ATTN_CALLS * attn_row["library_device_ms"],
              call_ms=attn_row["ms"], strided_call_ms=attn_row["strided_ms"],
              library_call_ms=attn_row["library_ms"],
+             dispatch_us=dispatch["attention"]["dispatch_us"],
              unit="per B=8 bf16 forward (13 calls)"),
         dict(name="relayout", route="cuda",
              source="dctseg_torch/csrc/relayout.cu",
@@ -1392,6 +1704,7 @@ def main() -> int:
              launches=train_rows["s2d_remat_none"]["launches"]["relayout"],
              max_abs_err=relayout_err, bound_by="bytes",
              **relayout_rows["train"], serve_b8=relayout_rows["serve"],
+             dispatch_us=dispatch["relayout"]["dispatch_us"],
              unit="per B=1 bf16 train step (both sites, 2 launches; "
                   "medians of the repeats)"),
         dict(name="minplus", route="cuda",

@@ -112,11 +112,13 @@ def main(argv=None) -> dict:
     from dctseg_torch.train.checkpoint import Checkpointer
     from dctseg_torch.utils.export import export_checkpoint_sweep_csv
     from dctseg_torch.utils.logging_utils import setup_logging
+    from dctseg_torch.utils.proctitle import set_process_title
 
     if a.strategy == "sweep" and a.random_params:
         raise ValueError("--strategy sweep evaluates the checkpoints of "
                          "--checkpoint-dir; it takes no --random-params")
     device = resolve_device(a.device)
+    set_process_title("dctseg:test")  # reference test*.py:146 'Testing!'
     log = setup_logging(os.path.join(a.output_dir, "eval.txt"))
     mcfg = ModelConfig(
         img_dim=a.img_dim, base_channels=a.base_channels,

@@ -147,8 +147,10 @@ def main(argv=None):
     from dctseg_torch.device import resolve_device
     from dctseg_torch.train.trainer import Trainer
     from dctseg_torch.utils.logging_utils import setup_logging
+    from dctseg_torch.utils.proctitle import set_process_title
 
     device = resolve_device(a.device)
+    set_process_title("dctseg:train")  # reference train.py:120 'Training!'
     stamp = time.strftime("%Y%m%d_%H%M%S")
     log = setup_logging(os.path.join(a.log_dir,
                                      f"{a.experiment}_{stamp}.txt"))

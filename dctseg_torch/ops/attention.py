@@ -1,10 +1,13 @@
 """Fused attention forward: the port of the TPU kernel
 ``dctseg/ops/pallas/attention.py`` ``fused_attention``.
 
-On a CUDA tensor the wrapper launches one of the two hand-written kernels
-of ``dctseg_torch/csrc/attention.cu`` (tensor cores for bf16 and f16, SIMT
-otherwise: :func:`uses_tensor_cores`) or raises; on a CPU tensor it runs
-the plain PyTorch version below.  All keep the scores, the softmax and
+The wrapper calls the operator ``torch.ops.dctseg.fused_attention``
+(``ops/library.py``).  On a CUDA tensor the operator launches one of the two
+hand-written kernels of ``dctseg_torch/csrc/attention.cu`` (tensor cores for
+bf16 and f16, SIMT otherwise: :func:`uses_tensor_cores`) or raises; on a CPU
+tensor it runs the plain PyTorch version below.  The operator returns a
+fresh contiguous (B, N, H, D) tensor, the memory the kernel writes, and the
+wrapper hands back its (B, H, N, D) view.  All keep the scores, the softmax and
 p.v at f32 accuracy and cast only the output to q's dtype -- the Pallas
 kernel's bf16 semantics, not those of the JAX package's einsum path, which
 casts p to the input dtype before p.v (``dctseg/models/attention.py``).
@@ -21,7 +24,7 @@ import array
 
 import torch
 
-from dctseg_torch.ops import _build
+from dctseg_torch.ops import _build, library
 
 MAX_HEAD_DIM = 128
 # The tensor-core kernel (csrc/attention.cu attention_mma_kernel) takes bf16
@@ -103,10 +106,9 @@ def uses_tensor_cores(q, k, v) -> bool:
 
 def _launch(q, k, v, scale):
     """Launch a kernel on (B, H, N, D) views with unit stride on D; the
-    output is a (B, N, H, D) array returned as its (B, H, N, D) view.  The
-    host path is kept short: at the model's shape the kernel takes a few
-    microseconds, so the host's checks and the ctypes call set the time of
-    a call."""
+    output is a contiguous (B, N, H, D) tensor.  The host path is kept
+    short: at the model's shape the kernel takes a few microseconds, so the
+    host's checks and the ctypes call set the time of a call."""
     b, h, n, d = q.shape
     n2 = k.shape[2]
     qs, ks, vs = q.stride(), k.stride(), v.stride()
@@ -121,7 +123,7 @@ def _launch(q, k, v, scale):
     if not mma and _smem_bytes(n2, d) > _MAX_SMEM:
         raise ValueError(f"K and V of one head ({n2} x {d}) do not fit "
                          "shared memory")
-    out = q.new_empty_strided((b, h, n, d), (n * h * d, d, h * d, 1))
+    out = q.new_empty((b, n, h, d))
     if out.numel() == 0:
         return out
     args = array.array("q", (*ptrs, out.data_ptr(), b, h, n, n2, d, *strides,
@@ -133,35 +135,40 @@ def _launch(q, k, v, scale):
     return out
 
 
-def _forward(q, k, v, scale):
-    if q.is_cuda:
-        return _launch(q, k, v, scale)
-    return fused_attention_plain(q, k, v, scale)
+def _cpu(q, k, v, scale):
+    return fused_attention_plain(q, k, v, scale).transpose(1, 2).contiguous()
 
 
-class _FusedAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return _forward(q, k, v, scale)
+def _fake(q, k, v, scale):
+    b, h, n, d = q.shape
+    return q.new_empty((b, n, h, d))
 
-    @staticmethod
-    def backward(ctx, grad):
-        q, k, v = ctx.saved_tensors
-        return (*attention_vjp(q, k, v, ctx.scale, grad), None)
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, ctx.scale = inputs
+    ctx.save_for_backward(q, k, v)
+
+
+def _backward(ctx, grad):
+    """The TPU kernel's custom VJP: :func:`attention_vjp` at the saved
+    inputs, for the cotangent of the (B, N, H, D) output."""
+    q, k, v = ctx.saved_tensors
+    return (*attention_vjp(q, k, v, ctx.scale, grad.transpose(1, 2)), None)
+
+
+_OP = library.define(
+    "fused_attention", "(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+    cuda=_launch, cpu=_cpu, fake=_fake, backward=_backward,
+    setup_context=_setup_context)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """q: (B, H, N, D); k, v: (B, H, N2, D) -> (B, H, N, D) in q's dtype.
-    Any strides on B, H and N; on CUDA, unit stride on D.  Without a
-    gradient to track the call skips autograd."""
+    """q: (B, H, N, D); k, v: (B, H, N2, D) -> (B, H, N, D) in q's dtype, a
+    view of contiguous (B, N, H, D) memory.  Any strides on B, H and N; on
+    CUDA, unit stride on D."""
     _check(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _FusedAttention.apply(q, k, v, scale)
-    return _forward(q, k, v, scale)
+    return library.call(_OP, q, k, v, scale).transpose(1, 2)
 
 
 # kernel launches on CUDA tensors: in all, and by kernel

@@ -1,10 +1,11 @@
 """Fused InstanceNorm + activation (+ residual): the port of the TPU kernel
 ``dctseg/ops/pallas/fusednorm.py`` ``fused_instance_norm_act``.
 
-On a CUDA tensor the wrapper launches the hand-written kernel of
-``dctseg_torch/csrc/fusednorm.cu`` or raises; on a CPU tensor it runs the
-plain PyTorch version below, which follows the kernel's order of
-operations: f32 per-lane sums, offsets folded onto fine channels,
+The wrapper calls the operator ``torch.ops.dctseg.fused_instance_norm_act``
+(``ops/library.py``).  On a CUDA tensor the operator launches the
+hand-written kernel of ``dctseg_torch/csrc/fusednorm.cu`` or raises; on a CPU
+tensor it runs the plain PyTorch version below, which follows the kernel's
+order of operations: f32 per-lane sums, offsets folded onto fine channels,
 y = x*a + b, activation in f32, cast, then the residual added in the output
 dtype.  (The JAX package's XLA twin casts before the activation; the two
 differ only where a bf16 rounding crosses zero.)
@@ -16,7 +17,9 @@ apply (where all samples fit on the chip at once), or ``split``, a
 statistics launch and an apply launch.  Its workspace (partial sums, scales and shifts, tickets and
 flags) is kept per (device, stream) and grows on demand; the kernel leaves
 the tickets at zero, so no call allocates or fills anything but its
-output.
+output.  The backward recomputes the plain version under autograd, on
+either device; the trainer keeps the kernel out of training, so no
+backward kernel is owed.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import NamedTuple
 
 import torch
 
-from dctseg_torch.ops import _build
+from dctseg_torch.ops import _build, library
 
 ACTS = {"none": 0, "relu": 1, "lrelu": 2}
 THREADS = 256           # csrc/fusednorm.cu kThreads
@@ -176,12 +179,7 @@ def fused_instance_norm_act(x: torch.Tensor, fine_channels: int,
     On CUDA, ``x`` and ``residual`` must be contiguous (channels last).
     """
     _check(x, fine_channels, act, residual)
-    if x.is_cuda:
-        return _launch(x, fine_channels, eps, act, slope, residual)
-    if x.device.type != "cpu":
-        raise ValueError(f"no kernel for device {x.device}")
-    return fused_instance_norm_act_plain(x, fine_channels, eps, act, slope,
-                                         residual)
+    return library.call(_OP, x, residual, fine_channels, eps, act, slope)
 
 
 fused_instance_norm_act.launches = 0   # kernel launches on CUDA tensors
@@ -229,7 +227,7 @@ def plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
                        split_blocks, stage_bytes)
 
 
-def _launch(x, fine_channels, eps, act, slope, residual):
+def _launch(x, residual, fine_channels, eps, act, slope):
     if not x.is_contiguous() or (residual is not None
                                  and not residual.is_contiguous()):
         raise ValueError("the fusednorm kernel takes contiguous "
@@ -265,3 +263,39 @@ def _launch(x, fine_channels, eps, act, slope, residual):
         args.buffer_info()[0], eps, slope, stream), "fusednorm")
     fused_instance_norm_act.launches += plan.launches
     return out
+
+
+def _cpu(x, residual, fine_channels, eps, act, slope):
+    return fused_instance_norm_act_plain(x, fine_channels, eps, act, slope,
+                                         residual).contiguous()
+
+
+def _fake(x, residual, fine_channels, eps, act, slope):
+    return x.new_empty(x.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    x, residual, *args = inputs
+    ctx.save_for_backward(x)
+    ctx.args, ctx.residual = args, residual is not None
+
+
+def _backward(ctx, grad):
+    """(dx, dresidual): the plain version's autograd gradient at the saved
+    input; the residual, added last, passes ``grad`` through."""
+    x, = ctx.saved_tensors
+    fine_channels, eps, act, slope = ctx.args
+    with torch.enable_grad():
+        leaf = x.detach().requires_grad_()
+        y = fused_instance_norm_act_plain(leaf, fine_channels, eps, act,
+                                          slope)
+        dx, = torch.autograd.grad(y, leaf, grad)
+    return dx, grad if ctx.residual else None, None, None, None, None
+
+
+_OP = library.define(
+    "fused_instance_norm_act",
+    "(Tensor x, Tensor? residual, int fine_channels, float eps, str act, "
+    "float slope) -> Tensor",
+    cuda=_launch, cpu=_cpu, fake=_fake, backward=_backward,
+    setup_context=_setup_context)

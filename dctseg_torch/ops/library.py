@@ -1,0 +1,58 @@
+"""The port's on-path kernels as torch operators in the ``dctseg``
+namespace: ``torch.ops.dctseg.fused_instance_norm_act``,
+``torch.ops.dctseg.fused_attention`` and ``torch.ops.dctseg.space_to_depth``.
+
+Each kernel module defines its operator here when it is imported:
+
+  * a schema;
+  * a CUDA implementation, the kernel's launch path (plan, alignment and the
+    ``ctypes`` call, which read pointers and so run only on real tensors);
+  * a CPU implementation, the kernel's plain PyTorch version;
+  * a fake implementation, which gives the output's shape, dtype and strides
+    without running anything, for ``torch.export`` and FakeTensors;
+  * the backward, through ``torch.library.register_autograd``.
+
+As operators the kernels survive ``torch.export`` as one graph node each, so
+a serving bundle (``dctseg_torch/infer/serving.py``) carries them, and the
+eager model calls the same operators: there is one route.  The operators are
+plain ``torch.library.Library`` registrations, not ``custom_op``: the
+dispatcher calls the Python implementations with the least host time per
+call (PERF.md).  The backward's autograd kernel is a Python function too:
+:func:`call` goes past it where no gradient is asked for.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+NAMESPACE = "dctseg"
+LIB = torch.library.Library(NAMESPACE, "DEF")
+
+
+def define(name: str, schema: str, *, cuda: Callable, cpu: Callable,
+           fake: Callable, backward: Callable, setup_context: Callable
+           ) -> torch._ops.OpOverload:
+    """Define ``dctseg::<name><schema>`` with its implementations; return
+    its overload, the callable the wrappers use."""
+    LIB.define(name + schema)
+    LIB.impl(name, cuda, "CUDA")
+    LIB.impl(name, cpu, "CPU")
+    qualname = f"{NAMESPACE}::{name}"
+    torch.library.register_fake(qualname, fake, lib=LIB)
+    torch.library.register_autograd(qualname, backward,
+                                    setup_context=setup_context, lib=LIB)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def call(op: torch._ops.OpOverload, *args):
+    """``op(*args)``, past the operator's autograd kernel where no gradient
+    is asked for: that kernel, a Python function, would only hand the call
+    on, at ~10 us of host time (PERF.md).  Under ``torch.inference_mode()``
+    the dispatcher skips it itself."""
+    if torch.is_inference_mode_enabled() or (torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args)):
+        return op(*args)
+    with torch._C._AutoDispatchBelowAutograd():
+        return op(*args)

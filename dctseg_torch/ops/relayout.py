@@ -1,21 +1,22 @@
 """Space-to-depth relayout with a fused cast: the port of the TPU kernel
 ``dctseg/ops/pallas/relayout.py`` ``space_to_depth``.
 
-On a CUDA tensor the wrapper launches a hand-written kernel of
-``dctseg_torch/csrc/relayout.cu`` or raises; on a CPU tensor it runs the
-plain PyTorch version below.  The function is a pure permutation plus a
-cast, so the two are bit-identical.  Both UNet call sites run it: the
-encoder's input and the half-resolution stage's input.  (The JAX model calls
-the plain relayout there, because XLA fuses it into the next conv's input
-gather; eager PyTorch has no such fusion, and the kernel does the cast and
-the relayout in one pass where the plain version takes two.)
+The wrapper calls the operator ``torch.ops.dctseg.space_to_depth``
+(``ops/library.py``).  On a CUDA tensor the operator launches the
+hand-written kernel of ``dctseg_torch/csrc/relayout.cu`` or raises; on a CPU
+tensor it runs the plain PyTorch version below.  The function is a pure
+permutation plus a cast, so the two are bit-identical.  Both UNet call
+sites run it: the encoder's input and the half-resolution stage's input.
+(The JAX model calls the plain relayout there, because XLA fuses it into
+the next conv's input gather; eager PyTorch has no such fusion, and the
+kernel does the cast and the relayout in one pass where the plain version
+takes two.)
 
 The launch plan (:func:`plan_relayout`: the vector width and the grid) is
-worked out once per shape, dtypes and alignment.  A call whose input needs
-no gradient makes one ``ctypes`` call and nothing else; one that does goes
-through an autograd ``Function`` whose backward is the inverse relayout
-cast back to the input's dtype, in plain PyTorch, as the TPU kernel's
-custom VJP does it in XLA.
+worked out once per shape, dtypes and alignment; then a launch is one
+``ctypes`` call.  The operator's backward is the inverse relayout cast back
+to the input's dtype, in plain PyTorch, as the TPU kernel's custom VJP does
+it in XLA.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from dctseg_torch.ops import _build
+from dctseg_torch.ops import _build, library
 from dctseg_torch.ops import s2d as s2dops
 
 THREADS = 256           # csrc/relayout.cu kThreads
@@ -127,15 +128,31 @@ def _launch(x: torch.Tensor, out_dtype) -> torch.Tensor:
     return out
 
 
-class _SpaceToDepth(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, out_dtype):
-        ctx.in_dtype = x.dtype
-        return _launch(x, out_dtype)
+def _cpu(x, out_dtype):
+    y = space_to_depth_plain(x, out_dtype)
+    # a relayout that moves nothing (extents of 2) is a view of x; an
+    # operator's output never aliases its input
+    return y.clone() if y.untyped_storage().data_ptr() == \
+        x.untyped_storage().data_ptr() else y
 
-    @staticmethod
-    def backward(ctx, g):
-        return s2dops.depth_to_space(g).to(ctx.in_dtype), None
+
+def _fake(x, out_dtype):
+    n, d, h, w, c = x.shape
+    return x.new_empty((n, d // 2, h // 2, w // 2, 8 * c), dtype=out_dtype)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.in_dtype = inputs[0].dtype
+
+
+def _backward(ctx, g):
+    return s2dops.depth_to_space(g).to(ctx.in_dtype), None
+
+
+_OP = library.define(
+    "space_to_depth", "(Tensor x, ScalarType out_dtype) -> Tensor",
+    cuda=_launch, cpu=_cpu, fake=_fake, backward=_backward,
+    setup_context=_setup_context)
 
 
 def space_to_depth(x: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -145,14 +162,9 @@ def space_to_depth(x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     if x.dim() != 5 or x.shape[1] % 2 or x.shape[2] % 2 or x.shape[3] % 2:
         raise ValueError(f"expected (N, D, H, W, C) with even D, H, W; got "
                          f"{tuple(x.shape)}")
-    out_dtype = out_dtype or x.dtype
-    if not x.is_cuda:
-        if x.device.type != "cpu":
-            raise ValueError(f"no kernel for device {x.device}")
-        return space_to_depth_plain(x, out_dtype)
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _SpaceToDepth.apply(x, out_dtype)
-    return _launch(x, out_dtype)
+    if not x.is_cuda and x.device.type != "cpu":
+        raise ValueError(f"no kernel for device {x.device}")
+    return library.call(_OP, x, out_dtype or x.dtype)
 
 
 space_to_depth.launches = 0   # kernel launches on CUDA tensors

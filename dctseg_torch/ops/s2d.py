@@ -27,6 +27,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 B = 2          # block size
 B3 = B ** 3
@@ -132,7 +133,10 @@ def _gather(w: torch.Tensor, kind: str) -> torch.Tensor:
             entry = (torch.from_numpy(dst).to(w.device),
                      torch.from_numpy(table.reshape(-1)[dst]).to(w.device),
                      table.shape)
-        _DEVICE_TABLES[key] = entry
+        # under torch.export the tables are fake: they become constants of
+        # the exported program and must not serve later eager calls
+        if not is_fake(entry[0]):
+            _DEVICE_TABLES[key] = entry
     dst, src, shape = entry
     out = w.new_zeros(int(np.prod(shape)))
     return out.index_put((dst,), w.reshape(-1)[src]).reshape(shape)

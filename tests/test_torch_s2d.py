@@ -86,8 +86,8 @@ def test_relayout_plain_bit_exact_with_pallas_interpret(shape, in_dt, out_dt):
 
 
 def test_relayout_gradient_equals_jax_custom_vjp():
-    """The CPU path's autograd gradient and the CUDA path's backward
-    (``_SpaceToDepth.backward``) both equal jax.grad through the Pallas
+    """The CPU path's autograd gradient and the operator's backward
+    (``relayout._backward``) both equal jax.grad through the Pallas
     kernel's custom VJP, exactly."""
     x = _normal(1, 4, 32, 32, 4)
     ct = _normal(1, 2, 16, 16, 32)
@@ -102,7 +102,7 @@ def test_relayout_gradient_equals_jax_custom_vjp():
         ).backward()
     np.testing.assert_array_equal(xt.grad.numpy(), want)
     g = _t(ct).to(torch.bfloat16)
-    dx, none = relayout._SpaceToDepth.backward(
+    dx, none = relayout._backward(
         types.SimpleNamespace(in_dtype=torch.float32), g)
     assert none is None and dx.dtype == torch.float32
     np.testing.assert_array_equal(dx.numpy(), want)
