@@ -1422,6 +1422,26 @@ def time_dispatch(dev, iters=200, repeats=DISPATCH_REPEATS):
                                         - row["direct_us"])
         log(timing="op_dispatch", kernel=name, **row)
         rows[name] = row
+    # the registration ops/library.py chose, against custom_op: K2's
+    # operator registered both ways, each called bare, in turns
+    custom = torch.library.custom_op(
+        "dctseg_smoke::fused_attention", attn._launch, mutates_args=(),
+        schema="(Tensor q, Tensor k, Tensor v, float scale) -> Tensor")
+    custom.register_fake(attn._fake)
+    custom.register_autograd(attn._backward,
+                             setup_context=attn._setup_context)
+    got = collections.defaultdict(list)
+    for _ in range(repeats):
+        for mode, ctx in (("inference", torch.inference_mode),
+                          ("grad_mode", contextlib.nullcontext)):
+            for reg, fn in (("library", attn._OP), ("custom_op", custom)):
+                with ctx():
+                    got[f"{reg}_{mode}_us"].append(time_ms(
+                        lambda: fn(q, k, v, scale), iters) * 1e3)
+    row = {k: statistics.median(v) for k, v in got.items()}
+    row["spread"] = {k: [min(v), max(v)] for k, v in got.items()}
+    log(timing="op_registration", kernel="attention", **row)
+    rows["registration"] = row
     return rows
 
 
