@@ -289,8 +289,9 @@ class ServingBundle:
             raise ValueError(f"bundle expects input shape {want}, got "
                              f"{tuple(x.shape)} (exported programs are "
                              "shape-specialised; re-export for new shapes)")
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
+        if isinstance(x, np.ndarray):   # in native byte order for torch
+            x = torch.from_numpy(x.astype(x.dtype.newbyteorder("="),
+                                          copy=False))
         return x.to(self.device, getattr(torch, self.manifest["input_dtype"]))
 
     @torch.inference_mode()

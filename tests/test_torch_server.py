@@ -106,6 +106,9 @@ def test_server_predict_labels_and_probs(served):
     labels = np.load(io.BytesIO(body))
     assert labels.dtype == np.uint8
     np.testing.assert_array_equal(labels, bundle.labels(x).numpy())
+    # a big-endian body gets the same answer
+    _, _, body = _http(base + "/v1/predict", _npy_bytes(x.astype(">f4")))
+    np.testing.assert_array_equal(np.load(io.BytesIO(body)), labels)
     # probs output, and a 4-D body (no leading batch dim) is accepted
     status, _, body = _http(base + "/v1/predict?output=probs",
                             _npy_bytes(x[0]))
