@@ -52,7 +52,9 @@ Phases (any failure raises and the script exits non-zero):
        - serving bundles (phase 4d): a bf16 ``tiling`` bundle exported on
          the card (torch.export, the kernels as dctseg operators) and
          loaded fresh, held to Predictor.tiled_probs on a seeded
-         240x240x160x4 volume (labels equal), then served by BundleServer
+         240x240x160x4 volume (probabilities equal bit for bit), with
+         each one's device busy time and idle share in one profiled call,
+         then served by BundleServer
          on port 0: 3 labels and 1 probs requests over HTTP, each equal to
          the bundle's answer and each launching one forward's kernels;
          an s2d ``single`` bundle at 128^3 exported on the CPU and moved
@@ -978,7 +980,8 @@ def run_serving_bundles(dev, cfg_kw, weights):
     """Phase 4d, the serving bundles at full width, bf16, the direct path
     with the kernels on: export a ``tiling`` bundle on the card and load it
     fresh; its probabilities against Predictor.tiled_probs on a seeded
-    240x240x160x4 volume (labels equal); then a BundleServer on it answers
+    240x240x160x4 volume (probabilities equal bit for bit), and each one's
+    device busy time in one profiled call; then a BundleServer on it answers
     3 labels and 1 probs request, each equal to the bundle's own answer,
     with each request's kernel launches those of one forward.  Then a
     ``single`` s2d bundle at 128^3, exported on the CPU and moved to the
@@ -1020,7 +1023,10 @@ def run_serving_bundles(dev, cfg_kw, weights):
         row["max_abs_dprob"] = (probs - live).abs().max().item()
         row["labels_equal_tiled_probs"] = torch.equal(probs.argmax(-1),
                                                       live.argmax(-1))
+        # the same operators in the same order: the same bits
+        row["probs_equal_tiled_probs"] = torch.equal(probs, live)
         if not (row["labels_equal_tiled_probs"]
+                and row["probs_equal_tiled_probs"]
                 and bool(torch.isfinite(probs).all())):
             raise AssertionError(f"bundle vs tiled_probs: {row}")
         del probs, live
@@ -1035,6 +1041,20 @@ def run_serving_bundles(dev, cfg_kw, weights):
                     torch.cuda.synchronize()
                     row.setdefault(name, []).append(
                         (time.perf_counter() - t0) * 1e3)
+        # the card's busy time in one call of each under torch.profiler,
+        # against each one's median time a volume: the idle share
+        for name, fn in (("tiled_probs", predictor.tiled_probs),
+                         ("bundle_predict", bundle.predict)):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn(dvols[0])
+                torch.cuda.synchronize()
+            busy = device_busy_ms(prof)
+            row[f"{name}_device_busy_ms"] = busy
+            row[f"{name}_idle_share"] = 1 - busy / statistics.median(
+                row[f"{name}_ms"])
         del dvols
 
         # the HTTP server on the bundle
@@ -1422,26 +1442,6 @@ def time_dispatch(dev, iters=200, repeats=DISPATCH_REPEATS):
                                         - row["direct_us"])
         log(timing="op_dispatch", kernel=name, **row)
         rows[name] = row
-    # the registration ops/library.py chose, against custom_op: K2's
-    # operator registered both ways, each called bare, in turns
-    custom = torch.library.custom_op(
-        "dctseg_smoke::fused_attention", attn._launch, mutates_args=(),
-        schema="(Tensor q, Tensor k, Tensor v, float scale) -> Tensor")
-    custom.register_fake(attn._fake)
-    custom.register_autograd(attn._backward,
-                             setup_context=attn._setup_context)
-    got = collections.defaultdict(list)
-    for _ in range(repeats):
-        for mode, ctx in (("inference", torch.inference_mode),
-                          ("grad_mode", contextlib.nullcontext)):
-            for reg, fn in (("library", attn._OP), ("custom_op", custom)):
-                with ctx():
-                    got[f"{reg}_{mode}_us"].append(time_ms(
-                        lambda: fn(q, k, v, scale), iters) * 1e3)
-    row = {k: statistics.median(v) for k, v in got.items()}
-    row["spread"] = {k: [min(v), max(v)] for k, v in got.items()}
-    log(timing="op_registration", kernel="attention", **row)
-    rows["registration"] = row
     return rows
 
 
@@ -1672,6 +1672,9 @@ def main() -> int:
         spread_ms={k: [min(bundle_row[k]), max(bundle_row[k])]
                    for k in ("tiled_probs_ms", "bundle_predict_ms")},
         max_abs_dprob=bundle_row["max_abs_dprob"],
+        **{f"{k}_{m}": bundle_row[f"{k}_{m}"]
+           for k in ("tiled_probs", "bundle_predict")
+           for m in ("device_busy_ms", "idle_share")},
         peak_memory_bytes=bundle_row["peak_memory_bytes"])
 
     def per_forward(key):

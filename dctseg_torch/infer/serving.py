@@ -107,8 +107,7 @@ def export_bundle(predictor: Predictor, out_dir: str, *,
                   in_channels: int = 4,
                   input_dtype: torch.dtype = torch.float32,
                   stitch_mode: str = "reference",
-                  batch_volumes: int = 1,
-                  device=None) -> Dict:
+                  batch_volumes: int = 1) -> Dict:
     """Export ``predictor``'s ``strategy`` engine to ``out_dir``.
 
     ``input_shape`` is the spatial (D, H, W) the bundle accepts: (240, 240,
@@ -118,9 +117,9 @@ def export_bundle(predictor: Predictor, out_dir: str, *,
     volumes ``(V, D, H, W, M)`` and the tiling forward runs B=8V (programs
     are shape-specialised, so V is fixed at export).  Only ``tiling`` and
     ``single`` take V > 1; the flip-TTA strategies work per volume.
-    ``device`` is where the programs are traced, the predictor's own
-    (its default); the bundle records it, and ``ServingBundle.load`` moves
-    the programs to another device where asked.
+    The programs are traced on the predictor's device, which the manifest
+    records; ``ServingBundle.load`` moves them to another device where
+    asked.
 
     Returns the manifest dict (also written to ``MANIFEST.json``).
     """
@@ -146,10 +145,7 @@ def export_bundle(predictor: Predictor, out_dir: str, *,
         raise ValueError("tiling windows are fixed to the BraTS "
                          "240x240x(>=155) geometry (predict.py:40-47), got "
                          f"{input_shape}")
-    device = predictor.device if device is None else torch.device(device)
-    if device.type != predictor.device.type:
-        raise ValueError(f"the predictor runs on {predictor.device}, not "
-                         f"{device}")
+    device = predictor.device
 
     def ex(module, like):
         """Export ``module`` on an input of ``like``'s shape and dtype."""
