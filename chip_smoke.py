@@ -22,7 +22,12 @@ Phases (any failure raises and the script exits non-zero):
      passes in both layouts on integer costs at D = 1, 155, 240, 256) and
      the order-statistic kernel in its count mode and its search mode
      (exact, on the pooled distances of those volumes, against
-     count_leq_plain and the binary search);
+     count_leq_plain and the binary search), the int8 activation quantizer
+     K7 (torch.equal, f32 and bf16, with exact half-way ties planted) and
+     the int8 conv K6 (torch.equal against its float64 oracle, f32 and bf16
+     out, at every call of one int8 and one int8_all forward on each path,
+     recorded, and on ragged shapes; the calls per forward pinned in
+     INT8_CONVS);
   4. the main paths at full width (img_dim=128, base_channels=16, random
      seeded weights), each with the launch counters set to 0 just before
      and read just after:
@@ -33,14 +38,22 @@ Phases (any failure raises and the script exits non-zero):
          path (its 13 attention calls per volume on the tensor-core
          kernel), then one B=8 bf16 forward under torch.profiler for the
          fusednorm kernel's device time in context (its launches checked
-         against the plan's, and no norm input copied around it);
+         against the plan's, and no norm input copied around it); then
+         int8 tiled_probs (quantize='int8') on both paths in turns with
+         the float engine on the same weights and volumes: K6 and K7
+         launches per forward as pinned, finite probabilities summing to
+         one, the drift within INT8_DRIFT (JAX's bounds on the direct
+         path), one int8_all forward's launches, and
+         Predictor(fold_params=True) equal to the unfolded engine bit for
+         bit;
        - evaluation: DeviceMetrics on the card against the host scipy
          metrics (exact) on 2 synthetic 128^3 label pairs in both HD95
          modes, then the evaluate CLI (dctseg_torch.cli.evaluate:
          BraTSDataset, PrefetchLoader, validate_softmax with
          strategy='tiling' and hd95 'reference', DeviceMetrics; the 13
          attention calls per volume on the tensor-core kernel) over 2
-         synthetic 240x240x155 volumes in bf16;
+         synthetic 240x240x155 volumes in bf16, then again with
+         --quantize int8 (K6 and K7 launches asserted);
        - training: the train CLI (dctseg_torch.cli.train: bf16, B=1, s2d
          at both resolutions, synthetic data) for 6 steps at full width,
          with remat off (checked: finite loss, changed parameters, the
@@ -61,7 +74,9 @@ Phases (any failure raises and the script exits non-zero):
          to the card at load (2 relayout launches a forward, labels equal
          to seg_probs'); a paired V=2 ``tiling`` bundle that coalesces 2
          concurrent requests into one group, labels equal to the V=1
-         bundle's;
+         bundle's; an int8 ``tiling`` bundle exported on the card, equal
+         bit for bit to the live int8 tiled_probs, and one HTTP request
+         answered from it;
   5. time the engines, each kernel, its plain version and a PyTorch library
      call that computes the same function (CUDA events; for fusednorm, the
      relayout and the search also the card's own time with the calls
@@ -70,7 +85,10 @@ Phases (any failure raises and the script exits non-zero):
      torch.profiler), and the host
      scipy HD95 of one volume (host clock); the host time per call that
      the operator registration adds to K1, K2 and K3; the serving
-     bundle's export, load and request times;
+     bundle's export, load and request times; K6 at the s2d full-res
+     dense conv and at en3 (beside cuDNN's bf16 conv and torch._int_mm
+     on the im2col) and over one int8 forward's calls on each path, K7
+     likewise, each against its bound;
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
 """
@@ -108,7 +126,8 @@ from dctseg_torch.models import clswiseformer as cwf
 from dctseg_torch.models import unet
 from dctseg_torch.ops import _build
 from dctseg_torch.ops import attention as attn
-from dctseg_torch.ops import edt, fusednorm, minplus, orderstats, relayout
+from dctseg_torch.ops import (edt, fusednorm, minplus, orderstats, quant,
+                              relayout)
 from dctseg_torch.train.trainer import Trainer
 
 SEED = 0
@@ -160,6 +179,27 @@ TRAIN_SAMPLES = 2
 TRAIN_EPOCHS = 3                 # 6 steps of B=1
 TRAIN_SHAPE = ("144", "144", "128")
 PROFILED_STEPS = 2               # the last steps of a profiled training run
+PATHS = {"direct": {}, "s2d": dict(s2d_fullres=True, s2d_halfres=True)}
+# quantized convs per forward at full width (K6 calls; K7 calls, two
+# launches each) by the JAX package's rule, direct and s2d (dense conv3),
+# under quantize 'int8' and 'int8_all'; held to JAX's count at full width by
+# tests/test_torch_quant.py
+INT8_CONVS = {("direct", "int8"): 25, ("direct", "int8_all"): 29,
+              ("s2d", "int8"): 42, ("s2d", "int8_all"): 52}
+INT8_TOPS = 1979e12              # H100 SXM dense int8 tensor-core peak
+# int8 against float on the same weights: mean |dp| and argmax agreement.
+# Direct path: JAX's bounds (tests/test_quant.py:92-94).  The s2d path
+# quantizes 42 convs, the full-resolution ones among them, and there JAX's
+# own int8 model keeps 96.7-97.2 % of its float model's argmaxes at the
+# tiny test weights (tests/test_torch_quant.py holds the port's s2d modules
+# to JAX's bit for bit); at full width the kernels' forward kept 97.0 % on
+# an H100, and so does the plain versions' forward on one crop, in bf16 and
+# in f32 (run_int8_witness), so JAX's 0.98 is not a property of that path
+# with random weights, and the check asks 0.96
+INT8_DRIFT = {"direct": dict(mean=0.01, agree=0.98),
+              "s2d": dict(mean=0.01, agree=0.96)}
+# K6's float64 oracle runs at B=1 on inputs of this many voxels and more
+INT8_ORACLE_VOXELS = 64 ** 3
 
 
 def log(**kw):
@@ -769,7 +809,9 @@ KERNEL_COUNTERS = {"fusednorm": fusednorm.fused_instance_norm_act,
                    "relayout": relayout.space_to_depth,
                    "minplus": minplus.minplus_pass,
                    "orderstats": orderstats.masked_order_stats,
-                   "orderstats_count": orderstats.count_leq}
+                   "orderstats_count": orderstats.count_leq,
+                   "int8_conv3d": quant.int8_conv3d,
+                   "quantize_absmax": quant.quantize_absmax}
 
 
 def reset_launches():
@@ -787,19 +829,21 @@ def read_launches():
     return launches
 
 
-def run_eval_path():
+def run_eval_path(quantize="none"):
     """The evaluate CLI over EVAL_VOLUMES synthetic 240x240x155 volumes:
     strategy 'tiling', HD95 'reference', bf16, full width, random weights
-    from seed 0.  Returns its result dict, the launch counts and the wall
-    time."""
+    from seed 0, quantized as ``quantize`` says.  Returns its result dict
+    and the launch counts."""
     reset_launches()
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
         res = evaluate.main(["--strategy", "tiling", "--hd95", "reference",
                              "--random-params", "--num-samples",
-                             str(EVAL_VOLUMES), "--output-dir", out_dir])
+                             str(EVAL_VOLUMES), "--output-dir", out_dir,
+                             "--quantize", quantize])
         wall = time.perf_counter() - t0
     launches = read_launches()
+    convs = INT8_CONVS["direct", quantize] if quantize != "none" else 0
     # the search runs in the orderstats kernel's search mode, one launch a
     # pass; its count mode (count_leq) not at all
     expected = {"fusednorm": norm_launches(torch.bfloat16) * EVAL_VOLUMES,
@@ -808,15 +852,17 @@ def run_eval_path():
                 "relayout": 0,
                 "minplus": EDT_LAUNCHES * EVAL_VOLUMES,
                 "orderstats": SEARCH_LAUNCHES * EVAL_VOLUMES,
-                "orderstats_count": 0}
+                "orderstats_count": 0,
+                "int8_conv3d": convs * EVAL_VOLUMES,
+                "quantize_absmax": 2 * convs * EVAL_VOLUMES}
     finite = all(math.isfinite(v) for v in res.values())
     in_unit = all(0.0 <= res[k] <= 1.0 for k in
                   ("wt", "tc", "et", "miou_wt", "miou_tc", "miou_et"))
     ok = launches == expected and finite and in_unit
     log(phase="eval_path", entry="dctseg_torch.cli.evaluate",
         strategy="tiling", hd95="reference", dtype="bfloat16",
-        volumes=EVAL_VOLUMES, result=res, wall_s=wall, launches=launches,
-        expected_launches=expected, ok=ok)
+        quantize=quantize, volumes=EVAL_VOLUMES, result=res, wall_s=wall,
+        launches=launches, expected_launches=expected, ok=ok)
     if not ok:
         raise AssertionError(f"eval path failed: launches {launches} "
                              f"(expected {expected}), result {res}")
@@ -1175,6 +1221,462 @@ def run_serving_bundles(dev, cfg_kw, weights):
     row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     log(phase="serving_bundles", dtype="bfloat16", **row)
     return row
+
+
+# ------------------------------------------------- int8 (K6, K7): phases 3-5
+
+def int8_expected(path, spec):
+    """Every counter's launches for one B=8 bf16 forward of one path and
+    quantize spec (K7: two launches a call)."""
+    s2d = path == "s2d"
+    return {"fusednorm": norm_launches(torch.bfloat16, s2d),
+            "attention": ATTN_CALLS, "attention_mma": ATTN_CALLS,
+            "relayout": RELAYOUT_PER_FORWARD if s2d else 0,
+            "int8_conv3d": INT8_CONVS[path, spec],
+            "quantize_absmax": 2 * INT8_CONVS[path, spec]}
+
+
+def int8_model(dev, cfg_kw, weights, path, spec):
+    model = cwf.build_model(ModelConfig(**cfg_kw, **PATHS[path],
+                                        quantize=spec), device=dev)
+    model.load_state_dict(weights, strict=True)
+    return model
+
+
+def record_int8_calls(dev, cfg_kw, weights):
+    """Every K6 call of one B=8 bf16 forward, on each path under each spec:
+    {(path, spec): [(xq shape, wq shape, stride, padding), ...]} in call
+    order, its length checked against INT8_CONVS (the JAX rule's count)."""
+    x = torch.randn((8, 128, 128, 128, 4), device=dev,
+                    generator=gen(dev, SEED + 12))
+    orig, calls = quant.conv3d_int8_prepared, {}
+    for key in INT8_CONVS:
+        sigs = []
+
+        def recording(x, wq, sw, stride=1, padding=1, bias=None):
+            sigs.append((tuple(x.shape), tuple(wq.shape),
+                         quant._triple(stride), quant._pairs(padding)))
+            return orig(x, wq, sw, stride, padding, bias)
+        predictor = Predictor(int8_model(dev, cfg_kw, weights, *key),
+                              device=dev)
+        quant.conv3d_int8_prepared = recording
+        try:
+            predictor.seg_probs(x)
+        finally:
+            quant.conv3d_int8_prepared = orig
+        calls[key] = sigs
+        log(check="int8_calls_per_forward", path=key[0], spec=key[1],
+            calls=len(sigs), pinned=INT8_CONVS[key],
+            distinct=len(set(sigs)), ok=len(sigs) == INT8_CONVS[key])
+        if len(sigs) != INT8_CONVS[key]:
+            raise AssertionError(f"{key}: {len(sigs)} int8 convs a forward, "
+                                 f"pinned {INT8_CONVS[key]}")
+        del predictor
+    return calls
+
+
+def int8_operands(dev, g, x_shape, w_shape):
+    """Random int8 activations and weights of the given shapes, f32 stats
+    and per-channel scales of the magnitudes the model gives."""
+    xq = torch.randint(-127, 128, x_shape, dtype=torch.int8, device=dev,
+                       generator=g)
+    wq = torch.randint(-127, 128, w_shape, dtype=torch.int8, device=dev,
+                       generator=g)
+    sw = torch.rand(w_shape[0], device=dev, generator=g) * 1e-3 + 1e-4
+    stats = torch.tensor([1.27, 0.01], device=dev)
+    return xq, wq, sw, stats
+
+
+def check_int8_conv(dev, calls):
+    """K6 against its plain version (float64 accumulation), torch.equal, in
+    f32 and bf16 out with a bias in that dtype and in f32 without: at every
+    distinct (shape, k, stride, padding) the int8 and int8_all forwards
+    call, on both paths (inputs of 64^3 voxels and more at B=1: the f64
+    oracle is slow), and on ragged shapes (vector widths 8 and 4, M and
+    Co edges, asymmetric padding, unequal strides).  Returns the largest
+    difference (0)."""
+    g = gen(dev, SEED + 11)
+    distinct = sorted({sig for sigs in calls.values() for sig in sigs})
+    have = {(s[0][-1], s[1][1], s[2], s[3]) for s in distinct}
+    for need in ((96, 3, (1, 1, 1), ((1, 1),) * 3),       # conv_mid_fea_*
+                 (256, 2, (1, 1, 1), ((1, 0),) * 3),      # s2d down2
+                 (64, 3, (2, 2, 2), ((1, 1),) * 3)):      # down3
+        if need not in have:
+            raise AssertionError(f"no forward called K6 at {need}")
+    distinct += [((2, 9, 7, 5, 72), (40, 3, 3, 3, 72), (1, 1, 1),
+                  ((1, 1),) * 3),
+                 ((3, 5, 6, 7, 36), (24, 3, 3, 3, 36), (2, 1, 2),
+                  ((1, 0), (1, 1), (0, 1)))]
+    worst = 0.0
+    for x_shape, w_shape, stride, pads in distinct:
+        if math.prod(x_shape[1:4]) >= INT8_ORACLE_VOXELS:
+            x_shape = (1, *x_shape[1:])
+        xq, wq, sw, stats = int8_operands(dev, g, x_shape, w_shape)
+        for dt, with_bias in ((torch.float32, True), (torch.bfloat16, True),
+                              (torch.float32, False)):
+            bias = (torch.randn(w_shape[0], device=dev, generator=g).to(dt)
+                    if with_bias else None)
+            before = quant.int8_conv3d.launches
+            got = quant.int8_conv3d(xq, stats, wq, sw, bias, stride, pads, dt)
+            launched = quant.int8_conv3d.launches - before
+            want = quant.int8_conv3d_plain(xq, stats, wq, sw, bias, stride,
+                                           pads, dt)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.equal(got, want) and launched == 1
+            worst = max(worst, err)
+            log(check="int8_conv3d", x=list(x_shape), w=list(w_shape),
+                stride=list(stride), padding=[list(p) for p in pads],
+                dtype=str(dt), bias=with_bias, launches=launched,
+                max_abs_err=err, tol="torch.equal", ok=ok)
+            if not ok:
+                raise AssertionError(f"K6 disagrees at {x_shape} {w_shape} "
+                                     f"{stride} {pads} {dt}")
+            del got, want
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_quantize(dev):
+    """K7 against its plain version (xq and both stats torch.equal), f32
+    and bf16, at the main path's activation shapes (B=8 at 32^3 x 64, the
+    s2d view at 64^3 x 128 B=8 bf16 only): randn activations, then the same
+    with exact half-way ties planted: amax 127 s and a third of the values
+    (k + 0.5) s for s = 2^-3, so that sx = s and x / sx = k + 0.5 exactly,
+    which round half to even.  Returns the largest difference (0)."""
+    g = gen(dev, SEED + 13)
+    worst = 0.0
+    for shape, dtypes in (((8, 32, 32, 32, 64), (torch.float32,
+                                                 torch.bfloat16)),
+                          ((8, 64, 64, 64, 128), (torch.bfloat16,))):
+        for dt in dtypes:
+            for ties in (False, True):
+                x = torch.randn(shape, device=dev, generator=g) * 3
+                if ties:
+                    s = 2.0 ** -3
+                    k = torch.randint(-126, 126, shape, device=dev,
+                                      generator=g).float()
+                    pick = torch.rand(shape, device=dev, generator=g) < 1 / 3
+                    x = torch.where(pick, (k + 0.5) * s,
+                                    x.clamp(-126 * s, 126 * s))
+                    x.view(-1)[0] = 127 * s
+                x = x.to(dt)
+                before = quant.quantize_absmax.launches
+                xq, stats = quant.quantize_absmax(x)
+                launched = quant.quantize_absmax.launches - before
+                pq, pstats = quant.quantize_absmax_plain(x)
+                ok = (torch.equal(xq, pq) and torch.equal(stats, pstats)
+                      and launched == 2
+                      and (not ties or stats[1].item() == 2.0 ** -3))
+                err = (xq.int() - pq.int()).abs().max().item()
+                worst = max(worst, float(err))
+                log(check="quantize_absmax", shape=list(shape), dtype=str(dt),
+                    ties=ties, stats=stats.tolist(), launches=launched,
+                    max_abs_err=err, tol="torch.equal", ok=ok)
+                if not ok:
+                    raise AssertionError(f"K7 disagrees at {shape} {dt} "
+                                         f"ties={ties}")
+                del x, xq, pq
+    return worst
+
+
+def run_int8_main_path(dev, cfg_kw, weights, volumes):
+    """bf16 tiled_probs with quantize='int8' on the direct path and the
+    s2d path (dense conv3), against the float engine on the same weights,
+    the two in turns over the volumes: each int8 call's launches those of
+    one forward (K6 and K7 as pinned, K1-K3 as the float path's);
+    finite probabilities that sum to one; the drift against the float
+    engine within INT8_DRIFT (mean |dp| < 0.01; argmax agreement > 0.98
+    direct, > 0.96 s2d).  Then one int8_all B=8 forward's launches, and
+    Predictor(fold_params=True) equal to the unfolded engine bit for
+    bit.  Returns {path: row}."""
+    rows = {}
+    for path in PATHS:
+        engines = {spec: Predictor(int8_model(dev, cfg_kw, weights, path,
+                                              spec), device=dev)
+                   for spec in ("none", "int8")}
+        expected = int8_expected(path, "int8")
+        row = collections.defaultdict(list)
+        for i, vol in enumerate(volumes):
+            outs = {}
+            for spec in (("none", "int8") if i % 2 == 0
+                         else ("int8", "none")):
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[spec] = engines[spec].tiled_probs(vol)
+                torch.cuda.synchronize()
+                row[f"{spec}_ms"].append((time.perf_counter() - t0) * 1e3)
+                if spec == "int8":
+                    expect_launches(f"int8 tiled_probs ({path})",
+                                    read_launches(), expected)
+            q, f = outs["int8"], outs["none"]
+            row["sum_err"].append((q.sum(-1) - 1).abs().max().item())
+            row["mean_abs_dprob"].append((q - f).abs().mean().item())
+            row["argmax_agreement"].append(
+                (q.argmax(-1) == f.argmax(-1)).float().mean().item())
+            if not bool(torch.isfinite(q).all()) or \
+                    tuple(q.shape) != (1, 240, 240, 155, 4):
+                raise AssertionError(f"int8 tiled_probs ({path}) malformed")
+            del outs, q, f
+        row = dict(row, launches_per_forward=expected)
+        # int8_all: one B=8 forward
+        x = Predictor.crops(volumes[0])
+        every = Predictor(int8_model(dev, cfg_kw, weights, path,
+                                     "int8_all"), device=dev)
+        reset_launches()
+        every.seg_probs(x)
+        torch.cuda.synchronize()
+        row["int8_all_launches"] = expect_launches(
+            f"int8_all forward ({path})", read_launches(),
+            int8_expected(path, "int8_all"))
+        del every, x
+        # fold_params: the same ops on cached weights, the same bits
+        folded = Predictor(engines["int8"].model, device=dev,
+                           fold_params=True)
+        row["fold_params_equal"] = torch.equal(
+            folded.tiled_probs(volumes[0]), engines["int8"].tiled_probs(
+                volumes[0]))
+        del folded, engines
+        bound = INT8_DRIFT[path]
+        ok = (row["fold_params_equal"]
+              and max(row["sum_err"]) <= 1e-3
+              and max(row["mean_abs_dprob"]) < bound["mean"]
+              and min(row["argmax_agreement"]) > bound["agree"])
+        log(phase="int8_main_path", engine="tiled_probs", path=path,
+            quantize="int8", dtype="bfloat16", volumes=len(volumes),
+            drift_bounds=bound, ok=ok, **row)
+        if not ok:
+            raise AssertionError(f"int8 main path ({path}) failed: {row}")
+        rows[path] = row
+    return rows
+
+
+def run_int8_witness(dev, cfg_kw, weights, volume):
+    """The int8 drift at full width away from K6 and K7: one 128^3 crop of
+    ``volume`` at B=1 through each path's int8 forward with the plain
+    versions in the kernels' place (``quantize_absmax_plain`` and
+    ``int8_conv3d_plain``, a float64 conv of the int8 values), against the
+    float forward on the same weights, in bf16 and in f32; held to
+    INT8_DRIFT as the kernels' forward is.  Returns {path: row}."""
+    t0 = time.perf_counter()
+    crop = Predictor.crops(volume)[:1]
+    orig = quant.conv3d_int8_prepared
+
+    def plain(x, wq, sw, stride=1, padding=1, bias=None):
+        xq, stats = quant.quantize_absmax_plain(x.contiguous())
+        b = None if bias is None else bias.to(x.dtype)
+        return quant.int8_conv3d_plain(xq, stats, wq, sw, b, stride,
+                                       padding, x.dtype)
+    rows = {}
+    for path in PATHS:
+        row = {}
+        for dtype in ("bfloat16", "float32"):
+            kw = dict(cfg_kw, compute_dtype=dtype)
+            probs = {}
+            for spec in ("none", "int8"):
+                predictor = Predictor(int8_model(dev, kw, weights, path,
+                                                 spec), device=dev)
+                reset_launches()
+                quant.conv3d_int8_prepared = plain
+                try:
+                    probs[spec] = predictor.seg_probs(crop)
+                finally:
+                    quant.conv3d_int8_prepared = orig
+                launches = read_launches()
+                if launches["int8_conv3d"] or launches["quantize_absmax"]:
+                    raise AssertionError(f"int8 witness ({path}) launched "
+                                         f"K6/K7: {launches}")
+                del predictor
+            q, f = probs["int8"], probs["none"]
+            if not bool(torch.isfinite(q).all()):
+                raise AssertionError(f"int8 witness ({path}) not finite")
+            row[dtype] = dict(
+                mean_abs_dprob=(q - f).abs().mean().item(),
+                argmax_agreement=(q.argmax(-1) == f.argmax(-1)
+                                  ).float().mean().item())
+            del probs, q, f
+        bound = INT8_DRIFT[path]
+        ok = all(r["mean_abs_dprob"] < bound["mean"]
+                 and r["argmax_agreement"] > bound["agree"]
+                 for r in row.values())
+        log(phase="int8_witness", path=path, crop="1x128^3",
+            route="plain", drift_bounds=bound, ok=ok,
+            seconds=time.perf_counter() - t0, **row)
+        if not ok:
+            raise AssertionError(f"int8 witness ({path}) failed: {row}")
+        rows[path] = row
+    return rows
+
+
+def run_int8_bundle(dev, cfg_kw, weights):
+    """Phase 4d for int8: a bf16 int8 ``tiling`` bundle on the direct path,
+    exported on the card and loaded fresh, equal bit for bit to the live
+    int8 tiled_probs on a seeded volume, each launching one forward's
+    kernels; then one HTTP labels request, answered from it with the
+    bundle's own labels."""
+    rng = np.random.default_rng(SEED + 14)
+    vol = rng.standard_normal(VOLUME, dtype=np.float32)
+    predictor = Predictor(int8_model(dev, cfg_kw, weights, "direct",
+                                     "int8"), device=dev)
+    forward = int8_expected("direct", "int8")
+    row = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tiling_int8")
+        t0 = time.perf_counter()
+        export_bundle(predictor, path, strategy="tiling")
+        row["export_s"] = time.perf_counter() - t0
+        row["bundle_mb"] = bundle_mb(path)
+        t0 = time.perf_counter()
+        bundle = ServingBundle.load(path)
+        row["load_s"] = time.perf_counter() - t0
+        dvol = torch.from_numpy(vol).to(dev)
+        reset_launches()
+        probs = bundle.predict(dvol)
+        torch.cuda.synchronize()
+        row["predict_launches"] = expect_launches(
+            "int8 bundle.predict", read_launches(), forward)
+        reset_launches()
+        live = predictor.tiled_probs(dvol)
+        torch.cuda.synchronize()
+        row["tiled_probs_launches"] = expect_launches(
+            "int8 tiled_probs", read_launches(), forward)
+        row["probs_equal_tiled_probs"] = torch.equal(probs, live)
+        row["max_abs_dprob"] = (probs - live).abs().max().item()
+        if not row["probs_equal_tiled_probs"]:
+            raise AssertionError(f"int8 bundle vs tiled_probs: {row}")
+        del probs, live, dvol
+        with serving(bundle) as (_, base):
+            reset_launches()
+            got, latency, wall = post_volume(base, vol, "labels")
+            launches = expect_launches("int8 request", read_launches(),
+                                       forward)
+        want = bundle.labels(vol).cpu().numpy()
+        row["request"] = dict(latency_ms=latency, client_ms=wall,
+                              labels_equal_bundle=bool(
+                                  np.array_equal(got, want)),
+                              launches=launches)
+        if not row["request"]["labels_equal_bundle"]:
+            raise AssertionError(f"int8 request: {row['request']}")
+        del bundle
+    log(phase="serving_bundle_int8", strategy="tiling", quantize="int8",
+        dtype="bfloat16", **row)
+    return row
+
+
+def k6_costs(x_shape, w_shape, stride, pads):
+    """(ops, bytes) of one bf16-out K6 call: 2 M Co K operations; the int8
+    input and weight read once, the 2-byte output written once."""
+    out = quant.out_shape(x_shape, w_shape, stride, pads)
+    m, co, kdim = math.prod(out[:4]), w_shape[0], math.prod(w_shape[1:])
+    return (2 * m * co * kdim,
+            math.prod(x_shape) + math.prod(w_shape) + m * co * 2)
+
+
+def bound_of(ops, nbytes):
+    by_ops = ops / INT8_TOPS > nbytes / HBM_BYTES_PER_S
+    return (max(ops / INT8_TOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+            "operations" if by_ops else "bytes")
+
+
+def time_k6(dev, g, x_shape, w_shape, stride, pads, iters=10, plain=True,
+            int_mm=False):
+    """One K6 call in bf16 at a shape: its call time (CUDA events, back to
+    back) and the card's time (queued_ms), the plain version's time, the
+    bf16 cuDNN conv of the same shape (library_ms) and, where asked and
+    the im2col fits, torch._int_mm on the im2col matrix; the bound."""
+    xq, wq, sw, stats = int8_operands(dev, g, x_shape, w_shape)
+    args = (xq, stats, wq, sw, None, stride, pads, torch.bfloat16)
+    row = dict(x=list(x_shape), w=list(w_shape), stride=list(stride),
+               padding=[list(p) for p in pads])
+    row["ms"] = time_ms(lambda: quant.int8_conv3d(*args), iters)
+    row["device_ms"] = queued_ms(lambda: quant.int8_conv3d(*args), iters)
+    if plain:
+        row["plain_ms"] = time_ms(lambda: quant.int8_conv3d_plain(*args), 1,
+                                  warmup=1)
+    (dl, dh), (hl, hh), (wl, wh) = pads
+    xb = F.pad(torch.randn(x_shape, device=dev, generator=g).bfloat16()
+               .permute(0, 4, 1, 2, 3), (wl, wh, hl, hh, dl, dh)).contiguous(
+        memory_format=torch.channels_last_3d)
+    wb = torch.randn((w_shape[0], w_shape[4], *w_shape[1:4]), device=dev,
+                     generator=g).bfloat16().contiguous(
+        memory_format=torch.channels_last_3d)
+    row["library_ms"] = time_ms(lambda: F.conv3d(xb, wb, None, stride), iters)
+    del xb, wb
+    if int_mm:
+        out = quant.out_shape(x_shape, w_shape, stride, pads)
+        k = w_shape[1]
+        m, kdim = math.prod(out[:4]), k ** 3 * x_shape[-1]
+        if m * kdim < 16e9:
+            xp = F.pad(xq.permute(0, 4, 1, 2, 3), (wl, wh, hl, hh, dl, dh))
+            cols = (xp.unfold(2, k, stride[0]).unfold(3, k, stride[1])
+                    .unfold(4, k, stride[2]))        # n c d h w kd kh kw
+            a = cols.permute(0, 2, 3, 4, 5, 6, 7, 1).reshape(m, kdim)
+            b = wq.reshape(w_shape[0], kdim).t()
+            row["int_mm_ms"] = time_ms(lambda: torch._int_mm(a, b), iters)
+            row["im2col_bytes"] = m * kdim
+            del xp, cols, a, b
+    ops, nbytes = k6_costs(x_shape, w_shape, stride, pads)
+    row["bound_ms"], row["bound_by"] = bound_of(ops, nbytes)
+    row["tops"] = ops / row["device_ms"] / 1e9
+    del xq, wq
+    return row
+
+
+def time_k7(dev, g, shape, iters=10):
+    """K7 on a bf16 activation: call and card time, plain version's time;
+    the bound (x read once, xq written once) and the two-pass floor (x read
+    twice, by the absmax and by the quantize)."""
+    x = torch.randn(shape, device=dev, generator=g).bfloat16()
+    row = dict(shape=list(shape))
+    row["ms"] = time_ms(lambda: quant.quantize_absmax(x), iters)
+    row["device_ms"] = queued_ms(lambda: quant.quantize_absmax(x), iters)
+    row["plain_ms"] = time_ms(lambda: quant.quantize_absmax_plain(x), iters)
+    xb, qb = x.numel() * x.element_size(), x.numel()
+    row["bound_ms"] = (xb + qb) / HBM_BYTES_PER_S * 1e3
+    row["two_pass_floor_ms"] = (2 * xb + qb) / HBM_BYTES_PER_S * 1e3
+    del x
+    return row
+
+
+def time_int8(dev, calls):
+    """Phase 5 for int8: K6 at the s2d full-resolution dense conv (B=8,
+    64^3 x 128 -> 128, K = 3456) and at en3 (B=8, 32^3 x 64 -> 64), with
+    torch._int_mm on the im2col beside it; K7 at both inputs; then the sums
+    over one B=8 forward's calls on each path under int8 (K6: call and
+    card time, cuDNN's bf16 conv, the bound; K7: call and card time, the
+    bound; the plain versions on the direct path)."""
+    g = gen(dev, SEED + 15)
+    named = {"s2d_fullres_dense": ((8, 64, 64, 64, 128), (128, 3, 3, 3, 128)),
+             "en3": ((8, 32, 32, 32, 64), (64, 3, 3, 3, 64))}
+    rows = {}
+    for name, (xs, ws) in named.items():
+        rows[name] = time_k6(dev, g, xs, ws, (1, 1, 1), ((1, 1),) * 3,
+                             int_mm=True)
+        rows[name]["k7"] = time_k7(dev, g, xs)
+        log(timing="int8_conv3d", site=name, dtype="bfloat16", **rows[name])
+    for path in PATHS:
+        sigs = collections.Counter(calls[path, "int8"])
+        per = collections.defaultdict(float)
+        for (xs, ws, stride, pads), n in sigs.items():
+            r = time_k6(dev, g, xs, ws, stride, pads, iters=5,
+                        plain=path == "direct")
+            k7 = time_k7(dev, g, xs, iters=5)
+            for key in ("ms", "device_ms", "library_ms", "bound_ms") + (
+                    ("plain_ms",) if path == "direct" else ()):
+                per[key] += n * r[key]
+            for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                        "two_pass_floor_ms"):
+                per[f"k7_{key}"] += n * k7[key]
+            ops, nbytes = k6_costs(xs, ws, stride, pads)
+            per["ops"] += n * ops
+            per["bytes"] += n * nbytes
+        per = dict(per, calls=sum(sigs.values()), distinct=len(sigs))
+        per["bound_by"] = ("operations" if per["ops"] / INT8_TOPS
+                           > per["bytes"] / HBM_BYTES_PER_S else "bytes")
+        log(timing="int8_per_forward", path=path, quantize="int8",
+            unit="per B=8 bf16 forward", **per)
+        rows[f"forward_{path}"] = per
+    return rows
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1558,14 +2060,17 @@ def main() -> int:
              for mode in ("reference", "surface")]
     search_err = check_orderstats(dev, pools)
     del out_lbl, tgt_lbl, o, t, pools
-    log(phase="kernel_checks", ok=True)
-
-    # ---- 4a. serving path, full width
     cfg_kw = dict(img_dim=128, base_channels=16, num_heads=8, top_num=128,
                   pe_type="fixed")
     weights = cwf.ClsWiseFormer(ModelConfig(**cfg_kw),
                                 torch.Generator().manual_seed(SEED)
                                 ).state_dict()
+    quantize_err = check_quantize(dev)
+    int8_calls = record_int8_calls(dev, cfg_kw, weights)
+    int8_err = check_int8_conv(dev, int8_calls)
+    log(phase="kernel_checks", ok=True)
+
+    # ---- 4a. serving path, full width
     check_fp32_paths(dev, cfg_kw, weights)
 
     model = cwf.build_model(ModelConfig(**cfg_kw), device=dev)
@@ -1608,6 +2113,9 @@ def main() -> int:
         if not s2d_on:
             fwd_row = profile_forward(predictor, volumes[0])
         del predictor, model
+    # int8 on both paths, against the float engine in turns
+    int8_rows = run_int8_main_path(dev, cfg_kw, weights, volumes)
+    run_int8_witness(dev, cfg_kw, weights, volumes[0])
     del volumes
 
     # ---- 4b. evaluation path, full width
@@ -1617,6 +2125,7 @@ def main() -> int:
     eval_res, eval_launches = run_eval_path()
     log(phase="eval_path_memory",
         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    eval_int8_res, eval_int8_launches = run_eval_path("int8")
 
     # ---- 4c. training path, full width: the checked run, then remat
     # 'full' and the direct path for their step time and memory
@@ -1641,6 +2150,7 @@ def main() -> int:
 
     # ---- 4d. serving bundles and the HTTP server, full width
     bundle_row = run_serving_bundles(dev, cfg_kw, weights)
+    int8_bundle_row = run_int8_bundle(dev, cfg_kw, weights)
 
     # ---- 5. timing
     for name, vol_ms in serving.items():
@@ -1648,8 +2158,22 @@ def main() -> int:
         log(timing="tiled_probs", path=name, dtype="bfloat16",
             first_volume_ms=vol_ms[0],
             steady_volume_ms=sum(steady) / len(steady))
+    for name, row in int8_rows.items():
+        log(timing="tiled_probs_int8", path=name, dtype="bfloat16",
+            unit="ms per volume, float and int8 engines in turns",
+            float_ms=row["none_ms"], int8_ms=row["int8_ms"],
+            steady_float_ms=statistics.mean(row["none_ms"][1:]),
+            steady_int8_ms=statistics.mean(row["int8_ms"][1:]))
     log(timing="validate_softmax", strategy="tiling", hd95="reference",
-        dtype="bfloat16", sec_per_volume=eval_res["sec_per_volume"])
+        dtype="bfloat16", sec_per_volume=eval_res["sec_per_volume"],
+        int8_sec_per_volume=eval_int8_res["sec_per_volume"])
+    log(timing="serving_bundle_int8", strategy="tiling", quantize="int8",
+        export_s=int8_bundle_row["export_s"],
+        load_s=int8_bundle_row["load_s"],
+        bundle_mb=int8_bundle_row["bundle_mb"],
+        request_ms=int8_bundle_row["request"]["latency_ms"],
+        request_client_ms=int8_bundle_row["request"]["client_ms"])
+    int8_timing = time_int8(dev, int8_calls)
     norm_rows = time_fusednorm(dev, NORM_WIDTHS)
     attn_row = time_attention(dev)
     relayout_rows = time_relayout(dev)
@@ -1748,6 +2272,36 @@ def main() -> int:
              device_ms=met["search_device_ms"],
              pass_floor_ms=met["search_pass_floor_ms"],
              unit="per 240x240x155 volume (the whole search, 7 launches)"),
+    ]
+    fwd = int8_timing["forward_direct"]
+    s2d_fwd = int8_timing["forward_s2d"]
+    kernels += [
+        dict(name="int8_conv3d", route="cuda",
+             source="dctseg_torch/csrc/int8conv.cu",
+             replaces="dctseg/ops/quant.py:118",
+             launches=eval_int8_launches["int8_conv3d"], max_abs_err=int8_err,
+             ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+             bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
+             device_ms=fwd["device_ms"],
+             s2d_forward={k: s2d_fwd[k] for k in (
+                 "calls", "ms", "device_ms", "library_ms", "bound_ms")},
+             per_call={k: int8_timing[k] for k in ("s2d_fullres_dense",
+                                                   "en3")},
+             unit="per B=8 bf16 int8 forward on the direct path (25 calls); "
+                  "library: cuDNN's bf16 conv of each call"),
+        dict(name="quantize_absmax", route="cuda",
+             source="dctseg_torch/csrc/quantize.cu",
+             replaces="dctseg/ops/quant.py:131",
+             launches=eval_int8_launches["quantize_absmax"],
+             max_abs_err=quantize_err, ms=fwd["k7_ms"],
+             plain_ms=fwd["k7_plain_ms"], bound_ms=fwd["k7_bound_ms"],
+             bound_by="bytes", library_ms=None,
+             device_ms=fwd["k7_device_ms"],
+             two_pass_floor_ms=fwd["k7_two_pass_floor_ms"],
+             s2d_forward={k: s2d_fwd[f"k7_{k}"] for k in (
+                 "ms", "device_ms", "bound_ms")},
+             unit="per B=8 bf16 int8 forward on the direct path (25 calls, "
+                  "2 launches each)"),
     ]
     # ---- 6. result
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -75,7 +75,10 @@ def parse_args(argv=None):
     p.add_argument("--base-channels", type=int, default=16)
     p.add_argument("--fp32", action="store_true",
                    help="fp32 compute and wire (default bf16)")
-    p.add_argument("--quantize", default="none")
+    p.add_argument("--quantize", default="none",
+                   help="int8 post-training quantization spec: 'int8', "
+                        "'int8+pw+deconv+down' or 'int8_all' (inference "
+                        "only; dctseg_torch/ops/quant.py)")
     p.add_argument("--spatial-shards", type=int, default=1)
     p.add_argument("--random-params", action="store_true",
                    help="skip checkpoint loading (smoke runs)")
@@ -89,8 +92,6 @@ def parse_args(argv=None):
 
 
 def _not_ported(a) -> str:
-    if a.quantize != "none":
-        return "int8 quantization is not ported yet (ROADMAP A9)"
     if a.spatial_shards > 1:
         return "multi-GPU spatial sharding is not ported yet (ROADMAP A12)"
     return ""
@@ -123,6 +124,7 @@ def main(argv=None) -> dict:
     mcfg = ModelConfig(
         img_dim=a.img_dim, base_channels=a.base_channels,
         compute_dtype="float32" if a.fp32 else "bfloat16",
+        quantize=a.quantize,
         **({} if a.img_dim == 128
            else {"top_num": min(128, (a.img_dim // 16) ** 3)}))
     model = build_model(mcfg, device=device,

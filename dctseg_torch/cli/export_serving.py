@@ -16,6 +16,8 @@ Examples:
   python -m dctseg_torch.cli.export_serving --device cpu --random-params \\
       --strategy single --img-dim 32 --base-channels 4 --fp32 \\
       --input-shape 32 32 32 --out bundles/tiny
+  python -m dctseg_torch.cli.export_serving --checkpoint-dir checkpoints \\
+      --quantize int8 --batch-volumes 2 --out bundles/tiling_int8_v2
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ def parse_args(argv=None):
     p.add_argument("--fp32", action="store_true",
                    help="fp32 compute (default bf16, the eval default)")
     p.add_argument("--quantize", default="none",
-                   help="int8 quantization (not ported yet: ROADMAP A9)")
+                   help="int8 post-training quantization spec ('int8', "
+                        "'int8_all', ...): the bundle runs the int8 kernels")
     p.add_argument("--input-shape", type=int, nargs=3, default=None,
                    metavar=("D", "H", "W"),
                    help="volume spatial shape the bundle accepts "
@@ -67,9 +70,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     a = parse_args(argv)
-    if a.quantize != "none":
-        raise NotImplementedError(
-            "int8 quantization is not ported yet (ROADMAP A9)")
     from dctseg_torch.config import ModelConfig
     from dctseg_torch.device import resolve_device
     from dctseg_torch.infer.engine import Predictor
@@ -81,6 +81,7 @@ def main(argv=None) -> int:
     mcfg = ModelConfig(
         img_dim=a.img_dim, base_channels=a.base_channels,
         compute_dtype="float32" if a.fp32 else "bfloat16",
+        quantize=a.quantize,
         **({} if a.img_dim == 128
            else {"top_num": min(128, (a.img_dim // 16) ** 3)}))
     model = build_model(mcfg, device=device,

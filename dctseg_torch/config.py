@@ -14,8 +14,8 @@ the port serves another configuration of the same network:
     function; the train driver turns it on, as the JAX driver does.
   * ``compute_dtype`` defaults to bfloat16 (serving); ``remat`` to False.
 
-A value whose code is not ported yet raises ``NotImplementedError`` naming
-its ``ROADMAP.md`` item.
+``quantize`` takes the JAX package's spec (``dctseg_torch/ops/quant.py``
+``enabled``); a misspelt one fails here with its ``ValueError``.
 """
 
 from __future__ import annotations
@@ -106,9 +106,8 @@ class ModelConfig:
         if self.conv3_strategy not in ("dense", "fine", "auto"):
             raise ValueError(
                 f"unknown conv3_strategy {self.conv3_strategy!r}")
-        if self.quantize != "none":
-            raise NotImplementedError(
-                "int8 quantization is not ported yet (ROADMAP A9)")
+        from dctseg_torch.ops.quant import enabled
+        enabled(self.quantize, "conv3")     # ValueError on a bad spec
 
 
 @dataclasses.dataclass(frozen=True)

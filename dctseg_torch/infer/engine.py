@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from dctseg_torch.device import resolve_device
+from dctseg_torch.models import layers
 
 FLIP_COMBOS: List[tuple] = [
     (), (1,), (2,), (3,), (1, 2), (1, 3), (2, 3), (1, 2, 3),
@@ -43,24 +44,43 @@ CROPS = [
 class Predictor:
     """Inference over one model.  ``device`` defaults to the GPU (raises if
     there is none; pass ``device='cpu'`` for the CPU).  ``microbatch`` caps
-    the per-call forward batch of the 8-variant engines."""
+    the per-call forward batch of the 8-variant engines.
+
+    ``fold_params`` (the JAX engine's ``dctseg/infer/engine.py:68-99``)
+    computes the per-call weight work once: the convs' casts to the compute
+    dtype, the s2d weight transforms and, under ``quantize``, the int8
+    weights and scales in K6's layout (``models/layers.py`` ``fold``).
+    ``update_params`` computes them again.  The JAX engine folds them into
+    a recompiled executable, whose op order differs, so its folded results
+    are only rounding-close; here the folded forward runs the same ops in
+    the same order on tensors the unfolded one would compute, so the two
+    agree bit for bit."""
 
     def __init__(self, model: torch.nn.Module, device=None,
-                 microbatch: Optional[int] = None):
+                 microbatch: Optional[int] = None,
+                 fold_params: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.microbatch = microbatch
+        self.fold_params = fold_params
+        self._folded = layers.fold(self.model) if fold_params else None
 
     def _input(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         return x.to(self.device)
 
+    def model_probs(self, xs: torch.Tensor) -> torch.Tensor:
+        """The model's decoder softmax on one batch, on the folded weights
+        where ``fold_params`` is on."""
+        with layers.folded(self._folded):
+            return self.model(xs)[0]
+
     def _forward(self, xs: torch.Tensor) -> torch.Tensor:
         mb = self.microbatch
         if mb is None or xs.shape[0] <= mb:
-            return self.model(xs)[0]
-        return torch.cat([self.model(xs[i:i + mb])[0]
+            return self.model_probs(xs)
+        return torch.cat([self.model_probs(xs[i:i + mb])
                           for i in range(0, xs.shape[0], mb)], dim=0)
 
     @torch.inference_mode()
@@ -173,8 +193,10 @@ class Predictor:
 
     def update_params(self, state_dict) -> None:
         """Swap checkpoints (for ensembling): load a state_dict into the
-        model in place, strictly."""
+        model in place, strictly; under ``fold_params`` fold it again."""
         self.model.load_state_dict(state_dict, strict=True)
+        if self.fold_params:
+            self._folded = layers.fold(self.model)
 
 
 def _cat(parts: Sequence[torch.Tensor]) -> torch.Tensor:

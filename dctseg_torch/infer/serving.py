@@ -53,14 +53,17 @@ class _Stage(torch.nn.Module):
 
 
 class _Forward(torch.nn.Module):
-    """The model's decoder softmax, the weights its parameters."""
+    """The predictor's forward (the model's decoder softmax), the weights
+    its parameters; a folded predictor's folded weights (casts, s2d
+    transforms, int8 weights and scales) become the program's constants."""
 
-    def __init__(self, model: torch.nn.Module):
+    def __init__(self, predictor: Predictor):
         super().__init__()
-        self.model = model
+        self.model = predictor.model
+        self.run = predictor.model_probs
 
     def forward(self, x):
-        return self.model(x)[0]
+        return self.run(x)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -161,7 +164,7 @@ def export_bundle(predictor: Predictor, out_dir: str, *,
     vol = torch.empty((batch_volumes, *input_shape, in_channels),
                       dtype=input_dtype, device="meta")
     exported: Dict[str, torch.export.ExportedProgram] = {}
-    fwd = _Forward(predictor.model)
+    fwd = _Forward(predictor)
     if strategy == "single":
         exported["forward"] = ex(fwd, vol)
         out = _output(exported["forward"])
@@ -258,7 +261,7 @@ class ServingBundle:
         # the dctseg operators must be registered before a program that
         # calls them is deserialized
         from dctseg_torch.ops import (attention, fusednorm,  # noqa: F401
-                                      relayout)
+                                      quant, relayout)
         from torch.export.passes import move_to_device_pass
         with open(os.path.join(bundle_dir, MANIFEST_NAME)) as f:
             manifest = json.load(f)

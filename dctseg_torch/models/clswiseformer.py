@@ -49,7 +49,8 @@ class ClsWiseFormer(nn.Module):
         p = g["token_dim"]
 
         remat = cfg.remat_policy if cfg.remat else None
-        unet_kw = dict(conv3=cfg.conv3_strategy, remat=remat)
+        unet_kw = dict(conv3=cfg.conv3_strategy, remat=remat,
+                       quantize=cfg.quantize)
         self.Unet_list = UnetEncoder(cfg.in_channels, b0, dt, eps,
                                      cfg.fused_norms, gen, cfg.s2d_fullres,
                                      cfg.s2d_halfres,
@@ -62,9 +63,11 @@ class ClsWiseFormer(nn.Module):
         for r in REGIONS:
             i = r[1]
             self.add_module(f"conv_mid_fea_{i}", Conv3d(
-                6 * b0, g["edge_ch"], dtype=dt, generator=gen))
+                6 * b0, g["edge_ch"], dtype=dt, generator=gen,
+                quantize=cfg.quantize))
             self.add_module(f"conv_semantic_{i}", Conv3d(
-                g["bottleneck_ch"], g["sem_ch"], dtype=dt, generator=gen))
+                g["bottleneck_ch"], g["sem_ch"], dtype=dt, generator=gen,
+                quantize=cfg.quantize))
         self.act = InstanceNormAct(eps=eps)
 
         for r in REGIONS:
@@ -91,7 +94,7 @@ class ClsWiseFormer(nn.Module):
         self.mid_edge_supervise_label = SuperviseHead(edge, 8, 4, True, dt,
                                                       gen)
         self.sum_fusion = Conv3d(sem, g["bottleneck_ch"], dtype=dt,
-                                 generator=gen)
+                                 generator=gen, quantize=cfg.quantize)
         self.decoder = Decoder(g["bottleneck_ch"], cfg.num_classes, b0, dt,
                                eps, cfg.fused_norms, gen, cfg.s2d_fullres,
                                cfg.s2d_halfres, **unet_kw)

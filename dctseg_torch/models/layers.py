@@ -10,16 +10,27 @@ memory, which cuDNN takes as it is -- and hand back NDHWC.
 Init follows ``torch_kernel_init``: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with
 fan_in = in_channels * prod(kernel) (for the transpose conv too, as flax
 counts it), zero biases.
+
+Folding: the convs derive tensors from their parameters at every call (the
+cast to the compute dtype, the s2d weight transforms, the int8 weights).
+Each is a :class:`WeightPrep`, whose ``prepare(kind)`` computes them;
+:func:`fold` computes them all once, and inside :func:`folded` the convs
+take them from that cache (``Predictor(fold_params=True)``).  The cache
+holds the same tensors a call would compute, so a folded forward equals the
+unfolded one bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dctseg_torch.ops import quant
 from dctseg_torch.ops.norms import instance_norm, layer_norm, leaky_relu
 
 
@@ -62,12 +73,60 @@ class Dropout:
 NO_DROPOUT = Dropout(active=False)
 
 
-class Conv3d(nn.Module):
-    """3D convolution on NDHWC with torch-style explicit padding."""
+_FOLDED: contextvars.ContextVar = contextvars.ContextVar("dctseg_folded",
+                                                        default=None)
+
+
+class WeightPrep:
+    """A module whose forward derives tensors from its parameters:
+    ``prepare(kind)`` computes them for ``kind`` ("float" or "int8"),
+    ``fold_kinds()`` names the kinds its forward can take."""
+
+    def fold_kinds(self) -> tuple:
+        return ("float",)
+
+    def prepare(self, kind: str) -> tuple:
+        raise NotImplementedError
+
+    def prepared(self, kind: str) -> tuple:
+        """The tensors of ``kind``: from the active fold, or computed."""
+        cache = _FOLDED.get()
+        hit = None if cache is None else cache.get((self, kind))
+        return self.prepare(kind) if hit is None else hit
+
+
+def fold(model: nn.Module) -> dict:
+    """Every WeightPrep's tensors of ``model``, computed once (normal
+    tensors without autograd history, whatever mode the caller is in)."""
+    with torch.inference_mode(False), torch.no_grad():
+        return {(m, kind): m.prepare(kind) for m in model.modules()
+                if isinstance(m, WeightPrep) for kind in m.fold_kinds()}
+
+
+@contextlib.contextmanager
+def folded(cache):
+    """Run the enclosed forward on the tensors of ``cache`` (a :func:`fold`
+    result; None computes them at each call)."""
+    token = _FOLDED.set(cache)
+    try:
+        yield
+    finally:
+        _FOLDED.reset(token)
+
+
+class Conv3d(WeightPrep, nn.Module):
+    """3D convolution on NDHWC with torch-style explicit padding.
+
+    ``quantize`` (the ModelConfig spec) runs it int8 (``ops/quant.py``) by
+    the JAX package's rule (``dctseg/models/layers.py:72-78``): at least 64
+    input channels, and k=3 with the conv3 class or k=1 with the pw class;
+    with ``spatial_gate`` also only when ``quant.spatial_ok(x)``.  The
+    parameters are the same either way."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 quantize: str = "none", spatial_gate: bool = False):
         super().__init__()
         k = kernel_size
         self.stride, self.padding, self.dtype = stride, padding, dtype
@@ -75,14 +134,33 @@ class Conv3d(nn.Module):
                                                k, k, k))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         _uniform_(self.weight, in_channels * k ** 3, generator)
+        self.spatial_gate = spatial_gate
+        self.int8 = in_channels >= 64 and (
+            (k == 3 and quant.enabled(quantize, "conv3"))
+            or (k == 1 and quant.enabled(quantize, "pw")))
+
+    def fold_kinds(self) -> tuple:
+        if not self.int8:
+            return ("float",)
+        return ("int8", "float") if self.spatial_gate else ("int8",)
+
+    def prepare(self, kind: str) -> tuple:
+        b = self.bias.to(self.dtype)
+        if kind == "int8":
+            return (*quant.prepare_weight(self.weight), b)
+        return self.weight.to(self.dtype), b
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv3d(ncdhw(x.to(self.dtype)), self.weight.to(self.dtype),
-                     self.bias.to(self.dtype), self.stride, self.padding)
-        return ndhwc(y)
+        x = x.to(self.dtype)
+        if self.int8 and (not self.spatial_gate or quant.spatial_ok(x)):
+            wq, sw, b = self.prepared("int8")
+            return quant.conv3d_int8_prepared(x, wq, sw, self.stride,
+                                              self.padding, b)
+        w, b = self.prepared("float")
+        return ndhwc(F.conv3d(ncdhw(x), w, b, self.stride, self.padding))
 
 
-class ConvTranspose3d(nn.Module):
+class ConvTranspose3d(WeightPrep, nn.Module):
     """``nn.ConvTranspose3d(k=2, s=2)`` upsampling on NDHWC."""
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -96,10 +174,12 @@ class ConvTranspose3d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
         _uniform_(self.weight, in_channels * k ** 3, generator)
 
+    def prepare(self, kind: str) -> tuple:
+        return self.weight.to(self.dtype), self.bias.to(self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose3d(ncdhw(x.to(self.dtype)),
-                               self.weight.to(self.dtype),
-                               self.bias.to(self.dtype), self.stride)
+        w, b = self.prepared("float")
+        y = F.conv_transpose3d(ncdhw(x.to(self.dtype)), w, b, self.stride)
         return ndhwc(y)
 
 

@@ -71,37 +71,58 @@ class S2DConv3d(Conv3d):
     kernel_size 3, stride 1 keeps the view (``conv3`` strategy);
     kernel_size 1 is a block-diagonal pointwise conv, ``groups`` giving the
     fine channel counts of concatenated s2d inputs; stride 2 lands on the
-    plain coarse grid."""
+    plain coarse grid.  The route, its weight transform, padding and int8
+    class are ``ops/s2d.py``'s (``conv_route``, ``prepare``, ``apply``):
+    ``quantize`` runs the pw, down or dense conv3 route int8 by the JAX
+    package's ``S2DConv3d`` rule (``dctseg/models/unet.py:89-131``), with
+    no channel gate; the fine strategy stays float."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, groups: tuple = (),
                  dtype: torch.dtype = torch.float32, conv3: str = "dense",
-                 generator=None):
+                 generator=None, quantize: str = "none"):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          dtype=dtype, generator=generator)
         self.groups = tuple(groups) or (in_channels,)
-        self.conv3 = conv3
+        self.route = s2dops.conv_route(kernel_size, stride, conv3,
+                                       in_channels)
+        self.int8 = s2dops.quantized(self.route, quantize)
+
+    def fold_kinds(self) -> tuple:
+        return ("int8",) if self.int8 else ("float",)
+
+    def prepare(self, kind: str) -> tuple:
+        return s2dops.prepare(self.route, self.weight, self.bias, self.dtype,
+                              kind == "int8", self.groups)
 
     def forward(self, x8: torch.Tensor) -> torch.Tensor:
-        x8, w, b = x8.to(self.dtype), self.weight, self.bias
-        if w.shape[2] == 1:
-            return s2dops.conv3d_s2d(x8, s2dops.pointwise_kernel(w,
-                                                                 self.groups),
-                                     s2dops.tile_bias(b), padding=(0, 0))
-        if self.stride == 2:
-            return s2dops.conv3d_s2d(x8, s2dops.down_kernel(w), b,
-                                     padding=(1, 0))
-        return s2dops.conv3x3_s2d(x8, w, b, self.conv3)
+        kind = "int8" if self.int8 else "float"
+        return s2dops.apply(self.route, x8.to(self.dtype),
+                            self.prepared(kind))
 
 
 class S2DDeconv(ConvTranspose3d):
     """The k=2, s=2 transpose conv emitting the s2d view directly: a 1x1
-    conv at the coarse resolution."""
+    conv at the coarse resolution (``ops/s2d.py``'s deconv route); int8
+    with the deconv class."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 quantize: str = "none"):
+        super().__init__(in_channels, out_channels, dtype=dtype,
+                         generator=generator)
+        self.int8 = s2dops.quantized("deconv", quantize)
+
+    def fold_kinds(self) -> tuple:
+        return ("int8",) if self.int8 else ("float",)
+
+    def prepare(self, kind: str) -> tuple:
+        return s2dops.prepare("deconv", self.weight, self.bias, self.dtype,
+                              kind == "int8")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return s2dops.conv3d_s2d(x.to(self.dtype),
-                                 s2dops.deconv_kernel(self.weight),
-                                 s2dops.tile_bias(self.bias), padding=(0, 0))
+        kind = "int8" if self.int8 else "float"
+        return s2dops.apply("deconv", x.to(self.dtype), self.prepared(kind))
 
 
 class _Block(nn.Module):
@@ -109,12 +130,14 @@ class _Block(nn.Module):
     checkpointed under ``remat`` while gradients are recorded."""
 
     def __init__(self, channels, dtype, eps, fused_norms, generator,
-                 s2d=False, conv3="dense", remat=None):
+                 s2d=False, conv3="dense", remat=None, quantize="none",
+                 spatial_gate=False):
         super().__init__()
         self.eps, self.fused, self.s2d, self.remat = (eps, fused_norms, s2d,
                                                       remat)
-        conv = (functools.partial(S2DConv3d, conv3=conv3) if s2d
-                else Conv3d)
+        conv = (functools.partial(S2DConv3d, conv3=conv3, quantize=quantize)
+                if s2d else functools.partial(Conv3d, quantize=quantize,
+                                              spatial_gate=spatial_gate))
         self.conv1 = conv(channels, channels, dtype=dtype,
                           generator=generator)
         self.conv2 = conv(channels, channels, dtype=dtype,
@@ -161,40 +184,47 @@ class UnetEncoder(nn.Module):
     """Returns (x1_1, x2_1, x3_1, bottleneck) like the reference's
     ``Unet.forward``; x1_1 in the s2d view with ``s2d``, x2_1 with
     ``s2d_half``.  InitConv's spatial dropout (whole channels; whole fine
-    channels on the s2d view) runs only in training."""
+    channels on the s2d view) runs only in training.  ``quantize`` reaches
+    the s2d stages and the quarter-resolution and bottleneck convs, as in
+    the JAX package (``dctseg/models/unet.py:289-363``); the direct full-
+    and half-resolution stages stay float."""
 
     def __init__(self, in_channels, base_channels, dtype, eps, fused_norms,
                  generator=None, s2d=False, s2d_half=False, conv3="dense",
-                 remat=None, init_dropout=0.0):
+                 remat=None, init_dropout=0.0, quantize="none"):
         super().__init__()
         b0 = base_channels
         self.dtype, self.s2d, self.s2d_half = dtype, s2d, s2d_half
         self.init_dropout = init_dropout
 
-        def block(c, on_s2d):
+        def block(c, on_s2d, q):
             return _EnBlock(c, dtype, eps, fused_norms, generator, on_s2d,
-                            conv3, remat)
+                            conv3, remat, q)
 
-        def conv(i, o, stride, on_s2d=False):
+        def conv(i, o, stride, on_s2d, q):
             if on_s2d:
                 return _named_conv(S2DConv3d(i, o, stride=stride, dtype=dtype,
-                                             conv3=conv3,
-                                             generator=generator))
+                                             conv3=conv3, generator=generator,
+                                             quantize=q))
             return _named_conv(Conv3d(i, o, stride=stride, dtype=dtype,
-                                      generator=generator))
+                                      generator=generator, quantize=q))
 
-        self.InitConv = conv(in_channels, b0, 1, s2d)
-        self.EnBlock1, self.EnBlock1_1 = block(b0, s2d), block(b0, s2d)
-        self.EnDown1 = conv(b0, 2 * b0, 2, s2d)
-        self.EnBlock2_1 = block(2 * b0, s2d_half)
-        self.EnBlock2_2 = block(2 * b0, s2d_half)
-        self.EnDown2 = conv(2 * b0, 4 * b0, 2, s2d_half)
-        self.EnBlock3_1, self.EnBlock3_2 = (block(4 * b0, False),
-                                            block(4 * b0, False))
-        self.EnDown3 = conv(4 * b0, 8 * b0, 2)
-        self.EnBlock4_1, self.EnBlock4_2 = (block(8 * b0, False),
-                                            block(8 * b0, False))
-        self.EnDown_4 = conv(8 * b0, 16 * b0, 1)   # stride-1 widening conv
+        q1 = quantize if s2d else "none"
+        q2 = quantize if s2d_half else "none"
+        self.InitConv = conv(in_channels, b0, 1, s2d, q1)
+        self.EnBlock1, self.EnBlock1_1 = (block(b0, s2d, q1),
+                                          block(b0, s2d, q1))
+        self.EnDown1 = conv(b0, 2 * b0, 2, s2d, q1)
+        self.EnBlock2_1 = block(2 * b0, s2d_half, q2)
+        self.EnBlock2_2 = block(2 * b0, s2d_half, q2)
+        self.EnDown2 = conv(2 * b0, 4 * b0, 2, s2d_half, q2)
+        self.EnBlock3_1, self.EnBlock3_2 = (block(4 * b0, False, quantize),
+                                            block(4 * b0, False, quantize))
+        self.EnDown3 = conv(4 * b0, 8 * b0, 2, False, quantize)
+        self.EnBlock4_1, self.EnBlock4_2 = (block(8 * b0, False, quantize),
+                                            block(8 * b0, False, quantize))
+        # stride-1 widening conv
+        self.EnDown_4 = conv(8 * b0, 16 * b0, 1, False, quantize)
 
     def forward(self, x, drop: Dropout = NO_DROPOUT):
         if self.s2d:
@@ -228,28 +258,33 @@ class DeUpCat(nn.Module):
     ``s2d``: the upsample emits the s2d view of the finer grid, the skip
     arrives in that view, and conv3 is the block-diagonal pointwise conv of
     the concat.  ``s2d_input``: x arrives in the s2d view of its own grid,
-    conv1 runs there as a pointwise s2d conv, then depth_to_space."""
+    conv1 runs there as a pointwise s2d conv, then depth_to_space.
+    ``quantize``: the pw class covers conv1 and conv3, the deconv class the
+    s2d upsample; the direct transpose conv stays float."""
 
     def __init__(self, in_channels, skip_channels, out_channels, dtype,
-                 generator=None, s2d=False, s2d_input=False):
+                 generator=None, s2d=False, s2d_input=False,
+                 quantize="none"):
         super().__init__()
-        o = out_channels
+        o, q = out_channels, quantize
         self.s2d_input = s2d_input
         if s2d_input:
             self.conv1 = S2DConv3d(in_channels, o, kernel_size=1, dtype=dtype,
-                                   generator=generator)
+                                   generator=generator, quantize=q)
         else:
             self.conv1 = Conv3d(in_channels, o, kernel_size=1, padding=0,
-                                dtype=dtype, generator=generator)
-        self.conv2 = (S2DDeconv if s2d else ConvTranspose3d)(
-            o, o, dtype=dtype, generator=generator)
+                                dtype=dtype, generator=generator, quantize=q)
+        self.conv2 = (S2DDeconv(o, o, dtype=dtype, generator=generator,
+                                quantize=q) if s2d else
+                      ConvTranspose3d(o, o, dtype=dtype, generator=generator))
         if s2d:
             self.conv3 = S2DConv3d(skip_channels + o, o, kernel_size=1,
                                    groups=(skip_channels, o), dtype=dtype,
-                                   generator=generator)
+                                   generator=generator, quantize=q)
         else:
             self.conv3 = Conv3d(skip_channels + o, o, kernel_size=1,
-                                padding=0, dtype=dtype, generator=generator)
+                                padding=0, dtype=dtype, generator=generator,
+                                quantize=q)
 
     def forward(self, x, skip):
         y = self.conv1(x)
@@ -263,32 +298,40 @@ class Decoder(nn.Module):
     """UNet decoder with deep skips; returns f32 softmax class probs.  With
     ``s2d`` the softmax runs on the s2d layout (each class group holds the
     same summands) and depth_to_space follows: bit-exact with the direct
-    tail."""
+    tail.  ``quantize`` follows the JAX package (``dctseg/models/unet.py:
+    459-530``): the blocks at 16^3 and 32^3 (opting in to the spatial
+    gate), every DeUp, and the s2d blocks; the direct half- and
+    full-resolution blocks stay float."""
 
     def __init__(self, embedding_dim, num_classes, base_channels, dtype, eps,
                  fused_norms, generator=None, s2d=False, s2d_half=False,
-                 conv3="dense", remat=None):
+                 conv3="dense", remat=None, quantize="none"):
         super().__init__()
-        e, b0 = embedding_dim, base_channels
+        e, b0, q = embedding_dim, base_channels, quantize
         self.s2d, self.s2d_half, self.num_classes = s2d, s2d_half, num_classes
 
-        def block(c, on_s2d=False):
+        def block(c, on_s2d=False, q="none", gate=False):
             return _EnBlock2(c, dtype, eps, fused_norms, generator, on_s2d,
-                             conv3, remat)
+                             conv3, remat, q, gate)
 
         self.down_channel = Conv3d(e, e // 2, kernel_size=1, padding=0,
                                    dtype=dtype, generator=generator)
-        self.Enblock8_1, self.Enblock8_2 = block(e // 2), block(e // 2)
-        self.DeUp4 = DeUpCat(e // 2, 4 * b0, e // 4, dtype, generator)
-        self.DeBlock4, self.DeBlock4_1 = block(e // 4), block(e // 4)
+        self.Enblock8_1, self.Enblock8_2 = (block(e // 2, q=q, gate=True),
+                                            block(e // 2, q=q, gate=True))
+        self.DeUp4 = DeUpCat(e // 2, 4 * b0, e // 4, dtype, generator,
+                             quantize=q)
+        self.DeBlock4, self.DeBlock4_1 = (block(e // 4, q=q, gate=True),
+                                          block(e // 4, q=q, gate=True))
         self.DeUp3 = DeUpCat(e // 4, 2 * b0, e // 8, dtype, generator,
-                             s2d=s2d_half)
-        self.DeBlock3 = block(e // 8, s2d_half)
-        self.DeBlock3_1 = block(e // 8, s2d_half)
+                             s2d=s2d_half, quantize=q)
+        q3 = q if s2d_half else "none"
+        self.DeBlock3 = block(e // 8, s2d_half, q3)
+        self.DeBlock3_1 = block(e // 8, s2d_half, q3)
         self.DeUp2 = DeUpCat(e // 8, b0, e // 16, dtype, generator, s2d=s2d,
-                             s2d_input=s2d and s2d_half)
-        self.DeBlock2, self.DeBlock2_1 = (block(e // 16, s2d),
-                                          block(e // 16, s2d))
+                             s2d_input=s2d and s2d_half, quantize=q)
+        q2 = q if s2d else "none"
+        self.DeBlock2, self.DeBlock2_1 = (block(e // 16, s2d, q2),
+                                          block(e // 16, s2d, q2))
         self.endconv = (
             S2DConv3d(e // 16, num_classes, kernel_size=1, dtype=dtype,
                       generator=generator) if s2d else

@@ -120,6 +120,11 @@ _SIGNATURES = {
     # (int64 args: x, out, n, d, h, w, c, in_dtype, out_dtype, vec, grid;
     #  stream)
     "dctseg_space_to_depth": [_vp, _vp],
+    # (int64 args: xq, wq, stats, sw, bias, out, n, d, h, w, ci, od, oh, ow,
+    #  co, k, sd, sh, sw, pd, ph, pw, out_dtype, vec; stream)
+    "dctseg_int8_conv3d": [_vp, _vp],
+    # (int64 args: x, q, stats, n, dtype, vec, grid; stream)
+    "dctseg_quantize_absmax": [_vp, _vp],
 }
 
 
@@ -162,6 +167,16 @@ def stream_of(t: torch.Tensor) -> int:
                          f"is cuda:{current}; kernels launch on the current "
                          "device")
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def alignment(*ptrs: int) -> int:
+    """The largest of 32, 16, 8, 4, 2, 1 bytes that divides every address
+    in ``ptrs``."""
+    low = 0
+    for p in ptrs:
+        low |= p
+    low &= 31
+    return low & -low if low else 32
 
 
 def check(err: int, what: str) -> None:

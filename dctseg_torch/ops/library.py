@@ -1,6 +1,8 @@
 """The port's on-path kernels as torch operators in the ``dctseg``
 namespace: ``torch.ops.dctseg.fused_instance_norm_act``,
-``torch.ops.dctseg.fused_attention`` and ``torch.ops.dctseg.space_to_depth``.
+``torch.ops.dctseg.fused_attention``, ``torch.ops.dctseg.space_to_depth``
+and the int8 pair ``torch.ops.dctseg.quantize_absmax`` /
+``torch.ops.dctseg.int8_conv3d``.
 
 Each kernel module defines its operator here when it is imported:
 
@@ -10,7 +12,9 @@ Each kernel module defines its operator here when it is imported:
   * a CPU implementation, the kernel's plain PyTorch version;
   * a fake implementation, which gives the output's shape, dtype and strides
     without running anything, for ``torch.export`` and FakeTensors;
-  * the backward, through ``torch.library.register_autograd``.
+  * the backward, through ``torch.library.register_autograd``; an operator
+    defined without one (the int8 pair, inference only) gets a backward
+    that raises.
 
 As operators the kernels survive ``torch.export`` as one graph node each, so
 a serving bundle (``dctseg_torch/infer/serving.py``) carries them, and the
@@ -23,7 +27,7 @@ call (PERF.md).  The backward's autograd kernel is a Python function too:
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -32,7 +36,8 @@ LIB = torch.library.Library(NAMESPACE, "DEF")
 
 
 def define(name: str, schema: str, *, cuda: Callable, cpu: Callable,
-           fake: Callable, backward: Callable, setup_context: Callable
+           fake: Callable, backward: Optional[Callable] = None,
+           setup_context: Optional[Callable] = None
            ) -> torch._ops.OpOverload:
     """Define ``dctseg::<name><schema>`` with its implementations; return
     its overload, the callable the wrappers use."""
@@ -41,6 +46,10 @@ def define(name: str, schema: str, *, cuda: Callable, cpu: Callable,
     LIB.impl(name, cpu, "CPU")
     qualname = f"{NAMESPACE}::{name}"
     torch.library.register_fake(qualname, fake, lib=LIB)
+    if backward is None:
+        def backward(ctx, *grads):
+            raise RuntimeError(f"{qualname} is inference only: it has no "
+                               "gradient")
     torch.library.register_autograd(qualname, backward,
                                     setup_context=setup_context, lib=LIB)
     return getattr(getattr(torch.ops, NAMESPACE), name).default

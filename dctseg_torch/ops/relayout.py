@@ -29,6 +29,7 @@ import torch
 
 from dctseg_torch.ops import _build, library
 from dctseg_torch.ops import s2d as s2dops
+from dctseg_torch.ops._build import alignment
 
 THREADS = 256           # csrc/relayout.cu kThreads
 # blocks per SM at most: one thread a vector up to this many, enough
@@ -49,16 +50,6 @@ class RelayoutPlan(NamedTuple):
     elements at a time."""
     vec: int
     grid: int
-
-
-def alignment(*ptrs: int) -> int:
-    """The largest of 32, 16, 8, 4, 2, 1 bytes that divides every address
-    in ``ptrs``."""
-    low = 0
-    for p in ptrs:
-        low |= p
-    low &= 31
-    return low & -low if low else 32
 
 
 def plan_relayout(shape: tuple, in_dtype: torch.dtype,

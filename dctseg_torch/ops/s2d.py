@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
 
+from dctseg_torch.ops import quant
+
 B = 2          # block size
 B3 = B ** 3
 
@@ -224,8 +226,8 @@ def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype).reshape(n, d, h, w, cb)
 
 
-def _conv_ndhwc(x: torch.Tensor, w: torch.Tensor, bias, stride: int,
-                padding: Tuple[int, int]) -> torch.Tensor:
+def conv_ndhwc(x: torch.Tensor, w: torch.Tensor, bias, stride: int,
+               padding: Tuple[int, int]) -> torch.Tensor:
     """conv3d of an NDHWC tensor with per-axis padding (lo, hi).  Unequal
     padding goes through ``F.pad`` (whose pairs run from the last dim of the
     NCDHW view), then ``padding=0``."""
@@ -243,20 +245,94 @@ def _conv_ndhwc(x: torch.Tensor, w: torch.Tensor, bias, stride: int,
 def conv3d_s2d(x: torch.Tensor, w8: torch.Tensor, bias=None,
                stride: int = 1, padding: Tuple[int, int] = (1, 1),
                quantize: str = "none") -> torch.Tensor:
-    """A conv on the s2d view with a transformed kernel, in x's dtype."""
+    """A conv on the s2d view with a transformed kernel, in x's dtype.
+    ``quantize="int8"`` runs it s8 x s8 -> s32 (``ops/quant.py``), the
+    scales taken over the transformed kernel and the bias added after the
+    cast, as the JAX package does."""
+    if quantize == "int8":
+        return quant.conv3d_int8(x, w8, stride, padding, bias)
     if quantize != "none":
-        raise NotImplementedError(
-            "int8 quantization is not ported yet (ROADMAP A9)")
+        raise ValueError(f"conv3d_s2d takes quantize 'none' or 'int8', got "
+                         f"{quantize!r}")
     b = None if bias is None else bias.to(x.dtype)
-    return _conv_ndhwc(x, w8.to(x.dtype), b, stride, padding)
+    return conv_ndhwc(x, w8.to(x.dtype), b, stride, padding)
+
+
+# The routes of a fine conv on the s2d view: the stride and per-axis padding
+# of the conv that its transformed kernel runs, and the quantize class that
+# runs it int8 (None: it stays float under any spec, as in the JAX package).
+ROUTES = {"dense": (1, (1, 1), "conv3"),   # conv_kernel, 8x the FLOPs
+          "fine": (2, (1, 2), None),       # fine_conv_kernel on d2s(x8)
+          "down": (1, (1, 0), "down"),     # down_kernel, plain coarse grid
+          "pw": (1, (0, 0), "pw"),         # pointwise_kernel
+          "deconv": (1, (0, 0), "deconv")}  # deconv_kernel
+
+
+def conv_route(kernel_size: int, stride: int, strategy: str,
+               ci: int) -> str:
+    """The route of a fine (Co, ci, k, k, k) conv on the s2d view: "pw" for
+    k = 1, "down" for stride 2, else the 3^3 conv under ``strategy``
+    (``ModelConfig.conv3_strategy``): "fine" for the fine strategy and for
+    "auto" at ci >= 32 (the JAX package's rule), else "dense"."""
+    if strategy not in ("dense", "fine", "auto"):
+        raise ValueError(f"unknown conv3 strategy {strategy!r}")
+    if kernel_size == 1:
+        return "pw"
+    if stride == 2:
+        return "down"
+    return ("fine" if strategy == "fine" or (strategy == "auto" and ci >= 32)
+            else "dense")
+
+
+def quantized(route: str, quantize: str) -> bool:
+    """True when the spec ``quantize`` runs ``route`` int8 (no channel
+    gate on the s2d view, as in the JAX package)."""
+    op = ROUTES[route][2]
+    return op is not None and quant.enabled(quantize, op)
+
+
+def prepare(route: str, w: torch.Tensor, bias, dtype: torch.dtype,
+            int8: bool, groups: Sequence[int] = ()) -> tuple:
+    """The per-call weight work of ``route`` on the fine parameters: the
+    transformed kernel and the bias (tiled, except on the down route, whose
+    output lies on the plain grid), in ``dtype``: (w8, b8), or with ``int8``
+    (wq, sw, b8) by ``quant.prepare_weight``.  The int8 scales are taken
+    over the transformed kernel of the weight cast to ``dtype``, as the
+    JAX package takes them (the float transforms are gathers, so casting
+    before or after them is the same)."""
+    src = w.to(dtype) if int8 else w
+    if route == "pw":
+        w8 = pointwise_kernel(src, tuple(groups) or (w.shape[1],))
+    else:
+        w8 = {"dense": conv_kernel, "fine": fine_conv_kernel,
+              "down": down_kernel, "deconv": deconv_kernel}[route](src)
+    b8 = None
+    if bias is not None:
+        b8 = (bias if route == "down" else tile_bias(bias)).to(dtype)
+    if int8:
+        return (*quant.prepare_weight(w8), b8)
+    return w8.to(dtype), b8
+
+
+def apply(route: str, x8: torch.Tensor, prepared: tuple) -> torch.Tensor:
+    """Run ``route``'s conv on the s2d view ``x8`` with the tensors of
+    :func:`prepare`: int8 (K7, then K6) when they are (wq, sw, b8)."""
+    stride, padding, _ = ROUTES[route]
+    if route == "fine":
+        x8 = depth_to_space(x8)
+    if len(prepared) == 3:
+        wq, sw, b8 = prepared
+        return quant.conv3d_int8_prepared(x8, wq, sw, stride, padding, b8)
+    w8, b8 = prepared
+    return conv3d_s2d(x8, w8, b8, stride, padding)
 
 
 def conv3d_fine_s2dout(x: torch.Tensor, w4: torch.Tensor,
                        bias=None) -> torch.Tensor:
     """Apply :func:`fine_conv_kernel`'s strided kernel: fine (N, D, H, W, Ci)
     -> s2d view (N, D/2, H/2, W/2, 8Co)."""
-    b = None if bias is None else bias.to(x.dtype)
-    return _conv_ndhwc(x, w4.to(x.dtype), b, 2, (1, 2))
+    stride, padding, _ = ROUTES["fine"]
+    return conv3d_s2d(x, w4, bias, stride, padding)
 
 
 def conv3x3_s2d(x8: torch.Tensor, w: torch.Tensor, bias=None,
@@ -268,16 +344,11 @@ def conv3x3_s2d(x8: torch.Tensor, w: torch.Tensor, bias=None,
     ``strategy`` (``ModelConfig.conv3_strategy``): "dense" is
     conv_kernel's (8Co, 8Ci, 3, 3, 3) coarse conv (8x the FLOPs); "fine" is
     depth_to_space + fine_conv_kernel's (8Co, Ci, 4, 4, 4) stride-2 conv
-    (64/27 = 2.37x the FLOPs); "auto" takes "fine" for Ci >= 32, else
-    "dense" (the JAX package's rule)."""
-    if strategy not in ("dense", "fine", "auto"):
-        raise ValueError(f"unknown conv3 strategy {strategy!r}")
-    b8 = None if bias is None else tile_bias(bias)
-    if strategy == "fine" or (strategy == "auto" and w.shape[1] >= 32):
-        if quantize != "none":
-            raise NotImplementedError(
-                "int8 quantization is not ported yet (ROADMAP A9)")
-        return conv3d_fine_s2dout(depth_to_space(x8), fine_conv_kernel(w),
-                                  b8)
-    return conv3d_s2d(x8, conv_kernel(w), b8, padding=(1, 1),
-                      quantize=quantize)
+    (64/27 = 2.37x the FLOPs); "auto" is :func:`conv_route`'s rule.
+
+    ``quantize`` is the ModelConfig spec: its conv3 class runs the dense
+    strategy int8; the fine strategy stays float, as in the JAX package.
+    The same route, prepare and apply as ``models/unet.py``'s S2DConv3d."""
+    route = conv_route(3, 1, strategy, w.shape[1])
+    return apply(route, x8, prepare(route, w, bias, x8.dtype,
+                                    quantized(route, quantize)))

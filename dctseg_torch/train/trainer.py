@@ -101,6 +101,12 @@ class Trainer:
                 "ModelConfig.fused_norms is an inference-only execution "
                 "strategy (the norm kernel has no backward); train with the "
                 "plain norms")
+        # rounding has a zero gradient: a quantized step would stop learning
+        # through every quantized conv
+        if cfg.model.quantize != "none":
+            raise ValueError(
+                "ModelConfig.quantize is an inference-only execution "
+                "strategy; train in float/bf16 and quantize at eval")
         if cfg.train.batch_size % cfg.train.grad_accum:
             raise ValueError(f"batch {cfg.train.batch_size} not divisible by "
                              f"grad_accum {cfg.train.grad_accum}")

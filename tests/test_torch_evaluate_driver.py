@@ -4,18 +4,21 @@ asserts "loaded checkpoint epoch 2"): epoch ``--epoch``, or else the newest
 of ``--checkpoint-dir``, unless ``--random-params``; an empty directory
 leaves the seeded random weights and says so.  Two epochs of distinct
 seeded weights are written with ``Checkpointer.save`` at the tiny config,
-and each run's metrics show which weights it scored.
+and each run's metrics show which weights it scored.  ``--quantize int8``
+reaches the model on every strategy, the sweep and the ensemble included.
 """
 
 import logging
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from dctseg_torch.cli import evaluate
 from dctseg_torch.config import ModelConfig
 from dctseg_torch.models.clswiseformer import build_model
+from dctseg_torch.ops import quant
 from dctseg_torch.train.checkpoint import Checkpointer
 from dctseg_torch.utils.logging_utils import LOGGER
 
@@ -93,3 +96,27 @@ def test_evaluate_without_checkpoints_keeps_random_params(tmp_path, runs):
     metrics, lines = _run(tmp_path, "--checkpoint-dir", str(empty))
     assert f"no checkpoint found in {empty}; using random params" in lines
     assert metrics == runs["random"][0]
+
+
+@pytest.mark.parametrize("extra", [[], ["--strategy", "sweep"],
+                                   ["--multimodel"]],
+                         ids=["single", "sweep", "multimodel"])
+def test_evaluate_quantize_int8_reaches_the_model(tmp_path, ckpt_dir,
+                                                  monkeypatch, extra):
+    """At the tiny config the int8 rule quantizes the three conv_semantic
+    convs (64 input channels): each forward runs them through the int8
+    conv, and every score is finite."""
+    calls = []
+    orig = quant.int8_conv3d
+
+    def counting(*args):
+        calls.append(args[0].shape[0])
+        return orig(*args)
+    monkeypatch.setattr(quant, "int8_conv3d", counting)
+    out = evaluate.main([*ARGS, "--output-dir", str(tmp_path / "out"),
+                         "--checkpoint-dir", ckpt_dir, "--quantize", "int8",
+                         *extra])
+    assert calls and len(calls) % 3 == 0
+    # the sweep's result is a dict of each epoch's metrics
+    rows = out.values() if extra == ["--strategy", "sweep"] else [out]
+    assert all(np.isfinite(v) for row in rows for v in row.values())

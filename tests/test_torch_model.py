@@ -187,9 +187,11 @@ def test_other_positional_encodings_match_jax(pe_type):
 
 
 def test_unported_settings_raise():
-    """int8 still raises; s2d, remat and the training forward are ported."""
-    with pytest.raises(NotImplementedError, match="A9"):
-        tiny_model_config(quantize="int8")
+    """Every setting is ported now (s2d, remat, the training forward, int8
+    quantization); a misspelt one raises at config time."""
+    assert tiny_model_config(quantize="int8+pw").quantize == "int8+pw"
+    with pytest.raises(ValueError, match="unknown quantize spec"):
+        tiny_model_config(quantize="int4")
     with pytest.raises(ValueError, match="remat_policy"):
         tiny_model_config(remat=True, remat_policy="none")
     cfg = tiny_model_config(s2d_fullres=True, s2d_halfres=True, remat=True,

@@ -1,4 +1,4 @@
-"""The three on-path kernels as ``torch.ops.dctseg`` operators, on the CPU.
+"""The on-path kernels as ``torch.ops.dctseg`` operators, on the CPU.
 
 Each operator's CPU implementation equals its kernel's plain version bit
 for bit; its fake implementation gives the shape, dtype and strides of the
@@ -15,12 +15,14 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from dctseg_torch.ops import attention as attn
-from dctseg_torch.ops import fusednorm, relayout
+from dctseg_torch.ops import fusednorm, quant, relayout
 
 OPS = {
     "fused_instance_norm_act": torch.ops.dctseg.fused_instance_norm_act,
     "fused_attention": torch.ops.dctseg.fused_attention,
     "space_to_depth": torch.ops.dctseg.space_to_depth,
+    "int8_conv3d": torch.ops.dctseg.int8_conv3d,
+    "quantize_absmax": torch.ops.dctseg.quantize_absmax,
 }
 
 
@@ -62,6 +64,17 @@ def _cases():
     x2 = _normal(1, 2, 2, 2, 4, seed=7)
     yield ("relayout_extent2", "space_to_depth", (x2, torch.float32),
            relayout.space_to_depth_plain(x2, torch.float32))
+    xq, stats = quant.quantize_absmax_plain(_normal(2, 5, 4, 3, 16, seed=8))
+    wq, sw = quant.prepare_weight(_normal(24, 16, 3, 3, 3, seed=9))
+    bias = _normal(24, seed=10, dtype=torch.bfloat16)
+    for name, stride, pads, b, dt in (
+            ("int8_conv_bf16_bias", [1, 1, 1], [1] * 6, bias,
+             torch.bfloat16),
+            ("int8_conv_f32_s2_p10", [2, 2, 2], [1, 0] * 3, None,
+             torch.float32)):
+        yield (name, "int8_conv3d", (xq, stats, wq, sw, b, stride, pads, dt),
+               quant.int8_conv3d_plain(xq, stats, wq, sw, b, stride,
+                                       [pads[0:2], pads[2:4], pads[4:6]], dt))
 
 
 CASES = list(_cases())
@@ -96,6 +109,20 @@ def test_fake_matches_real_output(case):
 def test_opcheck(case):
     _, name, args, _ = case
     torch.library.opcheck(OPS[name].default, args)
+
+
+def test_quantize_operator_outputs():
+    """quantize_absmax's two outputs: on the CPU its plain version's; under
+    a FakeTensorMode the real outputs' shapes, dtypes and strides."""
+    x = _normal(2, 5, 4, 3, 16, seed=11, dtype=torch.bfloat16)
+    real = OPS["quantize_absmax"](x)
+    for got, want in zip(real, quant.quantize_absmax_plain(x)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with FakeTensorMode() as mode:
+        fake = OPS["quantize_absmax"](mode.from_tensor(x))
+    assert [(t.shape, t.dtype, t.stride()) for t in fake] == [
+        (t.shape, t.dtype, t.stride()) for t in real]
+    torch.library.opcheck(OPS["quantize_absmax"].default, (x,))
 
 
 @pytest.mark.parametrize("name", sorted(OPS))

@@ -23,11 +23,13 @@ import torch
 from dctseg.data.brats import zscore_nonzero as jax_zscore_nonzero
 
 from dctseg_torch.cli import export_serving, serve
+from dctseg_torch.config import ModelConfig
 from dctseg_torch.data.stats import zscore_nonzero
 from dctseg_torch.infer import server as server_mod
 from dctseg_torch.infer.engine import Predictor
 from dctseg_torch.infer.server import BundleServer, serve_bundle
 from dctseg_torch.infer.serving import ServingBundle, export_bundle
+from dctseg_torch.models.clswiseformer import build_model
 from dctseg_torch.train.checkpoint import Checkpointer
 from dctseg_torch.utils.proctitle import set_process_title
 
@@ -405,11 +407,45 @@ def test_export_serving_cli_random_params(tmp_path):
     assert y.shape == (1, 32, 32, 32, 4) and torch.isfinite(y).all()
 
 
+def test_export_serving_cli_int8_paired_composition(tmp_path):
+    """JAX's test of the same name: --quantize int8 x --batch-volumes 2 x
+    --input-dtype float16 export one bundle, which loads and predicts; its
+    labels are the live int8 engine's (the CLI's seed-0 weights), and
+    its forward program holds the int8 operators."""
+    out = str(tmp_path / "cli_int8_paired")
+    rc = export_serving.main(
+        ["--out", out, "--strategy", "single", "--random-params",
+         "--device", "cpu", "--img-dim", "32", "--base-channels", "4",
+         "--quantize", "int8", "--batch-volumes", "2",
+         "--input-dtype", "float16", "--input-shape", "32", "32", "32"])
+    assert rc == 0
+    bundle = ServingBundle.load(out, device="cpu")
+    m = bundle.manifest
+    assert m["batch_volumes"] == 2 and m["input_dtype"] == "float16"
+    x = np.random.default_rng(11).normal(size=(2, 32, 32, 32, 4)).astype(
+        np.float32)
+    y = bundle.predict(x)
+    assert y.shape == (2, 32, 32, 32, 4) and torch.isfinite(y).all()
+    model = build_model(ModelConfig(img_dim=32, base_channels=4, top_num=8,
+                                    quantize="int8"), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    live = Predictor(model, device="cpu").seg_probs(
+        torch.from_numpy(x).half())
+    assert torch.equal(bundle.labels(x), torch.argmax(live, -1).to(
+        torch.uint8))
+    targets = [n.target for n in bundle._p["forward"].graph.nodes
+               if n.op == "call_function"]
+    # the three conv_semantic convs of the tiny direct model
+    assert targets.count(torch.ops.dctseg.int8_conv3d.default) == 3
+    assert targets.count(torch.ops.dctseg.quantize_absmax.default) == 3
+
+
 def test_export_serving_cli_needs_a_checkpoint(tmp_path, capsys,
                                               monkeypatch):
     """Without --random-params it embeds the newest epoch of
-    --checkpoint-dir; with none there it exits 1, and --quantize raises.
-    Without --device it exports on the card, and raises without one."""
+    --checkpoint-dir; with none there it exits 1, quantized or not, and a
+    misspelt --quantize raises.  Without --device it exports on the card,
+    and raises without one."""
     args = ["--out", str(tmp_path / "b"), "--img-dim", "16",
             "--base-channels", "2", "--checkpoint-dir", str(tmp_path / "ckpt")]
     with monkeypatch.context() as m:
@@ -420,8 +456,9 @@ def test_export_serving_cli_needs_a_checkpoint(tmp_path, capsys,
     assert export_serving.main(args) == 1
     assert "no checkpoint found" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "b")
-    with pytest.raises(NotImplementedError, match="A9"):
-        export_serving.main(args + ["--quantize", "int8"])
+    assert export_serving.main(args + ["--quantize", "int8"]) == 1
+    with pytest.raises(ValueError, match="unknown quantize spec"):
+        export_serving.main(args + ["--quantize", "int4", "--random-params"])
     # a saved epoch that does not fit the model is refused, not exported
     Checkpointer(str(tmp_path / "ckpt")).save(3, {"w": torch.zeros(1)}, {}, 0)
     with pytest.raises(RuntimeError, match="state_dict"):

@@ -253,3 +253,28 @@ def test_bundle_rejects_wrong_shape_and_format(tiny, tmp_path):
     (tmp_path / MANIFEST_NAME).write_text(json.dumps(manifest))
     with pytest.raises(ValueError, match="format"):
         ServingBundle.load(str(tmp_path), device="cpu")
+
+
+def test_folded_int8_bundle_carries_its_weights(tmp_path):
+    """A folded int8 predictor on the s2d path exports its folded int8
+    weights and scales as the program's constants (no weight is quantized
+    or transformed while it runs), and the loaded bundle equals the live
+    folded engine bit for bit."""
+    cfg = tiny_model_config(img_dim=16, top_num=2, quantize="int8_all",
+                            s2d_fullres=True, s2d_halfres=True)
+    pred = Predictor(ClsWiseFormer(cfg, torch.Generator().manual_seed(3)),
+                     device="cpu", fold_params=True)
+    out = str(tmp_path / "int8")
+    export_bundle(pred, out, strategy="single", input_shape=(16, 16, 16))
+    bundle = ServingBundle.load(out, device="cpu")
+    x = _volumes(1, 9, shape=(16, 16, 16), channels=4)
+    assert torch.equal(bundle.predict(x), pred.seg_probs(x))
+    ep = torch.export.load(os.path.join(out, "forward.pt2"))
+    int8_consts = [t for t in ep.constants.values()
+                   if isinstance(t, torch.Tensor) and t.dtype == torch.int8]
+    targets = {n.target for n in ep.graph.nodes if n.op == "call_function"}
+    calls = [n for n in ep.graph.nodes
+             if n.target == torch.ops.dctseg.int8_conv3d.default]
+    assert len(int8_consts) == len(calls) == 27
+    assert torch.ops.aten.round.default not in targets
+    assert torch.ops.aten.index_put.default not in targets

@@ -154,8 +154,10 @@ def test_trainer_rejects_inference_only_settings(tmp_path):
         Trainer(dataclasses.replace(
             cfg, model=dataclasses.replace(cfg.model, fused_norms=True)),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        dataclasses.replace(cfg.model, quantize="int8")
+    with pytest.raises(ValueError, match="quantize"):
+        Trainer(dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, quantize="int8")),
+            device="cpu")
     with pytest.raises(ValueError, match="grad_accum"):
         Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, grad_accum=2)), device="cpu")

@@ -178,12 +178,14 @@ def test_evaluate_cli_runs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--strategy", "sweep", "--quantize", "int8"], "A9"),
+    (["--strategy", "sweep", "--quantize", "int8", "--spatial-shards", "2"],
+     "A12"),
     (["--multimodel", "--spatial-shards", "2"], "A12"),
-    (["--quantize", "int8"], "A9"), (["--spatial-shards", "2"], "A12")])
+    (["--quantize", "int8", "--spatial-shards", "4"], "A12"),
+    (["--spatial-shards", "2"], "A12")])
 def test_evaluate_cli_names_what_is_not_ported(flags, item):
-    """The sweep and the ensemble are ported; int8 and multi-GPU options
-    are refused on every strategy."""
+    """The sweep, the ensemble and int8 are ported; the multi-GPU option is
+    refused on every strategy, with or without int8."""
     from dctseg_torch.cli import evaluate
     with pytest.raises(NotImplementedError, match=item):
         evaluate.main(["--device", "cpu", *flags])
