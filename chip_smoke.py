@@ -26,8 +26,8 @@ Phases (any failure raises and the script exits non-zero):
      K7 (torch.equal, f32 and bf16, with exact half-way ties planted) and
      the int8 conv K6 (torch.equal against its float64 oracle, f32 and bf16
      out, at every call of one int8 and one int8_all forward on each path,
-     recorded, and on ragged shapes; the calls per forward pinned in
-     INT8_CONVS);
+     recorded, each on its tma route, and on ragged shapes on its mma_sync
+     route; the calls per forward pinned in INT8_CONVS);
   4. the main paths at full width (img_dim=128, base_channels=16, random
      seeded weights), each with the launch counters set to 0 just before
      and read just after:
@@ -86,9 +86,10 @@ Phases (any failure raises and the script exits non-zero):
      scipy HD95 of one volume (host clock); the host time per call that
      the operator registration adds to K1, K2 and K3; the serving
      bundle's export, load and request times; K6 at the s2d full-res
-     dense conv and at en3 (beside cuDNN's bf16 conv and torch._int_mm
-     on the im2col) and over one int8 forward's calls on each path, K7
-     likewise, each against its bound;
+     dense conv and at en3 at B=8 (its route, equal to its plain version,
+     beside cuDNN's bf16 conv and torch._int_mm on the im2col) and over
+     one int8 forward's calls on each path, K7 likewise, each against its
+     bound;
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
 """
@@ -1292,9 +1293,9 @@ def check_int8_conv(dev, calls):
     f32 and bf16 out with a bias in that dtype and in f32 without: at every
     distinct (shape, k, stride, padding) the int8 and int8_all forwards
     call, on both paths (inputs of 64^3 voxels and more at B=1: the f64
-    oracle is slow), and on ragged shapes (vector widths 8 and 4, M and
-    Co edges, asymmetric padding, unequal strides).  Returns the largest
-    difference (0)."""
+    oracle is slow), each on the tma route, and on ragged shapes (vector
+    widths 8 and 4, M and Co edges, asymmetric padding, unequal strides),
+    each on the mma_sync route.  Returns the largest difference (0)."""
     g = gen(dev, SEED + 11)
     distinct = sorted({sig for sigs in calls.values() for sig in sigs})
     have = {(s[0][-1], s[1][1], s[2], s[3]) for s in distinct}
@@ -1303,12 +1304,13 @@ def check_int8_conv(dev, calls):
                  (64, 3, (2, 2, 2), ((1, 1),) * 3)):      # down3
         if need not in have:
             raise AssertionError(f"no forward called K6 at {need}")
-    distinct += [((2, 9, 7, 5, 72), (40, 3, 3, 3, 72), (1, 1, 1),
-                  ((1, 1),) * 3),
-                 ((3, 5, 6, 7, 36), (24, 3, 3, 3, 36), (2, 1, 2),
-                  ((1, 0), (1, 1), (0, 1)))]
+    cases = [(sig, "tma") for sig in distinct] + [
+        (((2, 9, 7, 5, 72), (40, 3, 3, 3, 72), (1, 1, 1), ((1, 1),) * 3),
+         "mma_sync"),
+        (((3, 5, 6, 7, 36), (24, 3, 3, 3, 36), (2, 1, 2),
+          ((1, 0), (1, 1), (0, 1))), "mma_sync")]
     worst = 0.0
-    for x_shape, w_shape, stride, pads in distinct:
+    for (x_shape, w_shape, stride, pads), route in cases:
         if math.prod(x_shape[1:4]) >= INT8_ORACLE_VOXELS:
             x_shape = (1, *x_shape[1:])
         xq, wq, sw, stats = int8_operands(dev, g, x_shape, w_shape)
@@ -1316,24 +1318,45 @@ def check_int8_conv(dev, calls):
                               (torch.float32, False)):
             bias = (torch.randn(w_shape[0], device=dev, generator=g).to(dt)
                     if with_bias else None)
-            before = quant.int8_conv3d.launches
+            before = dict(quant.int8_conv3d.routes)
             got = quant.int8_conv3d(xq, stats, wq, sw, bias, stride, pads, dt)
-            launched = quant.int8_conv3d.launches - before
+            launched = {k: n - before[k]
+                        for k, n in quant.int8_conv3d.routes.items()
+                        if n != before[k]}
             want = quant.int8_conv3d_plain(xq, stats, wq, sw, bias, stride,
                                            pads, dt)
             err = (got.float() - want.float()).abs().max().item()
-            ok = torch.equal(got, want) and launched == 1
+            ok = torch.equal(got, want) and launched == {route: 1}
             worst = max(worst, err)
             log(check="int8_conv3d", x=list(x_shape), w=list(w_shape),
                 stride=list(stride), padding=[list(p) for p in pads],
-                dtype=str(dt), bias=with_bias, launches=launched,
-                max_abs_err=err, tol="torch.equal", ok=ok)
+                dtype=str(dt), bias=with_bias, route=route,
+                launched=launched, max_abs_err=err, tol="torch.equal", ok=ok)
             if not ok:
-                raise AssertionError(f"K6 disagrees at {x_shape} {w_shape} "
-                                     f"{stride} {pads} {dt}")
+                raise AssertionError(f"K6 disagrees or took another route "
+                                     f"than {route} at {x_shape} {w_shape} "
+                                     f"{stride} {pads} {dt}: {launched}")
             del got, want
     torch.cuda.synchronize()
     return worst
+
+
+def k6_ptxas():
+    """What ptxas said of K6's tma kernels (registers, shared memory,
+    spills), from the build log: one entry per instantiation."""
+    log_lines = _build.last_build_log.split("== int8conv.cu")[-1]
+    log_lines = log_lines.split("\n== ")[0].splitlines()
+    rows, name = [], None
+    for ln in log_lines:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            # the template arguments of the mangled name: T, BN, MSUB
+            name = ("tma_conv_kernel<" + name.split("tma_conv_kernelI")[1]
+                    .split("EEEv")[0] + ">" if "tma_conv_kernelI" in name
+                    else None)
+        elif name and ("registers" in ln or "spill" in ln):
+            rows.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return rows
 
 
 def check_quantize(dev):
@@ -1580,19 +1603,30 @@ def bound_of(ops, nbytes):
 
 def time_k6(dev, g, x_shape, w_shape, stride, pads, iters=10, plain=True,
             int_mm=False):
-    """One K6 call in bf16 at a shape: its call time (CUDA events, back to
-    back) and the card's time (queued_ms), the plain version's time, the
-    bf16 cuDNN conv of the same shape (library_ms) and, where asked and
-    the im2col fits, torch._int_mm on the im2col matrix; the bound."""
+    """One K6 call in bf16 at a shape: its route, its call time (CUDA
+    events, back to back) and the card's time (queued_ms), the plain
+    version's time and its output, which the kernel's must equal
+    (torch.equal), the bf16 cuDNN conv of the same shape (library_ms) and,
+    where asked and the im2col fits, torch._int_mm on the im2col matrix;
+    the bound and the rate."""
     xq, wq, sw, stats = int8_operands(dev, g, x_shape, w_shape)
     args = (xq, stats, wq, sw, None, stride, pads, torch.bfloat16)
     row = dict(x=list(x_shape), w=list(w_shape), stride=list(stride),
                padding=[list(p) for p in pads])
+    routes = dict(quant.int8_conv3d.routes)
     row["ms"] = time_ms(lambda: quant.int8_conv3d(*args), iters)
+    row["route"] = [k for k, n in quant.int8_conv3d.routes.items()
+                    if n != routes[k]]
     row["device_ms"] = queued_ms(lambda: quant.int8_conv3d(*args), iters)
     if plain:
+        want = quant.int8_conv3d_plain(*args)
         row["plain_ms"] = time_ms(lambda: quant.int8_conv3d_plain(*args), 1,
-                                  warmup=1)
+                                  warmup=0)
+        row["equal_plain"] = torch.equal(quant.int8_conv3d(*args), want)
+        del want
+        if not row["equal_plain"]:
+            raise AssertionError(f"K6 disagrees with its plain version at "
+                                 f"{x_shape} {w_shape} {stride} {pads}")
     (dl, dh), (hl, hh), (wl, wh) = pads
     xb = F.pad(torch.randn(x_shape, device=dev, generator=g).bfloat16()
                .permute(0, 4, 1, 2, 3), (wl, wh, hl, hh, dl, dh)).contiguous(
@@ -1618,6 +1652,7 @@ def time_k6(dev, g, x_shape, w_shape, stride, pads, iters=10, plain=True,
     ops, nbytes = k6_costs(x_shape, w_shape, stride, pads)
     row["bound_ms"], row["bound_by"] = bound_of(ops, nbytes)
     row["tops"] = ops / row["device_ms"] / 1e9
+    row["device_over_library"] = row["device_ms"] / row["library_ms"]
     del xq, wq
     return row
 
@@ -2034,7 +2069,8 @@ def main() -> int:
     _build.lib()
     log(phase="build", seconds=time.perf_counter() - t0,
         ptxas=[ln.strip() for ln in _build.last_build_log.splitlines()
-               if "registers" in ln or "spill" in ln])
+               if "registers" in ln or "spill" in ln],
+        k6_tma_ptxas=k6_ptxas())
 
     # ---- 3. kernels vs plain versions
     check_norm_plan()
@@ -2287,6 +2323,9 @@ def main() -> int:
                  "calls", "ms", "device_ms", "library_ms", "bound_ms")},
              per_call={k: int8_timing[k] for k in ("s2d_fullres_dense",
                                                    "en3")},
+             kernel_routes=sorted(int8_timing["en3"]["route"]
+                                  + int8_timing["s2d_fullres_dense"]["route"]),
+             ptxas=k6_ptxas(),
              unit="per B=8 bf16 int8 forward on the direct path (25 calls); "
                   "library: cuDNN's bf16 conv of each call"),
         dict(name="quantize_absmax", route="cuda",

@@ -27,6 +27,7 @@ no host sync sits inside a quantized conv.
 from __future__ import annotations
 
 import array
+import functools
 import math
 from typing import NamedTuple, Sequence, Tuple
 
@@ -164,7 +165,7 @@ def int8_conv3d_plain(xq: torch.Tensor, stats: torch.Tensor,
 
 # ---- K7: the activation's absmax and quantize ----
 
-THREADS = 256               # csrc/quantize.cu and csrc/int8conv.cu kThreads
+THREADS = 256               # csrc/quantize.cu kThreads
 H100_SMS = 132
 QUANT_BLOCKS_PER_SM = 8     # 2,048 resident threads per SM
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
@@ -223,25 +224,108 @@ quantize_absmax.launches = 0    # kernel launches on CUDA tensors (2 a call)
 
 # ---- K6: the int8 implicit-GEMM conv ----
 
-# csrc/int8conv.cu: the output tile (rows of M = voxels, columns of N =
-# output channels), the K depth of a stage in bytes
+# csrc/int8conv.cu, route "mma_sync": the output tile (rows of M = voxels,
+# columns of N = output channels), the K depth of a stage in bytes
 TILE_M, TILE_N, TILE_K = 128, 64, 64
+# route "tma": the wgmma N widths it instantiates (Co is rounded up to one,
+# at most 256 a tile), the bytes of K a stage holds, the dynamic shared
+# memory a block may take, the slack that aligns the ring to the 128-byte
+# swizzle's 1,024-byte atom, the bytes of a stage's two mbarriers, and the
+# deepest ring
+TMA_WIDTHS = (32, 64, 128, 256)
+STAGE_K = 128
+SMEM_BYTES = 232_448
+SMEM_ALIGN = 1024
+BARRIER_BYTES = 16
+MAX_STAGES = 12
+TMA_MAX_BOX = 256           # elements a TMA box spans along one dim
+TMA_MAX_STRIDE = 8          # TMA's largest element stride
+ROUTES = ("mma_sync", "tma")
 
 
 class Int8ConvPlan(NamedTuple):
-    """How one K6 call runs: ``grid`` = (M tiles, N tiles) blocks, each
-    gathering its tiles ``vec`` bytes at a time."""
-    vec: int
-    grid: Tuple[int, int]
+    """How one K6 call runs.
+
+    ``route`` "tma": ``grid`` = (blocks,), persistent, walking ``tiles``
+    output tiles of ``block`` (z, y, x) output voxels by ``bn`` channels,
+    ``m_sub`` m64 blocks per consumer warpgroup (the tile is 128 * m_sub
+    voxels); K in units of one tap x ``chunk`` channel bytes, ``group``
+    units a stage, in a ring of ``stages``.  Route "mma_sync":
+    ``grid`` = (M tiles, N tiles) blocks, each gathering its tiles ``vec``
+    bytes at a time."""
+    route: str
+    grid: Tuple[int, ...]
+    vec: int = 0
+    tiles: int = 0
+    block: Tuple[int, int, int] = (0, 0, 0)
+    chunk: int = 0
+    bn: int = 0
+    m_sub: int = 0
+    group: int = 0
+    stages: int = 0
+
+    def stage_bytes(self) -> int:
+        """Shared memory of one stage of the tma ring: the A and B boxes
+        of its units."""
+        return (128 * self.m_sub + self.bn) * self.chunk * self.group
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a tma block."""
+        return SMEM_ALIGN + self.stages * (self.stage_bytes()
+                                           + BARRIER_BYTES)
 
 
-def plan_int8_conv(x_shape, w_shape, out_spatial, aligned: int
-                   ) -> Int8ConvPlan:
-    """K6's launch plan for an (N, D, H, W, Ci) input, a (Co, k, k, k, Ci)
-    weight and output extents (D', H', W'), both pointers aligned to
-    ``aligned`` bytes: the widest of 16, 8, 4 bytes that divides Ci and the
-    alignment (so that a gathered run never crosses a tap), one block per
-    TILE_M x TILE_N output tile."""
+def tma_block(out_spatial, stride, k: int, voxels: int
+              ) -> Tuple[int, int, int]:
+    """The (z, y, x) output block of one M tile: powers of two of
+    ``voxels`` in all, each spanning at most TMA_MAX_BOX input elements at
+    the conv's stride; the block that pads the output least, then whose
+    receptive field (k - 1 wider per dim) is smallest, then the widest
+    along x, then along y."""
+    best = None
+    log2 = voxels.bit_length() - 1
+    for ez in range(log2 + 1):
+        for ey in range(log2 + 1 - ez):
+            block = (1 << ez, 1 << ey, 1 << (log2 - ez - ey))
+            if any(b * s > TMA_MAX_BOX for b, s in zip(block, stride)):
+                continue
+            padded = math.prod(math.ceil(o / b) * b
+                               for o, b in zip(out_spatial, block))
+            halo = math.prod(b + k - 1 for b in block)
+            key = (padded, halo, -block[2], -block[1])
+            if best is None or key < best[0]:
+                best = (key, block)
+    return best[1]
+
+
+def plan_tma(x_shape, w_shape, out_spatial, stride) -> Int8ConvPlan:
+    """K6's tma plan (csrc/int8conv.cu): BN = Co rounded up to a wgmma
+    width (Co tiles of 256 past it); two m64 blocks per consumer
+    warpgroup below BN = 256, one at it; chunks of the widest of 128, 64,
+    32 channel bytes that divides Ci (32 where none does: TMA zero-fills
+    the chunk past Ci), STAGE_K bytes of K a stage; as deep a ring as
+    shared memory holds; one persistent block per SM, or one per tile
+    where there are fewer."""
+    n, ci, co, k = x_shape[0], x_shape[-1], w_shape[0], w_shape[1]
+    bn = next((w for w in TMA_WIDTHS if w >= co), TMA_WIDTHS[-1])
+    m_sub = 2 if bn <= 128 else 1
+    block = tma_block(out_spatial, stride, k, 128 * m_sub)
+    chunk = next((c for c in (128, 64, 32) if ci % c == 0), 32)
+    plan = Int8ConvPlan("tma", (1,), block=block, chunk=chunk, bn=bn,
+                        m_sub=m_sub, group=STAGE_K // chunk)
+    stages = min(MAX_STAGES, (SMEM_BYTES - SMEM_ALIGN)
+                 // (plan.stage_bytes() + BARRIER_BYTES))
+    tiles = n * math.ceil(co / bn) * math.prod(
+        math.ceil(o / b) for o, b in zip(out_spatial, block))
+    return plan._replace(grid=(min(tiles, H100_SMS),), tiles=tiles,
+                         stages=stages)
+
+
+def plan_mma_sync(x_shape, w_shape, out_spatial, aligned: int
+                  ) -> Int8ConvPlan:
+    """K6's mma_sync plan: the widest of 16, 8, 4 bytes that divides Ci
+    and the alignment (so that a gathered run never crosses a tap), one
+    block per TILE_M x TILE_N output tile."""
     ci, co = x_shape[-1], w_shape[0]
     vec = next((v for v in (16, 8, 4) if ci % v == 0 and aligned % v == 0),
                None)
@@ -250,7 +334,24 @@ def plan_int8_conv(x_shape, w_shape, out_spatial, aligned: int
                          f"4-byte aligned tensors; got Ci={ci}, "
                          f"alignment {aligned}")
     m = x_shape[0] * math.prod(out_spatial)
-    return Int8ConvPlan(vec, (math.ceil(m / TILE_M), math.ceil(co / TILE_N)))
+    return Int8ConvPlan("mma_sync", (math.ceil(m / TILE_M),
+                                     math.ceil(co / TILE_N)), vec=vec)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_int8_conv(x_shape, w_shape, out_spatial, stride, aligned: int
+                   ) -> Int8ConvPlan:
+    """K6's launch plan for an (N, D, H, W, Ci) input, a (Co, k, k, k, Ci)
+    weight, output extents (D', H', W') and the conv's stride, both
+    pointers aligned to ``aligned`` bytes.  The route is the shape's: tma
+    where Ci is a multiple of 16 (TMA's 16-byte global strides) on
+    16-byte aligned pointers at strides up to TMA_MAX_STRIDE, mma_sync
+    otherwise."""
+    if x_shape[-1] % 16 == 0 and aligned % 16 == 0 and \
+            max(stride) <= TMA_MAX_STRIDE:
+        return plan_tma(tuple(x_shape), tuple(w_shape), tuple(out_spatial),
+                        tuple(stride))
+    return plan_mma_sync(x_shape, w_shape, out_spatial, aligned)
 
 
 def _check_conv_args(xq, stats, wq, sw, bias, out_dtype):
@@ -268,6 +369,24 @@ def _check_conv_args(xq, stats, wq, sw, bias, out_dtype):
         raise ValueError(f"expected a ({wq.shape[0]},) bias of {out_dtype}")
 
 
+def conv_args(xq, stats, wq, sw, bias, stride, pads, out_dtype,
+              plan: Int8ConvPlan):
+    """(out, args): the output K6 writes and its int64 argument array
+    (``dctseg_int8_conv3d`` in csrc/int8conv.cu) for one call on
+    ``plan``."""
+    shape = out_shape(xq.shape, wq.shape, stride, pads)
+    out = torch.empty(shape, dtype=out_dtype, device=xq.device)
+    args = array.array("q", (
+        xq.data_ptr(), wq.data_ptr(), stats.data_ptr(), sw.data_ptr(),
+        0 if bias is None else bias.data_ptr(), out.data_ptr(),
+        *xq.shape, *shape[1:], wq.shape[1], *stride,
+        *(lo for lo, _ in pads), _build.dtype_code(out_dtype),
+        ROUTES.index(plan.route), plan.vec, *plan.block, plan.chunk,
+        plan.bn, plan.m_sub, plan.group, plan.stages,
+        plan.grid[0] if plan.route == "tma" else 0))
+    return out, args
+
+
 def _conv_launch(xq, stats, wq, sw, bias, stride, padding, out_dtype):
     _check_conv_args(xq, stats, wq, sw, bias, out_dtype)
     tensors = [xq, stats, wq, sw] + ([bias] if bias is not None else [])
@@ -275,21 +394,18 @@ def _conv_launch(xq, stats, wq, sw, bias, stride, padding, out_dtype):
             not all(t.is_contiguous() for t in tensors):
         raise ValueError("the int8 conv kernel takes contiguous tensors on "
                          "one device")
-    code = _build.dtype_code(out_dtype)
     pads = _pairs([padding[0:2], padding[2:4], padding[4:6]])
     shape = out_shape(xq.shape, wq.shape, stride, pads)
     if min(shape) < 1:
         raise ValueError(f"empty conv output {shape}")
-    plan = plan_int8_conv(xq.shape, wq.shape, shape[1:4],
+    plan = plan_int8_conv(tuple(xq.shape), tuple(wq.shape), shape[1:4],
+                          tuple(stride),
                           _build.alignment(xq.data_ptr(), wq.data_ptr()))
-    out = torch.empty(shape, dtype=out_dtype, device=xq.device)
-    args = array.array("q", (
-        xq.data_ptr(), wq.data_ptr(), stats.data_ptr(), sw.data_ptr(),
-        0 if bias is None else bias.data_ptr(), out.data_ptr(),
-        *xq.shape, *shape[1:], wq.shape[1], *stride,
-        *(lo for lo, _ in pads), code, plan.vec))
+    out, args = conv_args(xq, stats, wq, sw, bias, stride, pads, out_dtype,
+                          plan)
     _build.check(_build.lib().dctseg_int8_conv3d(
         args.buffer_info()[0], _build.stream_of(xq)), "int8_conv3d")
+    int8_conv3d.routes[plan.route] += 1
     int8_conv3d.launches += 1
     return out
 
@@ -330,6 +446,7 @@ def int8_conv3d(xq: torch.Tensor, stats: torch.Tensor, wq: torch.Tensor,
 
 
 int8_conv3d.launches = 0        # kernel launches on CUDA tensors
+int8_conv3d.routes = dict.fromkeys(ROUTES, 0)   # the launches by route
 
 
 # ---- the conv as the model calls it ----

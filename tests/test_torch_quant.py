@@ -7,7 +7,7 @@ counts; half-way ties round to even).  The JAX ops run eagerly there, in the
 op order they are written in, which the port follows: under ``jax.jit``
 XLA rewrites ``amax / 127`` into ``amax * f32(1/127)`` and folds the two
 scales' divisions into one constant, which moves sx and sx * sw[c] by an
-ulp now and then.  K6's tile walk is rehearsed in
+ulp now and then.  The tile walk of K6's mma_sync route is rehearsed in
 torch against ``F.conv3d``.  Model: the s2d modules' int8 routes, and
 every int8 conv of the tiny ClsWiseFormer's forward on the input the
 forward gave it, equal JAX's modules bit for bit; its ``seg_probs`` under
@@ -269,7 +269,8 @@ def test_s2d_modules_int8_bit_exact_with_jax(monkeypatch, route, dtype):
 # ---- K6's tile walk, rehearsed in torch ----
 
 def _rehearse_k6(xq, wq, stride, padding):
-    """The kernel's arithmetic in torch: the launch plan, each block's
+    """The mma_sync route's arithmetic in torch (the tma route's is in
+    tests/test_torch_int8conv.py): the launch plan, each block's
     per-row receptive-field corners, the per-chunk (tap, channel) split of
     K with the padding, stride and ragged-K masks, the int64 products of the
     gathered tiles summed over the K stages, and the store masks."""
@@ -277,7 +278,7 @@ def _rehearse_k6(xq, wq, stride, padding):
     co, k = wq.shape[0], wq.shape[1]
     pads = quant._pairs(padding)
     shape = quant.out_shape(xq.shape, wq.shape, stride, pads)
-    plan = quant.plan_int8_conv(xq.shape, wq.shape, shape[1:4], 16)
+    plan = quant.plan_mma_sync(xq.shape, wq.shape, shape[1:4], 16)
     m_total, kdim = n * math.prod(shape[1:4]), k ** 3 * ci
     tm, tn, tk, vec = quant.TILE_M, quant.TILE_N, quant.TILE_K, plan.vec
     assert (plan.grid[0] - 1) * tm < m_total <= plan.grid[0] * tm
@@ -352,12 +353,17 @@ def test_k6_tile_walk_rehearsal_equals_conv(k, stride, padding, ci, shape):
 
 def test_k6_plan_vector_width():
     plan = quant.plan_int8_conv
+    assert quant.plan_mma_sync((8, 32, 32, 32, 96), (32, 3, 3, 3, 96),
+                               (32, 32, 32), 16) == \
+        quant.Int8ConvPlan("mma_sync", (2048, 1), vec=16)
     assert plan((8, 32, 32, 32, 96), (32, 3, 3, 3, 96), (32, 32, 32),
-                16) == quant.Int8ConvPlan(16, (2048, 1))
-    assert plan((1, 4, 4, 4, 72), (8, 3, 3, 3, 72), (4, 4, 4), 16).vec == 8
-    assert plan((1, 4, 4, 4, 64), (8, 1, 1, 1, 64), (4, 4, 4), 4).vec == 4
+                (1, 1, 1), 16).route == "tma"
+    assert plan((1, 4, 4, 4, 72), (8, 3, 3, 3, 72), (4, 4, 4), (1, 1, 1),
+                16) == quant.Int8ConvPlan("mma_sync", (1, 1), vec=8)
+    assert plan((1, 4, 4, 4, 64), (8, 1, 1, 1, 64), (4, 4, 4), (1, 1, 1),
+                4) == quant.Int8ConvPlan("mma_sync", (1, 1), vec=4)
     with pytest.raises(ValueError, match="multiple of 4"):
-        plan((1, 4, 4, 4, 6), (8, 1, 1, 1, 6), (4, 4, 4), 16)
+        plan((1, 4, 4, 4, 6), (8, 1, 1, 1, 6), (4, 4, 4), (1, 1, 1), 16)
 
 
 # ---- layers ----
