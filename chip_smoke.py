@@ -110,6 +110,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -181,12 +182,22 @@ TRAIN_EPOCHS = 3                 # 6 steps of B=1
 TRAIN_SHAPE = ("144", "144", "128")
 PROFILED_STEPS = 2               # the last steps of a profiled training run
 PATHS = {"direct": {}, "s2d": dict(s2d_fullres=True, s2d_halfres=True)}
-# quantized convs per forward at full width (K6 calls; K7 calls, two
-# launches each) by the JAX package's rule, direct and s2d (dense conv3),
+# quantized convs per forward at full width (K6 calls; K7 calls) by the
+# JAX package's rule, direct and s2d (dense conv3),
 # under quantize 'int8' and 'int8_all'; held to JAX's count at full width by
 # tests/test_torch_quant.py
 INT8_CONVS = {("direct", "int8"): 25, ("direct", "int8_all"): 29,
               ("s2d", "int8"): 42, ("s2d", "int8_all"): 52}
+# K7 calls per forward by route, one launch each: "from_amax" where a
+# fused norm wrote the conv's input and reported its absmax (both convs of
+# EnBlock, conv2 of EnBlock2/DeBlock and the next block's conv1 after a
+# residual norm), "grid" for the rest, where the three conv_mid_fea_* and
+# the three conv_semantic_* share one call each (4 fewer K7 calls than
+# K6's); held to the model at full width by tests/test_torch_k7.py
+K7_CALLS = {("direct", "int8"): {"from_amax": 14, "grid": 7},
+            ("direct", "int8_all"): {"from_amax": 14, "grid": 11},
+            ("s2d", "int8"): {"from_amax": 28, "grid": 10},
+            ("s2d", "int8_all"): {"from_amax": 28, "grid": 20}}
 INT8_TOPS = 1979e12              # H100 SXM dense int8 tensor-core peak
 # int8 against float on the same weights: mean |dp| and argmax agreement.
 # Direct path: JAX's bounds (tests/test_quant.py:92-94).  The s2d path
@@ -293,7 +304,25 @@ def gen(dev, seed):
 def check_norm_plan():
     """The launch plan's fusednorm launches per B=8 forward, on the direct
     and the s2d path, against the counts pinned in NORM_LAUNCHES: a plan
-    that changes a route at a main-path width shows here."""
+    that changes a route at a main-path width shows here.  Logs each
+    variant's plan (plain, absmax: each from its own kernels' occupancy)
+    at every main-path bf16 shape."""
+    for edge, c in NORM_WIDTHS:
+        views = [(8, edge, edge, edge, c)]
+        if edge in S2D_LEVELS:
+            views.append((8, edge // 2, edge // 2, edge // 2, 8 * c))
+        for shape in views:
+            for res in (False, True):
+                plans = {name: fusednorm.plan_for(shape, torch.bfloat16, 8,
+                                                  res, 0, amax)
+                         for name, amax in (("plain", False),
+                                            ("amax", True))}
+                log(check="fusednorm_plan_at", shape=list(shape),
+                    residual=res, **{f"{name}_{field}": getattr(plan, field)
+                                     for name, plan in plans.items()
+                                     for field in ("route", "blocks",
+                                                   "rows_per_block",
+                                                   "staged")})
     for dt, want in NORM_LAUNCHES.items():
         for s2d in (False, True):
             got = norm_launches(dt, s2d)
@@ -303,6 +332,24 @@ def check_norm_plan():
                 raise AssertionError(
                     f"fusednorm plan: {got} launches per {dt} forward "
                     f"(s2d={s2d}), pinned {want}")
+
+
+def norm_within_bounds(got, want, x, fine, act, r):
+    """Whether fusednorm's output ``got`` lies within the bounds stated in
+    check_fusednorm of the plain version's ``want`` on input ``x`` (fine
+    channels ``fine``, residual ``r`` or None): (ok, |got - want|, the
+    bound as text, for bf16 the elements only the absolute term admits)."""
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return bool(err.max() <= 1e-4), err, "atol 1e-4", None
+    ulps = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+    tol = "1e-4 + 1 bf16 ulp of the output"
+    if r is not None:
+        pre = fusednorm.fused_instance_norm_act_plain(x, fine, act=act)
+        ulps = ulps + bf16_ulp(pre.float())
+        tol += " + 1 of the activation"
+    return (bool((err <= 1e-4 + ulps).all()), err, tol,
+            int((err > ulps).sum()))
 
 
 def check_fusednorm(dev, widths, batch=8):
@@ -351,24 +398,11 @@ def check_fusednorm(dev, widths, batch=8):
             again = fusednorm.fused_instance_norm_act(x, fine, act=act,
                                                       residual=r)
             bitwise = torch.equal(got, again)
-            err = (got.float() - want.float()).abs()
-            over_ulps = None
-            if dt == torch.float32:
-                ok, tol = bool(err.max() <= 1e-4), "atol 1e-4"
-            else:
-                ulps = bf16_ulp(torch.maximum(got.float().abs(),
-                                              want.float().abs()))
-                tol = "1e-4 + 1 bf16 ulp of the output"
-                if with_res:
-                    pre = fusednorm.fused_instance_norm_act_plain(
-                        x, fine, act=act)
-                    ulps = ulps + bf16_ulp(pre.float())
-                    tol += " + 1 of the activation"
-                ok = bool((err <= 1e-4 + ulps).all())
-                # elements that only the absolute term admits
-                over_ulps = int((err > ulps).sum())
-                if shape[-1] == fine and shape[1:] != (8, 8, 8, 12):
-                    worst_bf16 = max(worst_bf16, err.max().item())
+            ok, err, tol, over_ulps = norm_within_bounds(got, want, x, fine,
+                                                         act, r)
+            if (dt == torch.bfloat16 and shape[-1] == fine
+                    and shape[1:] != (8, 8, 8, 12)):
+                worst_bf16 = max(worst_bf16, err.max().item())
             ok = ok and bitwise and launched == (1 if route == "fused"
                                                  else 2)
             log(check="fusednorm", shape=list(shape), fine=fine, act=act,
@@ -806,13 +840,17 @@ def check_device_metrics(dev, pairs):
 
 
 KERNEL_COUNTERS = {"fusednorm": fusednorm.fused_instance_norm_act,
+                   "fusednorm_amax": fusednorm.fused_instance_norm_act_amax,
                    "attention": attn.fused_attention,
                    "relayout": relayout.space_to_depth,
                    "minplus": minplus.minplus_pass,
                    "orderstats": orderstats.masked_order_stats,
                    "orderstats_count": orderstats.count_leq,
                    "int8_conv3d": quant.int8_conv3d,
-                   "quantize_absmax": quant.quantize_absmax}
+                   "quantize_absmax": quant.quantize_absmax,
+                   "quantize_from_amax": quant.quantize_from_amax}
+INT8_COUNTERS = ("fusednorm_amax", "int8_conv3d", "quantize_absmax",
+                 "quantize_from_amax")
 
 
 def reset_launches():
@@ -820,6 +858,8 @@ def reset_launches():
         fn.launches = 0
     for name in attn.fused_attention.kernel_launches:
         attn.fused_attention.kernel_launches[name] = 0
+    for route in quant.quantize_absmax.routes:
+        quant.quantize_absmax.routes[route] = 0
 
 
 def read_launches():
@@ -830,7 +870,7 @@ def read_launches():
     return launches
 
 
-def run_eval_path(quantize="none"):
+def run_eval_path(quantize="none", calls=None):
     """The evaluate CLI over EVAL_VOLUMES synthetic 240x240x155 volumes:
     strategy 'tiling', HD95 'reference', bf16, full width, random weights
     from seed 0, quantized as ``quantize`` says.  Returns its result dict
@@ -844,7 +884,6 @@ def run_eval_path(quantize="none"):
                              "--quantize", quantize])
         wall = time.perf_counter() - t0
     launches = read_launches()
-    convs = INT8_CONVS["direct", quantize] if quantize != "none" else 0
     # the search runs in the orderstats kernel's search mode, one launch a
     # pass; its count mode (count_leq) not at all
     expected = {"fusednorm": norm_launches(torch.bfloat16) * EVAL_VOLUMES,
@@ -854,8 +893,11 @@ def run_eval_path(quantize="none"):
                 "minplus": EDT_LAUNCHES * EVAL_VOLUMES,
                 "orderstats": SEARCH_LAUNCHES * EVAL_VOLUMES,
                 "orderstats_count": 0,
-                "int8_conv3d": convs * EVAL_VOLUMES,
-                "quantize_absmax": 2 * convs * EVAL_VOLUMES}
+                **dict.fromkeys(INT8_COUNTERS, 0)}
+    if quantize != "none":
+        forward = int8_expected(calls, "direct", quantize)
+        for k in ("fusednorm",) + INT8_COUNTERS:
+            expected[k] = forward[k] * EVAL_VOLUMES
     finite = all(math.isfinite(v) for v in res.values())
     in_unit = all(0.0 <= res[k] <= 1.0 for k in
                   ("wt", "tc", "et", "miou_wt", "miou_tc", "miou_et"))
@@ -1226,15 +1268,38 @@ def run_serving_bundles(dev, cfg_kw, weights):
 
 # ------------------------------------------------- int8 (K6, K7): phases 3-5
 
-def int8_expected(path, spec):
+class Int8Calls(NamedTuple):
+    """The int8 calls of one B=8 bf16 forward per (path, spec), in call
+    order: K6's (xq shape, wq shape, stride, padding), K7's (x shape,
+    route), and the fusednorm calls that report their absmax (shape, fine
+    channels, residual)."""
+    k6: dict
+    k7: dict
+    norms: dict
+
+
+def amax_norm_launches(calls, path, spec):
+    """fusednorm launches of one forward's absmax-variant calls, by the
+    launch plan at each call's shape."""
+    return sum(fusednorm.plan_for(shape, torch.bfloat16, 8, res, 0,
+                                  True).launches
+               for shape, _, res in calls.norms[path, spec])
+
+
+def int8_expected(calls, path, spec):
     """Every counter's launches for one B=8 bf16 forward of one path and
-    quantize spec (K7: two launches a call)."""
+    quantize spec: K1's calls split between its plain and absmax variants
+    (``calls``: record_int8_calls'), K7 one launch a call on its two
+    routes."""
     s2d = path == "s2d"
-    return {"fusednorm": norm_launches(torch.bfloat16, s2d),
+    amax = amax_norm_launches(calls, path, spec)
+    return {"fusednorm": norm_launches(torch.bfloat16, s2d) - amax,
+            "fusednorm_amax": amax,
             "attention": ATTN_CALLS, "attention_mma": ATTN_CALLS,
             "relayout": RELAYOUT_PER_FORWARD if s2d else 0,
             "int8_conv3d": INT8_CONVS[path, spec],
-            "quantize_absmax": 2 * INT8_CONVS[path, spec]}
+            "quantize_absmax": K7_CALLS[path, spec]["grid"],
+            "quantize_from_amax": K7_CALLS[path, spec]["from_amax"]}
 
 
 def int8_model(dev, cfg_kw, weights, path, spec):
@@ -1244,34 +1309,58 @@ def int8_model(dev, cfg_kw, weights, path, spec):
     return model
 
 
-def record_int8_calls(dev, cfg_kw, weights):
-    """Every K6 call of one B=8 bf16 forward, on each path under each spec:
-    {(path, spec): [(xq shape, wq shape, stride, padding), ...]} in call
-    order, its length checked against INT8_CONVS (the JAX rule's count)."""
+def record_int8_calls(dev, cfg_kw, weights) -> Int8Calls:
+    """The int8 calls of one B=8 bf16 forward, on each path under each
+    spec: K6's, their count checked against INT8_CONVS (the JAX rule's),
+    K7's, their routes checked against K7_CALLS, and the fusednorm calls
+    that report their absmax (one for each from_amax call)."""
     x = torch.randn((8, 128, 128, 128, 4), device=dev,
                     generator=gen(dev, SEED + 12))
-    orig, calls = quant.conv3d_int8_prepared, {}
+    orig, orig_k7 = quant.conv3d_int8_prepared, quant.quantize_input
+    calls = Int8Calls({}, {}, {})
+    orig_norm = unet.fused_instance_norm_act_amax
     for key in INT8_CONVS:
-        sigs = []
+        sigs, k7, norms = [], [], []
 
-        def recording(x, wq, sw, stride=1, padding=1, bias=None):
+        def recording(x, wq, sw, stride=1, padding=1, bias=None, amax=None,
+                      quantized=None):
             sigs.append((tuple(x.shape), tuple(wq.shape),
                          quant._triple(stride), quant._pairs(padding)))
-            return orig(x, wq, sw, stride, padding, bias)
+            return orig(x, wq, sw, stride, padding, bias, amax, quantized)
+
+        def k7_recording(x, amax=None):
+            k7.append((tuple(x.shape),
+                       "grid" if amax is None else "from_amax"))
+            return orig_k7(x, amax)
+
+        def norm_recording(x, fine, *args, residual=None, **kw):
+            norms.append((tuple(x.shape), fine, residual is not None))
+            return orig_norm(x, fine, *args, residual=residual, **kw)
         predictor = Predictor(int8_model(dev, cfg_kw, weights, *key),
                               device=dev)
         quant.conv3d_int8_prepared = recording
+        quant.quantize_input = k7_recording
+        unet.fused_instance_norm_act_amax = norm_recording
         try:
             predictor.seg_probs(x)
         finally:
             quant.conv3d_int8_prepared = orig
-        calls[key] = sigs
+            quant.quantize_input = orig_k7
+            unet.fused_instance_norm_act_amax = orig_norm
+        calls.k6[key], calls.k7[key], calls.norms[key] = sigs, k7, norms
+        routes = dict(collections.Counter(r for _, r in k7))
+        ok = (len(sigs) == INT8_CONVS[key] and routes == K7_CALLS[key]
+              and len(norms) == K7_CALLS[key]["from_amax"])
         log(check="int8_calls_per_forward", path=key[0], spec=key[1],
             calls=len(sigs), pinned=INT8_CONVS[key],
-            distinct=len(set(sigs)), ok=len(sigs) == INT8_CONVS[key])
-        if len(sigs) != INT8_CONVS[key]:
+            distinct=len(set(sigs)), k7_routes=routes,
+            pinned_k7_routes=K7_CALLS[key], amax_norms=len(norms),
+            amax_norm_launches=amax_norm_launches(calls, *key), ok=ok)
+        if not ok:
             raise AssertionError(f"{key}: {len(sigs)} int8 convs a forward, "
-                                 f"pinned {INT8_CONVS[key]}")
+                                 f"K7 routes {routes}, {len(norms)} absmax "
+                                 f"norms; pinned {INT8_CONVS[key]}, "
+                                 f"{K7_CALLS[key]}")
         del predictor
     return calls
 
@@ -1297,7 +1386,7 @@ def check_int8_conv(dev, calls):
     widths 8 and 4, M and Co edges, asymmetric padding, unequal strides),
     each on the mma_sync route.  Returns the largest difference (0)."""
     g = gen(dev, SEED + 11)
-    distinct = sorted({sig for sigs in calls.values() for sig in sigs})
+    distinct = sorted({sig for sigs in calls.k6.values() for sig in sigs})
     have = {(s[0][-1], s[1][1], s[2], s[3]) for s in distinct}
     for need in ((96, 3, (1, 1, 1), ((1, 1),) * 3),       # conv_mid_fea_*
                  (256, 2, (1, 1, 1), ((1, 0),) * 3),      # s2d down2
@@ -1362,8 +1451,10 @@ def k6_ptxas():
 def check_quantize(dev):
     """K7 against its plain version (xq and both stats torch.equal), f32
     and bf16, at the main path's activation shapes (B=8 at 32^3 x 64, the
-    s2d view at 64^3 x 128 B=8 bf16 only): randn activations, then the same
-    with exact half-way ties planted: amax 127 s and a third of the values
+    s2d view at 64^3 x 128 B=8 bf16 only), on each route: grid (one
+    launch), split (two), and from_amax (one) with the per-sample absmax
+    as the fused norm reports it: randn activations, then the same with
+    exact half-way ties planted: amax 127 s and a third of the values
     (k + 0.5) s for s = 2^-3, so that sx = s and x / sx = k + 0.5 exactly,
     which round half to even.  Returns the largest difference (0)."""
     g = gen(dev, SEED + 13)
@@ -1383,41 +1474,207 @@ def check_quantize(dev):
                                     x.clamp(-126 * s, 126 * s))
                     x.view(-1)[0] = 127 * s
                 x = x.to(dt)
-                before = quant.quantize_absmax.launches
-                xq, stats = quant.quantize_absmax(x)
-                launched = quant.quantize_absmax.launches - before
+                slots = x.reshape(shape[0], -1).float().abs().amax(dim=1)
                 pq, pstats = quant.quantize_absmax_plain(x)
-                ok = (torch.equal(xq, pq) and torch.equal(stats, pstats)
-                      and launched == 2
-                      and (not ties or stats[1].item() == 2.0 ** -3))
-                err = (xq.int() - pq.int()).abs().max().item()
-                worst = max(worst, float(err))
-                log(check="quantize_absmax", shape=list(shape), dtype=str(dt),
-                    ties=ties, stats=stats.tolist(), launches=launched,
-                    max_abs_err=err, tol="torch.equal", ok=ok)
-                if not ok:
-                    raise AssertionError(f"K7 disagrees at {shape} {dt} "
-                                         f"ties={ties}")
-                del x, xq, pq
+                for route, call in (
+                        ("grid", lambda: quant.quantize_absmax(x)),
+                        ("split", lambda: quant._quantize_launch(
+                            x, split=True)),
+                        ("from_amax", lambda: quant.quantize_from_amax(
+                            x, slots))):
+                    before = dict(quant.quantize_absmax.routes)
+                    xq, stats = call()
+                    launched = {k: n - before[k] for k, n in
+                                quant.quantize_absmax.routes.items()
+                                if n != before[k]}
+                    ok = (torch.equal(xq, pq) and torch.equal(stats, pstats)
+                          and launched == {route: 2 if route == "split"
+                                           else 1}
+                          and (not ties or stats[1].item() == 2.0 ** -3))
+                    err = (xq.int() - pq.int()).abs().max().item()
+                    worst = max(worst, float(err))
+                    log(check="quantize", route=route, shape=list(shape),
+                        dtype=str(dt), ties=ties, stats=stats.tolist(),
+                        launched=launched, max_abs_err=err,
+                        tol="torch.equal", ok=ok)
+                    if not ok:
+                        raise AssertionError(f"K7 ({route}) disagrees at "
+                                             f"{shape} {dt} ties={ties}: "
+                                             f"{launched}")
+                    del xq
+                del x, pq
     return worst
 
 
-def run_int8_main_path(dev, cfg_kw, weights, volumes):
+def check_fusednorm_amax(dev, widths, batch=8):
+    """K1's absmax variant at the main path's B=8 shapes (relu, and lrelu
+    with a residual, at each width and on the s2d views, f32 and bf16; the
+    plan's fused and split routes both occur): its output within
+    check_fusednorm's bounds of the plain PyTorch version's (f32 within
+    1e-4; bf16 within 1e-4 + one bf16 ulp of the output, + one of the
+    activation with a residual), in every case, and torch.equal to the
+    plain variant's on the same input; its absmax torch.equal to the max
+    |out| of that output per sample (K1 is not bit-exact to its plain
+    version in bf16, so the absmax is held to K1's own output); its
+    launches the plan's on its own counter; a second call bitwise equal.
+    Returns the largest difference of its output from the plain PyTorch
+    version's at the main path's bf16 widths and s2d views."""
+    g = gen(dev, SEED + 16)
+    cases = [((batch, e, e, e, c), c) for e, c in widths]
+    cases += [((batch, 64, 64, 64, 128), 16), ((batch, 32, 32, 32, 256), 32)]
+    worst, routes = 0.0, set()
+    for shape, fine in cases:
+        x32 = torch.randn(shape, device=dev, generator=g) * 3 + 1
+        r32 = torch.randn(shape, device=dev, generator=g)
+        for dt in (torch.float32, torch.bfloat16):
+            for act, r in (("relu", None), ("lrelu", r32.to(dt))):
+                x = x32.to(dt)
+                plan = fusednorm.plan_for(shape, dt, fusednorm.vector_width(x),
+                                          r is not None, 0, True)
+                routes.add(plan.route)
+                before = fusednorm.fused_instance_norm_act_amax.launches
+                out, amax = fusednorm.fused_instance_norm_act_amax(
+                    x, fine, act=act, residual=r)
+                launched = (fusednorm.fused_instance_norm_act_amax.launches
+                            - before)
+                again = fusednorm.fused_instance_norm_act_amax(
+                    x, fine, act=act, residual=r)
+                want = out.reshape(batch, -1).float().abs().amax(dim=1)
+                plain = fusednorm.fused_instance_norm_act(x, fine, act=act,
+                                                          residual=r)
+                amax_err = (amax - want).abs().max().item()
+                ref, _ = fusednorm.fused_instance_norm_act_amax_plain(
+                    x, fine, act=act, residual=r)
+                within, err, tol, over_ulps = norm_within_bounds(
+                    out, ref, x, fine, act, r)
+                if dt == torch.bfloat16:
+                    worst = max(worst, err.max().item())
+                ok = (within and torch.equal(out, plain)
+                      and torch.equal(amax, want)
+                      and torch.equal(again[0], out)
+                      and torch.equal(again[1], amax)
+                      and launched == plan.launches)
+                log(check="fusednorm_amax", shape=list(shape), fine=fine,
+                    act=act, residual=r is not None, dtype=str(dt),
+                    route=plan.route, launches=launched,
+                    max_abs_err=err.max().item(), tol=tol,
+                    over_ulps=over_ulps, within_bounds=within,
+                    out_equal_plain_variant=torch.equal(out, plain),
+                    amax_err=amax_err, amax_tol="torch.equal", ok=ok)
+                if not ok:
+                    raise AssertionError(f"fusednorm absmax variant at "
+                                         f"{shape} {fine} {act} {dt}")
+                del out, again, plain, ref
+    if routes != {"fused", "split"}:
+        raise AssertionError(f"absmax variant checked on {routes} only")
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_int8_k7(predictor, x, what):
+    """One B=8 int8 forward on ``x`` with each K7 call's xq and stats held
+    to quantize_absmax_plain's on the same input (torch.equal, on both
+    routes), then the forward itself torch.equal to the same forward with
+    K7 replaced by the plain quantizer (K6 the kernel in both).  Returns
+    the row."""
+    orig = quant.quantize_input
+    calls, unequal = collections.Counter(), []
+
+    def checked(x, amax=None):
+        route = "grid" if amax is None else "from_amax"
+        got = orig(x, amax)
+        want = quant.quantize_absmax_plain(x.contiguous())
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            unequal.append(dict(
+                call=sum(calls.values()), shape=list(x.shape), route=route,
+                stats=got[1].tolist(), plain_stats=want[1].tolist(),
+                xq_differing=int((got[0] != want[0]).sum())))
+        calls[route] += 1
+        return got
+
+    def plain(x, amax=None):
+        return quant.quantize_absmax_plain(x.contiguous())
+    live = predictor.seg_probs(x)
+    outs = {}
+    for name, fn in (("checked", checked), ("plain_k7", plain)):
+        quant.quantize_input = fn
+        try:
+            outs[name] = predictor.seg_probs(x)
+        finally:
+            quant.quantize_input = orig
+    row = dict(k7_calls=dict(calls), k7_unequal=unequal,
+               forward_equal_plain_k7=torch.equal(live, outs["plain_k7"]),
+               max_abs_dprob=(live - outs["plain_k7"]).abs().max().item())
+    log(check="int8_forward_k7_vs_plain", forward=what, tol="torch.equal",
+        ok=not unequal and row["forward_equal_plain_k7"], **row)
+    if unequal or not row["forward_equal_plain_k7"]:
+        raise AssertionError(f"K7 in the {what} forward: {row}")
+    return row
+
+
+def profile_int8_forward(engines, vol, path):
+    """One B=8 bf16 forward of the float and the int8 engine of a path,
+    each under torch.profiler after a warm one: the device time of K1
+    (both variants: norm_kernel), of K7 by route (from_amax_kernel,
+    grid_kernel) and of the whole forward.  Fails unless the profiler saw
+    each kernel's launches."""
+    x = Predictor.crops(vol)
+    row, s2d = {}, path == "s2d"
+    for spec in ("none", "int8"):
+        engines[spec].seg_probs(x)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            engines[spec].seg_probs(x)
+            torch.cuda.synchronize()
+        found = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for name in ("norm_kernel", "from_amax_kernel", "grid_kernel"):
+                if name in e.name:
+                    found[name].append(e.time_range.end - e.time_range.start)
+        want = {"norm_kernel": norm_launches(torch.bfloat16, s2d),
+                "from_amax_kernel": 0, "grid_kernel": 0}
+        if spec == "int8":
+            want.update(from_amax_kernel=K7_CALLS[path, "int8"]["from_amax"],
+                        grid_kernel=K7_CALLS[path, "int8"]["grid"])
+        got = {k: len(found[k]) for k in want}
+        row[spec] = dict({f"{k}_device_ms": sum(v) / 1e3
+                          for k, v in found.items()}, kernels=got,
+                         forward_device_busy_ms=device_busy_ms(prof))
+        if got != want:
+            raise AssertionError(f"profiled {spec} forward ({path}): "
+                                 f"kernels {got}, expected {want}")
+    row["k1_amax_cost_ms"] = (row["int8"]["norm_kernel_device_ms"]
+                              - row["none"]["norm_kernel_device_ms"])
+    row["k7_device_ms"] = sum(row["int8"].get(f"{k}_device_ms", 0.0)
+                              for k in ("from_amax_kernel", "grid_kernel"))
+    log(timing="int8_forward_profile", path=path, unit="ms per B=8 bf16 "
+        "forward (device time)", **row)
+    return row
+
+
+def run_int8_main_path(dev, cfg_kw, weights, volumes, calls):
     """bf16 tiled_probs with quantize='int8' on the direct path and the
     s2d path (dense conv3), against the float engine on the same weights,
     the two in turns over the volumes: each int8 call's launches those of
     one forward (K6 and K7 as pinned, K1-K3 as the float path's);
     finite probabilities that sum to one; the drift against the float
     engine within INT8_DRIFT (mean |dp| < 0.01; argmax agreement > 0.98
-    direct, > 0.96 s2d).  Then one int8_all B=8 forward's launches, and
-    Predictor(fold_params=True) equal to the unfolded engine bit for
-    bit.  Returns {path: row}."""
+    direct, > 0.96 s2d).  Then one int8_all B=8 forward's launches, each
+    K7 call of the int8 and int8_all forwards and both forwards against
+    the plain quantizer (check_int8_k7), one profiled forward of each
+    engine, and Predictor(fold_params=True) equal to the unfolded engine
+    bit for bit.  Returns {path: row}."""
     rows = {}
     for path in PATHS:
         engines = {spec: Predictor(int8_model(dev, cfg_kw, weights, path,
                                               spec), device=dev)
                    for spec in ("none", "int8")}
-        expected = int8_expected(path, "int8")
+        expected = int8_expected(calls, path, "int8")
         row = collections.defaultdict(list)
         for i, vol in enumerate(volumes):
             outs = {}
@@ -1451,7 +1708,11 @@ def run_int8_main_path(dev, cfg_kw, weights, volumes):
         torch.cuda.synchronize()
         row["int8_all_launches"] = expect_launches(
             f"int8_all forward ({path})", read_launches(),
-            int8_expected(path, "int8_all"))
+            int8_expected(calls, path, "int8_all"))
+        row["k7_vs_plain"] = {
+            "int8": check_int8_k7(engines["int8"], x, f"{path} int8"),
+            "int8_all": check_int8_k7(every, x, f"{path} int8_all")}
+        row["profile"] = profile_int8_forward(engines, volumes[0], path)
         del every, x
         # fold_params: the same ops on cached weights, the same bits
         folded = Predictor(engines["int8"].model, device=dev,
@@ -1483,10 +1744,14 @@ def run_int8_witness(dev, cfg_kw, weights, volume):
     INT8_DRIFT as the kernels' forward is.  Returns {path: row}."""
     t0 = time.perf_counter()
     crop = Predictor.crops(volume)[:1]
-    orig = quant.conv3d_int8_prepared
+    orig, orig_k7 = quant.conv3d_int8_prepared, quant.quantize_input
 
-    def plain(x, wq, sw, stride=1, padding=1, bias=None):
-        xq, stats = quant.quantize_absmax_plain(x.contiguous())
+    def plain_k7(x, amax=None):
+        return quant.quantize_absmax_plain(x.contiguous())
+
+    def plain(x, wq, sw, stride=1, padding=1, bias=None, amax=None,
+              quantized=None):
+        xq, stats = quantized or plain_k7(x)
         b = None if bias is None else bias.to(x.dtype)
         return quant.int8_conv3d_plain(xq, stats, wq, sw, b, stride,
                                        padding, x.dtype)
@@ -1501,12 +1766,15 @@ def run_int8_witness(dev, cfg_kw, weights, volume):
                                                  spec), device=dev)
                 reset_launches()
                 quant.conv3d_int8_prepared = plain
+                quant.quantize_input = plain_k7
                 try:
                     probs[spec] = predictor.seg_probs(crop)
                 finally:
                     quant.conv3d_int8_prepared = orig
+                    quant.quantize_input = orig_k7
                 launches = read_launches()
-                if launches["int8_conv3d"] or launches["quantize_absmax"]:
+                if launches["int8_conv3d"] or launches["quantize_absmax"] \
+                        or launches["quantize_from_amax"]:
                     raise AssertionError(f"int8 witness ({path}) launched "
                                          f"K6/K7: {launches}")
                 del predictor
@@ -1531,7 +1799,7 @@ def run_int8_witness(dev, cfg_kw, weights, volume):
     return rows
 
 
-def run_int8_bundle(dev, cfg_kw, weights):
+def run_int8_bundle(dev, cfg_kw, weights, calls):
     """Phase 4d for int8: a bf16 int8 ``tiling`` bundle on the direct path,
     exported on the card and loaded fresh, equal bit for bit to the live
     int8 tiled_probs on a seeded volume, each launching one forward's
@@ -1541,7 +1809,7 @@ def run_int8_bundle(dev, cfg_kw, weights):
     vol = rng.standard_normal(VOLUME, dtype=np.float32)
     predictor = Predictor(int8_model(dev, cfg_kw, weights, "direct",
                                      "int8"), device=dev)
-    forward = int8_expected("direct", "int8")
+    forward = int8_expected(calls, "direct", "int8")
     row = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "tiling_int8")
@@ -1657,29 +1925,74 @@ def time_k6(dev, g, x_shape, w_shape, stride, pads, iters=10, plain=True,
     return row
 
 
+K7_TIMED = ("grid", "split", "from_amax")
+
+
 def time_k7(dev, g, shape, iters=10):
-    """K7 on a bf16 activation: call and card time, plain version's time;
-    the bound (x read once, xq written once) and the two-pass floor (x read
-    twice, by the absmax and by the quantize)."""
+    """K7 on a bf16 activation, on each route (grid, its two-launch split,
+    and from_amax with the per-sample absmax a fused norm reports): call
+    time (CUDA events, back to back) and the card's time (queued_ms); the
+    plain version's time; the bound (x read once, xq written once) and the
+    two-pass floor (x read twice, by the absmax and by the quantize)."""
     x = torch.randn(shape, device=dev, generator=g).bfloat16()
+    slots = x.reshape(shape[0], -1).float().abs().amax(dim=1)
+    calls = {"grid": lambda: quant.quantize_absmax(x),
+             "split": lambda: quant._quantize_launch(x, split=True),
+             "from_amax": lambda: quant.quantize_from_amax(x, slots)}
     row = dict(shape=list(shape))
-    row["ms"] = time_ms(lambda: quant.quantize_absmax(x), iters)
-    row["device_ms"] = queued_ms(lambda: quant.quantize_absmax(x), iters)
+    for route in K7_TIMED:
+        row[f"{route}_ms"] = time_ms(calls[route], iters)
+        row[f"{route}_device_ms"] = queued_ms(calls[route], iters)
     row["plain_ms"] = time_ms(lambda: quant.quantize_absmax_plain(x), iters)
     xb, qb = x.numel() * x.element_size(), x.numel()
     row["bound_ms"] = (xb + qb) / HBM_BYTES_PER_S * 1e3
     row["two_pass_floor_ms"] = (2 * xb + qb) / HBM_BYTES_PER_S * 1e3
-    del x
+    del x, slots
+    return row
+
+
+def time_k1_amax(dev, g, shape, fine, res, iters=5):
+    """K1's absmax variant at one call of a forward (bf16, relu without a
+    residual, lrelu with one): call and card time, the card time of the
+    plain variant on the same input (the difference is what the absmax
+    costs), the plain PyTorch version's time, and the bound (x and the
+    residual read once, the output written once)."""
+    x = torch.randn(shape, device=dev, generator=g).bfloat16()
+    r = torch.randn(shape, device=dev, generator=g).bfloat16() if res \
+        else None
+    act = "lrelu" if res else "relu"
+    row = dict(shape=list(shape), residual=res, fine=fine)
+
+    def amax():
+        return fusednorm.fused_instance_norm_act_amax(x, fine, act=act,
+                                                      residual=r)
+
+    def plain_variant():
+        return fusednorm.fused_instance_norm_act(x, fine, act=act,
+                                                 residual=r)
+    row["ms"] = time_ms(amax, iters)
+    row["device_ms"] = queued_ms(amax, iters)
+    row["plain_variant_device_ms"] = queued_ms(plain_variant, iters)
+    row["amax_cost_ms"] = row["device_ms"] - row["plain_variant_device_ms"]
+    row["plain_ms"] = time_ms(
+        lambda: fusednorm.fused_instance_norm_act_amax_plain(
+            x, fine, act=act, residual=r), 2, warmup=1)
+    row["bound_ms"] = (x.numel() * x.element_size() * (3 if res else 2)
+                       / HBM_BYTES_PER_S * 1e3)
+    del x, r
     return row
 
 
 def time_int8(dev, calls):
     """Phase 5 for int8: K6 at the s2d full-resolution dense conv (B=8,
     64^3 x 128 -> 128, K = 3456) and at en3 (B=8, 32^3 x 64 -> 64), with
-    torch._int_mm on the im2col beside it; K7 at both inputs; then the sums
-    over one B=8 forward's calls on each path under int8 (K6: call and
-    card time, cuDNN's bf16 conv, the bound; K7: call and card time, the
-    bound; the plain versions on the direct path)."""
+    torch._int_mm on the im2col beside it; K7 at both inputs on each
+    route; then the sums over one B=8 forward's calls on each path under
+    int8 (K6: call and card time, cuDNN's bf16 conv, the bound; K7: call
+    and card time of each call on its route, and of every call on each
+    route, the bound and the two-pass floor; K1's absmax variant at each
+    call that reports one, and what the absmax adds to its card time; the
+    plain versions on the direct path)."""
     g = gen(dev, SEED + 15)
     named = {"s2d_fullres_dense": ((8, 64, 64, 64, 128), (128, 3, 3, 3, 128)),
              "en3": ((8, 32, 32, 32, 64), (64, 3, 3, 3, 64))}
@@ -1689,28 +2002,65 @@ def time_int8(dev, calls):
                              int_mm=True)
         rows[name]["k7"] = time_k7(dev, g, xs)
         log(timing="int8_conv3d", site=name, dtype="bfloat16", **rows[name])
+    k7_rows, k1_rows = {}, {}
     for path in PATHS:
-        sigs = collections.Counter(calls[path, "int8"])
+        sigs = collections.Counter(calls.k6[path, "int8"])
         per = collections.defaultdict(float)
         for (xs, ws, stride, pads), n in sigs.items():
             r = time_k6(dev, g, xs, ws, stride, pads, iters=5,
                         plain=path == "direct")
-            k7 = time_k7(dev, g, xs, iters=5)
             for key in ("ms", "device_ms", "library_ms", "bound_ms") + (
                     ("plain_ms",) if path == "direct" else ()):
                 per[key] += n * r[key]
-            for key in ("ms", "device_ms", "plain_ms", "bound_ms",
-                        "two_pass_floor_ms"):
-                per[f"k7_{key}"] += n * k7[key]
             ops, nbytes = k6_costs(xs, ws, stride, pads)
             per["ops"] += n * ops
             per["bytes"] += n * nbytes
         per = dict(per, calls=sum(sigs.values()), distinct=len(sigs))
         per["bound_by"] = ("operations" if per["ops"] / INT8_TOPS
                            > per["bytes"] / HBM_BYTES_PER_S else "bytes")
+        # K7: each call on the route the forward took, and every call on
+        # each route (what the forward would take on that route alone)
+        k7 = collections.defaultdict(float)
+        for (xs, route), n in collections.Counter(
+                calls.k7[path, "int8"]).items():
+            if xs not in k7_rows:
+                k7_rows[xs] = time_k7(dev, g, xs, iters=5)
+            t = k7_rows[xs]
+            for key in ("ms", "device_ms"):
+                k7[key] += n * t[f"{route}_{key}"]
+                k7[f"{route}_{key}"] += n * t[f"{route}_{key}"]
+            for other in K7_TIMED:
+                k7[f"all_{other}_device_ms"] += n * t[f"{other}_device_ms"]
+            for key in ("plain_ms", "bound_ms", "two_pass_floor_ms"):
+                k7[key] += n * t[key]
+                k7[f"{route}_{key}"] += n * t[key]
+            k7[f"{route}_calls"] += n
+        # K1's absmax variant at the norms that report one
+        for norm in calls.norms[path, "int8"]:
+            if norm not in k1_rows:
+                k1_rows[norm] = time_k1_amax(dev, g, *norm)
+            t = k1_rows[norm]
+            for key in ("ms", "device_ms", "amax_cost_ms", "plain_ms",
+                        "bound_ms"):
+                k7[f"k1_amax_{key}"] += t[key]
+        k7["device_ms_with_k1_amax_cost"] = (k7["device_ms"]
+                                             + k7["k1_amax_amax_cost_ms"])
+        # what a fused norm writing int8 itself would save where it has no
+        # residual and feeds only the int8 conv: its 2-byte write and K7's
+        # 2-byte read of each element (K7's int8 write becomes the norm's)
+        k7["k1_int8_saves_bytes"] = sum(4 * math.prod(shape) for shape, _, res
+                                        in calls.norms[path, "int8"]
+                                        if not res)
+        k7["k1_int8_saves_ms"] = (k7["k1_int8_saves_bytes"] / HBM_BYTES_PER_S
+                                  * 1e3)
+        per["k7"] = dict(k7)
         log(timing="int8_per_forward", path=path, quantize="int8",
             unit="per B=8 bf16 forward", **per)
         rows[f"forward_{path}"] = per
+    for xs, t in k7_rows.items():
+        log(timing="k7_call", **t)
+    for t in k1_rows.values():
+        log(timing="k1_amax_call", **t)
     return rows
 
 
@@ -1870,10 +2220,11 @@ def profile_forward(predictor, vol):
     torch.cuda.synchronize()
     orig, strided = unet._norm_act, []
 
-    def watched(t, eps, act, fused, s2d_view=False, residual=None):
+    def watched(t, eps, act, fused, s2d_view=False, residual=None,
+                amax=False):
         strided.append(not t.is_contiguous() or (
             residual is not None and not residual.is_contiguous()))
-        return orig(t, eps, act, fused, s2d_view, residual)
+        return orig(t, eps, act, fused, s2d_view, residual, amax)
     unet._norm_act = watched
     try:
         with torch.profiler.profile(activities=[
@@ -2075,6 +2426,7 @@ def main() -> int:
     # ---- 3. kernels vs plain versions
     check_norm_plan()
     norm_err = check_fusednorm(dev, NORM_WIDTHS)
+    norm_amax_err = check_fusednorm_amax(dev, NORM_WIDTHS)
     attn_err = check_attention(dev)
     check_attention_backward(dev)
     relayout_err = check_relayout(dev)
@@ -2150,7 +2502,7 @@ def main() -> int:
             fwd_row = profile_forward(predictor, volumes[0])
         del predictor, model
     # int8 on both paths, against the float engine in turns
-    int8_rows = run_int8_main_path(dev, cfg_kw, weights, volumes)
+    int8_rows = run_int8_main_path(dev, cfg_kw, weights, volumes, int8_calls)
     run_int8_witness(dev, cfg_kw, weights, volumes[0])
     del volumes
 
@@ -2161,7 +2513,7 @@ def main() -> int:
     eval_res, eval_launches = run_eval_path()
     log(phase="eval_path_memory",
         peak_memory_bytes=torch.cuda.max_memory_allocated())
-    eval_int8_res, eval_int8_launches = run_eval_path("int8")
+    eval_int8_res, eval_int8_launches = run_eval_path("int8", int8_calls)
 
     # ---- 4c. training path, full width: the checked run, then remat
     # 'full' and the direct path for their step time and memory
@@ -2186,7 +2538,7 @@ def main() -> int:
 
     # ---- 4d. serving bundles and the HTTP server, full width
     bundle_row = run_serving_bundles(dev, cfg_kw, weights)
-    int8_bundle_row = run_int8_bundle(dev, cfg_kw, weights)
+    int8_bundle_row = run_int8_bundle(dev, cfg_kw, weights, int8_calls)
 
     # ---- 5. timing
     for name, vol_ms in serving.items():
@@ -2311,6 +2663,7 @@ def main() -> int:
     ]
     fwd = int8_timing["forward_direct"]
     s2d_fwd = int8_timing["forward_s2d"]
+    k7d, k7s = fwd["k7"], s2d_fwd["k7"]
     kernels += [
         dict(name="int8_conv3d", route="cuda",
              source="dctseg_torch/csrc/int8conv.cu",
@@ -2328,20 +2681,40 @@ def main() -> int:
              ptxas=k6_ptxas(),
              unit="per B=8 bf16 int8 forward on the direct path (25 calls); "
                   "library: cuDNN's bf16 conv of each call"),
-        dict(name="quantize_absmax", route="cuda",
-             source="dctseg_torch/csrc/quantize.cu",
-             replaces="dctseg/ops/quant.py:131",
-             launches=eval_int8_launches["quantize_absmax"],
-             max_abs_err=quantize_err, ms=fwd["k7_ms"],
-             plain_ms=fwd["k7_plain_ms"], bound_ms=fwd["k7_bound_ms"],
-             bound_by="bytes", library_ms=None,
-             device_ms=fwd["k7_device_ms"],
-             two_pass_floor_ms=fwd["k7_two_pass_floor_ms"],
-             s2d_forward={k: s2d_fwd[f"k7_{k}"] for k in (
-                 "ms", "device_ms", "bound_ms")},
-             unit="per B=8 bf16 int8 forward on the direct path (25 calls, "
-                  "2 launches each)"),
+        dict(name="fusednorm_amax", route="cuda",
+             source="dctseg_torch/csrc/fusednorm.cu",
+             replaces="dctseg/ops/pallas/fusednorm.py:127",
+             launches=eval_int8_launches["fusednorm_amax"],
+             max_abs_err=norm_amax_err, ms=k7d["k1_amax_ms"],
+             plain_ms=k7d["k1_amax_plain_ms"],
+             bound_ms=k7d["k1_amax_bound_ms"], bound_by="bytes",
+             library_ms=None, device_ms=k7d["k1_amax_device_ms"],
+             amax_cost_device_ms=k7d["k1_amax_amax_cost_ms"],
+             in_forward_amax_cost_ms={
+                 p: r["profile"]["k1_amax_cost_ms"]
+                 for p, r in int8_rows.items()},
+             s2d_forward={k: k7s[f"k1_amax_{k}"] for k in (
+                 "ms", "device_ms", "amax_cost_ms", "bound_ms")},
+             unit=f"per B=8 bf16 int8 forward on the direct path "
+                  f"({K7_CALLS['direct', 'int8']['from_amax']} calls)"),
     ]
+    for name, route in (("quantize_absmax", "grid"),
+                        ("quantize_from_amax", "from_amax")):
+        kernels.append(dict(
+            name=name, route="cuda", source="dctseg_torch/csrc/quantize.cu",
+            replaces="dctseg/ops/quant.py:130",
+            launches=eval_int8_launches[name], max_abs_err=quantize_err,
+            ms=k7d[f"{route}_ms"], plain_ms=k7d[f"{route}_plain_ms"],
+            bound_ms=k7d[f"{route}_bound_ms"], bound_by="bytes",
+            library_ms=None, device_ms=k7d[f"{route}_device_ms"],
+            two_pass_floor_ms=k7d[f"{route}_two_pass_floor_ms"],
+            s2d_forward={k: k7s[f"{route}_{k}"] for k in (
+                "ms", "device_ms", "bound_ms", "two_pass_floor_ms")},
+            unit=f"per B=8 bf16 int8 forward on the direct path "
+                 f"({K7_CALLS['direct', 'int8'][route]} calls, one launch "
+                 f"each)"))
+    kernels[-1]["forward"] = {p: int8_timing[f"forward_{p}"]["k7"]
+                              for p in PATHS}
     # ---- 6. result
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,17 @@
 //         partition, for larger tensors.
 //   * The workspace (partials, a and b, tickets, flags) is the caller's,
 //     kept across calls: nothing is allocated or zeroed per call.
+//   * The absmax variant (AMAX) also reports, per sample, the max of |out|
+//     over every element it writes (after the cast and the residual add):
+//     the input statistic of the int8 activation quantizer (quantize.cu),
+//     which then reads x once instead of twice.  Each thread keeps the max
+//     of the bit patterns of |out| with the sign cleared (ordered like the
+//     floats for non-negative values, a NaN above inf, as quantize.cu
+//     orders them); warp and block reductions, then one atomicMax per block
+//     on the sample's slot.  The sample's last statistics block zeroes the
+//     slot before any apply block of the call runs: before it raises the
+//     sample's flag on the fused route, in the statistics launch on the
+//     split route.  No memset.
 
 #include <stdint.h>
 
@@ -70,6 +81,7 @@ struct Params {
   float* partial;             // [n][bps][2][c]: sums, then squares
   unsigned* tickets;          // [n], zero between calls
   unsigned* flags;            // [n], the epoch of the last fused call
+  unsigned* amax;             // [n] bits of max |out| (AMAX), else null
   int n, s, c, f, bps, rows_per_block, act;
   int staged;                 // fused route: packs a thread keeps in smem
   unsigned epoch;
@@ -145,7 +157,7 @@ __device__ __forceinline__ void fold(int rows, int c, Load load, float* part,
   __syncthreads();
 }
 
-template <typename T, int VEC, int MODE, bool RES>
+template <typename T, int VEC, int MODE, bool RES, bool AMAX>
 __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
   using P = Pack<T, VEC>;
   __shared__ float rowsum[2 * kThreads * VEC];   // [rpi][c] sums, squares
@@ -256,6 +268,8 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
           abn[c + o * p.f + ch] = shift;
         }
       }
+      // the absmax slot starts this call at zero, before any apply block
+      if (tid == 0 && p.amax) p.amax[n] = 0u;
       __threadfence();
       __syncthreads();
       if (tid == 0) {
@@ -276,7 +290,8 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
     }
     __syncthreads();
   }
-  if (nk == 0) return;
+  // the absmax variant's block reduction needs every thread
+  if (!AMAX && nk == 0) return;
   float sa[VEC], sb[VEC];
   const float* abn = p.ab + (size_t)n * 2 * c + g * VEC;
 #pragma unroll
@@ -292,6 +307,7 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
     return k < staged ? stage[k * kThreads + tid]
                       : load_pack<T, VEC>(xs + (first + k * rpi) * c);
   };
+  unsigned m = 0;   // AMAX: the max bits of |out| this thread wrote
   auto apply = [&](const P& v, const P& r) {
     P o;
 #pragma unroll
@@ -299,6 +315,7 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
       const float y = to_f32(v.v[j]) * sa[j] + sb[j];
       const T yc = from_f32<T>(activate(y, p.act, p.slope));
       o.v[j] = RES ? from_f32<T>(to_f32(yc) + to_f32(r.v[j])) : yc;
+      if (AMAX) m = max(m, __float_as_uint(to_f32(o.v[j])) & 0x7fffffffu);
     }
     return o;
   };
@@ -321,25 +338,55 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
     if (RES) r = load_pack<T, VEC>(rs + off);
     *reinterpret_cast<P*>(os + off) = apply(fetch(k), r);
   }
+  if (AMAX) {
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    // part is free again: the statistics' fold() ended with a barrier
+    unsigned* warp_max = reinterpret_cast<unsigned*>(part);
+    if ((tid & 31) == 0) warp_max[tid >> 5] = m;
+    __syncthreads();
+    if (tid < 32) {
+      m = tid < kThreads / 32 ? warp_max[tid] : 0u;
+#pragma unroll
+      for (int off = 4; off; off >>= 1)
+        m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (tid == 0) atomicMax(p.amax + n, m);
+    }
+  }
+}
+
+template <typename T, int VEC, int MODE, bool RES>
+const void* kernel_with(bool amax) {
+  if (amax)
+    return reinterpret_cast<const void*>(&norm_kernel<T, VEC, MODE, RES, true>);
+  return reinterpret_cast<const void*>(&norm_kernel<T, VEC, MODE, RES, false>);
 }
 
 template <typename T, int VEC, int MODE>
-const void* kernel_of(bool res) {
-  return res ? reinterpret_cast<const void*>(&norm_kernel<T, VEC, MODE, true>)
-             : reinterpret_cast<const void*>(&norm_kernel<T, VEC, MODE, false>);
+const void* kernel_of(bool res, bool amax) {
+  if constexpr (MODE == kStats)
+    return reinterpret_cast<const void*>(&norm_kernel<T, VEC, kStats, false,
+                                                      false>);
+  else
+    return res ? kernel_with<T, VEC, MODE, true>(amax)
+               : kernel_with<T, VEC, MODE, false>(amax);
 }
 
-// The kernel for (dtype, vec, mode, residual); the stats pass ignores the
-// residual.
+// The kernel for (dtype, vec, mode, residual, absmax); the stats pass
+// ignores the residual and the absmax (it only zeroes the slots).
 template <int MODE>
-const void* pick(int dtype, int vec, bool res) {
+const void* pick(int dtype, int vec, bool res, bool amax) {
   res = res && MODE != kStats;
-  if (dtype == kF32 && vec == 4) return kernel_of<float, 4, MODE>(res);
-  if (dtype == kF32 && vec == 1) return kernel_of<float, 1, MODE>(res);
-  if (dtype == kBF16 && vec == 8) return kernel_of<__nv_bfloat16, 8, MODE>(res);
-  if (dtype == kBF16 && vec == 1) return kernel_of<__nv_bfloat16, 1, MODE>(res);
-  if (dtype == kF16 && vec == 8) return kernel_of<__half, 8, MODE>(res);
-  if (dtype == kF16 && vec == 1) return kernel_of<__half, 1, MODE>(res);
+  amax = amax && MODE != kStats;
+  if (dtype == kF32 && vec == 4) return kernel_of<float, 4, MODE>(res, amax);
+  if (dtype == kF32 && vec == 1) return kernel_of<float, 1, MODE>(res, amax);
+  if (dtype == kBF16 && vec == 8)
+    return kernel_of<__nv_bfloat16, 8, MODE>(res, amax);
+  if (dtype == kBF16 && vec == 1)
+    return kernel_of<__nv_bfloat16, 1, MODE>(res, amax);
+  if (dtype == kF16 && vec == 8) return kernel_of<__half, 8, MODE>(res, amax);
+  if (dtype == kF16 && vec == 1) return kernel_of<__half, 1, MODE>(res, amax);
   return nullptr;
 }
 
@@ -352,21 +399,26 @@ cudaError_t blocks_per_sm(const void* k, size_t smem, int* out) {
 
 using namespace dctseg;
 
-// What the card holds at once, for (dtype, vec, residual), on the current
-// device.  Split route (fused == 0): the blocks of the less-occupying of
-// its two kernels, one wave.  Fused route: the blocks of its kernel (the
-// largest grid its cooperative launch takes) and the shared memory each
-// block may stage rows in without lowering that count; also raises the
-// kernel's dynamic shared-memory limit to match.
+// What the card holds at once, for (dtype, vec, residual) and the variant
+// (amax: with the absmax output), on the current device; each variant has
+// its own plan, so the plain variant's never depends on the absmax one's.
+// Split route (fused == 0): the blocks of the less-occupying of its two
+// kernels, one wave.  Fused route: the blocks of its kernel (the largest
+// grid its cooperative launch takes) and the shared memory each block may
+// stage rows in without lowering that count; also raises the kernel's
+// dynamic shared-memory limit to match.
 extern "C" int dctseg_fusednorm_coresident(int dtype, int vec, int fused,
-                                           int res, int* blocks,
+                                           int res, int amax, int* blocks,
                                            int* stage_bytes) {
-  const void* k = fused ? pick<kFused>(dtype, vec, res)
-                        : pick<kStats>(dtype, vec, res);
-  const void* apply = fused ? k : pick<kApply>(dtype, vec, res);
-  if (!k) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, optin = 0, sm_smem = 0, per_sm = 0, per_sm2 = 0;
-  cudaFuncAttributes attr;
+  const void* ks[2] = {
+      fused ? pick<kFused>(dtype, vec, res, amax)
+            : pick<kStats>(dtype, vec, res, false),
+      fused ? nullptr : pick<kApply>(dtype, vec, res, amax)};
+  const int nk = fused ? 1 : 2;
+  for (int i = 0; i < nk; ++i)
+    if (!ks[i]) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, optin = 0, sm_smem = 0, per_sm = 1 << 30;
+  int static_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                          dev);
@@ -374,34 +426,44 @@ extern "C" int dctseg_fusednorm_coresident(int dtype, int vec, int fused,
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (!err) err = cudaDeviceGetAttribute(
       &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (!err) err = blocks_per_sm(k, 0, &per_sm);
-  if (!err) err = blocks_per_sm(apply, 0, &per_sm2);
-  if (!err) err = cudaFuncGetAttributes(&attr, k);
+  for (int i = 0; i < nk && !err; ++i) {
+    int got = 0;
+    cudaFuncAttributes attr;
+    err = blocks_per_sm(ks[i], 0, &got);
+    if (!err) err = cudaFuncGetAttributes(&attr, ks[i]);
+    per_sm = min(per_sm, got);
+    static_smem = max(static_smem, (int)attr.sharedSizeBytes);
+  }
   if (err) return err;
-  per_sm = min(per_sm, per_sm2);
   *blocks = per_sm * sms;
   *stage_bytes = 0;
   if (!fused || per_sm < 1) return cudaSuccess;
-  const int room = optin - (int)attr.sharedSizeBytes;
-  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             room);
+  const int room = optin - static_smem;
+  for (int i = 0; i < nk && !err; ++i)
+    err = cudaFuncSetAttribute(ks[i],
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               room);
   // the block's share of the SM, less its static part (and the 1 KB the
   // SM reserves per block), in whole 4 KB steps, as long as the count holds
-  int bytes = max(0, min(room, sm_smem / per_sm - 1024 -
-                                   (int)attr.sharedSizeBytes)) & ~4095;
-  int with = 0;
-  while (!err && bytes > 0 && !(err = blocks_per_sm(k, bytes, &with)) &&
-         with < per_sm)
+  int bytes = max(0, min(room, sm_smem / per_sm - 1024 - static_smem))
+              & ~4095;
+  while (!err && bytes > 0) {
+    int with = per_sm;
+    for (int i = 0; i < nk && !err && with >= per_sm; ++i)
+      err = blocks_per_sm(ks[i], bytes, &with);
+    if (with >= per_sm) break;
     bytes -= 4096;
+  }
   *stage_bytes = bytes;
   return err;
 }
 
 // args (int64, ops/fusednorm.py _launch): x, residual (0 for none), out,
 // ab, partial, tickets, flags, n, s, c, f, bps, rows_per_block, act, dtype,
-// vec, fused, epoch, staged.  The wrapper guarantees c / vec <= 256, f | c,
-// s * c < 2^31, 16-byte pointers where vec > 1, and for the fused route a
-// grid of bps * n co-resident blocks.
+// vec, fused, epoch, staged, amax (0 for none: the plain variant).  The
+// wrapper guarantees c / vec <= 256, f | c, s * c < 2^31, 16-byte pointers
+// where vec > 1, and for the fused route a grid of bps * n co-resident
+// blocks.
 extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
                                 void* stream) {
   Params p;
@@ -423,9 +485,10 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
   const bool fused = a[16] != 0;
   p.epoch = (unsigned)a[17];
   p.staged = (int)a[18];
+  p.amax = reinterpret_cast<unsigned*>(a[19]);
   p.eps = eps;
   p.slope = slope;
-  const bool res = p.res != nullptr;
+  const bool res = p.res != nullptr, amax = p.amax != nullptr;
   if (p.c % vec || p.c / vec > kThreads || p.f < 1 || p.c % p.f ||
       p.bps < 1 || p.n < 1 || p.n > 65535 || p.staged < 0)
     return cudaErrorInvalidValue;
@@ -433,14 +496,14 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
   const dim3 block(kThreads);
   void* args[] = {&p};
   if (fused) {
-    const void* k = pick<kFused>(dtype, vec, res);
+    const void* k = pick<kFused>(dtype, vec, res, amax);
     if (!k) return cudaErrorInvalidValue;
     const size_t pack = (size_t)vec * (dtype == kF32 ? 4 : 2);
     return cudaLaunchCooperativeKernel(k, dim3(p.bps, p.n), block, args,
                                        (size_t)p.staged * kThreads * pack, st);
   }
-  const void* stats = pick<kStats>(dtype, vec, false);
-  const void* apply = pick<kApply>(dtype, vec, res);
+  const void* stats = pick<kStats>(dtype, vec, false, false);
+  const void* apply = pick<kApply>(dtype, vec, res, amax);
   if (!stats || p.staged) return cudaErrorInvalidValue;
   cudaError_t err = cudaLaunchKernel(stats, dim3(p.bps, p.n), block, args, 0,
                                      st);

@@ -11,15 +11,29 @@
 // stats[0] receives amax and stats[1] sx, both on the card, so that K6
 // reads the scale without a host sync.
 //
-// Two launches on the caller's stream, after a 4-byte memset of stats[0]:
-//   1. absmax: a grid-stride pass; each thread keeps the max of the bit
-//      patterns of |x| (sign cleared), which orders like the floats for
-//      non-negative values and puts a NaN above inf; warp and block
-//      reductions, then one atomicMax per block on stats[0];
-//   2. quantize: a grid-stride pass that reads stats[0], computes sx and
-//      writes int8 (block 0 also writes sx to stats[1]).
-// Bound on the H100: bytes (x read twice, xq written once); each thread
-// moves VEC elements (16 bytes of x where the widths allow) per step.
+// Bound on the H100: bytes.  The function must read x once and write xq
+// once; the absmax must be known before the first byte is quantized, so a
+// kernel that finds it itself reads x twice.  Each thread moves VEC
+// elements (16 bytes of x where the widths allow) per step, kUnroll steps
+// in flight.  A true division per element would make the quantize pass
+// bound by instructions instead (quantize_one says how it avoids one).
+// Max |x| is kept as the max of the bit patterns of |x| with the sign
+// cleared, which orders like the floats for non-negative values and puts
+// a NaN above inf.  One launch a call on every route, and no memset:
+//   from_amax -- x was written by the fused norm (fusednorm.cu), which
+//     already reduced max |x| per sample into `amax`: each block folds
+//     those few slots, computes sx, and the grid quantizes x in one
+//     grid-stride read (block 0 writes stats).  One read of x.
+//   grid -- any other x: one cooperative launch of co-resident blocks.
+//     Each block reduces its grid-stride share of x, then one atomicMax on
+//     a word of the caller's workspace and a ticket; the block that draws
+//     the last ticket reads the word back and zeroes it (and the ticket)
+//     for the next call, writes stats, and raises a flag to this call's
+//     epoch, which the other blocks wait for.  Then every block quantizes
+//     its share, walking it backwards, so that it starts on what the
+//     absmax read last, the part most likely still in L2.
+//   split -- the grid route as two ordinary launches (absmax, then
+//     quantize): the same kernel, for comparing the two on the card.
 
 #include <cstdint>
 
@@ -29,23 +43,71 @@ namespace dctseg {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;        // vectors in flight a thread
+// About a second of polling before a barrier that never opens traps
+// instead of hanging the card.
+constexpr unsigned kMaxSpins = 1u << 24;
+
+enum Phase : int { kBoth = 0, kAbsmaxOnly = 1, kQuantizeOnly = 2 };
+
+// The caller's workspace of the grid route, zero between calls except
+// `flag`, which holds the epoch of the last call.
+struct Workspace {
+  unsigned* amax;     // bits of max |x| of the running call
+  unsigned* ticket;   // blocks that have added theirs
+  unsigned* flag;     // the epoch of the last call whose absmax is final
+};
+
+__device__ __forceinline__ unsigned abs_bits(float v) {
+  return __float_as_uint(v) & 0x7fffffffu;
+}
+
+// sx of an absmax; fmaxf would drop a NaN that jnp.maximum keeps
+__device__ __forceinline__ float scale_of(float amax) {
+  return __fdiv_rn(isnan(amax) ? amax : fmaxf(amax, 1e-12f), 127.0f);
+}
+
+// 1.5 * 2^23: adding it to a float of [-127, 127] rounds it to the nearest
+// integer, ties to even, into the low bits of the sum's significand
+constexpr float kMagic = 12582912.0f;
+constexpr int kMagicBits = 0x4B400000;
+// |v * rcp - v / sx| <= 127 * 2^-23 and |fl(v / sx) - v / sx| <= 127 *
+// 2^-24 for |v| <= amax: below 2.3e-5 together, under half of this band
+constexpr float kTieBand = 1.0f / 16384.0f;
+
+// int8(clip(round_half_even(fl(v / sx)), -127, 127)), fl the correctly
+// rounded division, from the product v * rcp (rcp = 1 / sx correctly
+// rounded): the two lie within 2.3e-5 of each other, so they round to the
+// same integer unless the product lies within kTieBand of a half-integer,
+// and only there is the quotient computed.  Clipping before rounding
+// gives the same integer as after; a NaN clips to -127 either way.
+__device__ __forceinline__ int8_t quantize_one(float v, float sx,
+                                               float rcp) {
+  float c = fminf(fmaxf(__fmul_rn(v, rcp), -127.0f), 127.0f);
+  float t = __fadd_rn(c, kMagic);
+  if (fabsf(fabsf(__fsub_rn(c, __fsub_rn(t, kMagic))) - 0.5f) < kTieBand) {
+    c = fminf(fmaxf(__fdiv_rn(v, sx), -127.0f), 127.0f);
+    t = __fadd_rn(c, kMagic);
+  }
+  return static_cast<int8_t>(__float_as_int(t) - kMagicBits);
+}
 
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-absmax_kernel(const T* __restrict__ x, long long vectors,
-              unsigned int* __restrict__ amax_bits) {
-  unsigned int m = 0;
-  for (long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
-       v < vectors; v += (long long)gridDim.x * kThreads) {
-    const Pack<T, VEC> p = reinterpret_cast<const Pack<T, VEC>*>(x)[v];
+__device__ __forceinline__ Pack<int8_t, VEC> quantize_pack(
+    const Pack<T, VEC>& p, float sx, float rcp) {
+  Pack<int8_t, VEC> o;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      m = max(m, __float_as_uint(to_f32(p.v[j])) & 0x7fffffffu);
-  }
+  for (int j = 0; j < VEC; ++j)
+    o.v[j] = quantize_one(to_f32(p.v[j]), sx, rcp);
+  return o;
+}
+
+// The block's max of m, valid in thread 0.
+__device__ __forceinline__ unsigned block_max(unsigned m) {
+  __shared__ unsigned warp_max[kThreads / 32];
 #pragma unroll
   for (int off = 16; off; off >>= 1)
     m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  __shared__ unsigned int warp_max[kThreads / 32];
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
   if (threadIdx.x < 32) {
@@ -53,49 +115,160 @@ absmax_kernel(const T* __restrict__ x, long long vectors,
 #pragma unroll
     for (int off = 4; off; off >>= 1)
       m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (threadIdx.x == 0) atomicMax(amax_bits, m);
+  }
+  return m;
+}
+
+// Quantizes this thread's grid-stride vectors of x with scale sx, from
+// the first (forward) or from the last.
+template <typename T, int VEC>
+__device__ __forceinline__ void quantize_share(const T* __restrict__ x,
+                                               long long vectors, float sx,
+                                               int8_t* __restrict__ q,
+                                               bool backward) {
+  using P = Pack<T, VEC>;
+  using Q = Pack<int8_t, VEC>;
+  const P* xv = reinterpret_cast<const P*>(x);
+  Q* qv = reinterpret_cast<Q*>(q);
+  const float rcp = __frcp_rn(sx);
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long v0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long count = v0 < vectors ? (vectors - v0 + stride - 1) / stride
+                                       : 0;
+  long long k = 0;
+  for (; k + kUnroll <= count; k += kUnroll) {
+    P p[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long kk = backward ? count - 1 - (k + u) : k + u;
+      p[u] = xv[v0 + kk * stride];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long kk = backward ? count - 1 - (k + u) : k + u;
+      qv[v0 + kk * stride] = quantize_pack<T, VEC>(p[u], sx, rcp);
+    }
+  }
+  for (; k < count; ++k) {
+    const long long kk = backward ? count - 1 - k : k;
+    qv[v0 + kk * stride] = quantize_pack<T, VEC>(xv[v0 + kk * stride], sx,
+                                                 rcp);
   }
 }
 
-__device__ __forceinline__ int8_t quantize_one(float v, float sx) {
-  const float r = fminf(fmaxf(rintf(__fdiv_rn(v, sx)), -127.0f), 127.0f);
-  return static_cast<int8_t>(__float2int_rn(r));
-}
-
+// Route from_amax: sx from the per-sample absmax slots the fused norm
+// wrote, then one read of x.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-quantize_kernel(const T* __restrict__ x, long long vectors,
-                float* __restrict__ stats, int8_t* __restrict__ q) {
-  const float amax = stats[0];
-  // fmaxf would drop a NaN that jnp.maximum keeps
-  const float sx = __fdiv_rn(isnan(amax) ? amax : fmaxf(amax, 1e-12f),
-                             127.0f);
-  if (blockIdx.x == 0 && threadIdx.x == 0) stats[1] = sx;
-  for (long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
-       v < vectors; v += (long long)gridDim.x * kThreads) {
-    const Pack<T, VEC> p = reinterpret_cast<const Pack<T, VEC>*>(x)[v];
-    Pack<int8_t, VEC> o;
+from_amax_kernel(const T* __restrict__ x, long long vectors,
+                 const float* __restrict__ slots, int nslots,
+                 float* __restrict__ stats, int8_t* __restrict__ q) {
+  unsigned bits = 0;
+  for (int i = 0; i < nslots; ++i) bits = max(bits, abs_bits(slots[i]));
+  const float amax = __uint_as_float(bits);
+  const float sx = scale_of(amax);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    stats[0] = amax;
+    stats[1] = sx;
+  }
+  quantize_share<T, VEC>(x, vectors, sx, q, false);
+}
+
+// Routes grid (phase kBoth, one cooperative launch) and split (kAbsmaxOnly
+// then kQuantizeOnly, two launches).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+grid_kernel(const T* __restrict__ x, long long vectors, Workspace ws,
+            unsigned epoch, int phase, float* __restrict__ stats,
+            int8_t* __restrict__ q) {
+  using P = Pack<T, VEC>;
+  __shared__ float block_sx;
+  if (phase != kQuantizeOnly) {
+    const P* xv = reinterpret_cast<const P*>(x);
+    const long long stride = (long long)gridDim.x * kThreads;
+    long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
+    unsigned m = 0;
+    for (; v + (kUnroll - 1) * stride < vectors; v += kUnroll * stride) {
+      P p[kUnroll];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) o.v[j] = quantize_one(to_f32(p.v[j]), sx);
-    reinterpret_cast<Pack<int8_t, VEC>*>(q)[v] = o;
+      for (int u = 0; u < kUnroll; ++u) p[u] = xv[v + u * stride];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          m = max(m, abs_bits(to_f32(p[u].v[j])));
+    }
+    for (; v < vectors; v += stride) {
+      const P p = xv[v];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) m = max(m, abs_bits(to_f32(p.v[j])));
+    }
+    m = block_max(m);
+    if (threadIdx.x == 0) {
+      atomicMax(ws.amax, m);
+      __threadfence();
+      if (atomicAdd(ws.ticket, 1u) == gridDim.x - 1) {
+        // every block's max is in: read it back and leave the word and
+        // the ticket at zero for the next call
+        __threadfence();
+        const float amax = __uint_as_float(atomicExch(ws.amax, 0u));
+        stats[0] = amax;
+        stats[1] = scale_of(amax);
+        *ws.ticket = 0u;
+        __threadfence();
+        if (phase == kBoth) atomicExch(ws.flag, epoch);
+      } else if (phase == kBoth) {
+        unsigned spins = 0;
+        while (*reinterpret_cast<volatile unsigned*>(ws.flag) != epoch) {
+          __nanosleep(64);
+          if (++spins > kMaxSpins) __trap();
+        }
+        __threadfence();
+      }
+    }
+    if (phase == kAbsmaxOnly) return;
+  }
+  if (threadIdx.x == 0) block_sx = __ldcg(stats + 1);
+  __syncthreads();
+  quantize_share<T, VEC>(x, vectors, block_sx, q, phase == kBoth);
+}
+
+int itemsize(int dtype) { return dtype == kF32 ? 4 : 2; }
+
+template <typename T, int VEC>
+const void* grid_kernel_of() {
+  return reinterpret_cast<const void*>(&grid_kernel<T, VEC>);
+}
+
+// grid_kernel for (dtype, vec), or null
+const void* pick_grid(int dtype, int vec) {
+  switch (dtype * 16 + vec) {
+    case kF32 * 16 + 4: return grid_kernel_of<float, 4>();
+    case kF32 * 16 + 2: return grid_kernel_of<float, 2>();
+    case kF32 * 16 + 1: return grid_kernel_of<float, 1>();
+    case kBF16 * 16 + 8: return grid_kernel_of<__nv_bfloat16, 8>();
+    case kBF16 * 16 + 4: return grid_kernel_of<__nv_bfloat16, 4>();
+    case kBF16 * 16 + 2: return grid_kernel_of<__nv_bfloat16, 2>();
+    case kBF16 * 16 + 1: return grid_kernel_of<__nv_bfloat16, 1>();
+    case kF16 * 16 + 8: return grid_kernel_of<__half, 8>();
+    case kF16 * 16 + 4: return grid_kernel_of<__half, 4>();
+    case kF16 * 16 + 2: return grid_kernel_of<__half, 2>();
+    case kF16 * 16 + 1: return grid_kernel_of<__half, 1>();
+    default: return nullptr;
   }
 }
 
 template <typename T>
-int launch(const void* x, long long n, int vec, int grid, float* stats,
-           int8_t* q, cudaStream_t stream) {
-  const long long vectors = n / vec;
-  unsigned int* bits = reinterpret_cast<unsigned int*>(stats);
+int launch_from_amax(const void* x, long long vectors, int vec, int grid,
+                     const float* slots, int nslots, float* stats, int8_t* q,
+                     cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   switch (vec) {
 #define DCTSEG_QUANT_CASE(V)                                                 \
     case V:                                                                  \
       if constexpr (V * sizeof(T) <= 16) {                                   \
-        absmax_kernel<T, V><<<grid, kThreads, 0, stream>>>(xt, vectors,      \
-                                                           bits);            \
-        if (cudaError_t e = cudaGetLastError()) return e;                    \
-        quantize_kernel<T, V><<<grid, kThreads, 0, stream>>>(xt, vectors,    \
-                                                             stats, q);      \
+        from_amax_kernel<T, V><<<grid, kThreads, 0, stream>>>(               \
+            xt, vectors, slots, nslots, stats, q);                           \
         return cudaGetLastError();                                           \
       }                                                                      \
       return cudaErrorInvalidValue;
@@ -108,31 +281,73 @@ int launch(const void* x, long long n, int vec, int grid, float* stats,
   }
 }
 
-int itemsize(int dtype) { return dtype == kF32 ? 4 : 2; }
-
 }  // namespace
 }  // namespace dctseg
 
 using namespace dctseg;
 
+// The blocks of the grid route's kernel for (dtype, vec) that the current
+// device holds at once: the largest grid its cooperative launch takes.
+extern "C" int dctseg_quantize_coresident(int dtype, int vec, int* blocks) {
+  const void* k = pick_grid(dtype, vec);
+  if (!k) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         dev);
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, k, kThreads, 0);
+  *blocks = per_sm * sms;
+  return err;
+}
+
 // args (int64, ops/quant.py _quantize_launch): x, q, stats, n, dtype, vec,
-// grid.  x: contiguous, n elements of dtype; q: n int8; stats: float32 [2].
-// A vector width that does not divide n or fit the pointers is refused.
-extern "C" int dctseg_quantize_absmax(const int64_t* a, void* stream) {
+// grid, route, amax slots, slot count, workspace, epoch.  x: contiguous, n
+// elements of dtype; q: n int8; stats: float32 [2].  Route 0 (from_amax):
+// the float32 slots, whose max is max |x|.  Routes 1 (grid: a grid of
+// co-resident blocks) and 2 (split): the workspace, three uint32 words,
+// zero but for the last (the epoch of the last grid call).  A vector width
+// that does not divide n or fit the pointers is refused.
+extern "C" int dctseg_quantize(const int64_t* a, void* stream) {
   const long long n = a[3];
   const int dtype = (int)a[4], vec = (int)a[5], grid = (int)a[6];
+  const int route = (int)a[7];
   if (n < 1 || grid < 1 || vec < 1 || n % vec || a[0] % (vec * itemsize(dtype))
-      || a[1] % vec || a[2] % 4)
+      || a[1] % vec || a[2] % 4 || vec * itemsize(dtype) > 16)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* stats = reinterpret_cast<float*>(a[2]);
-  if (cudaError_t e = cudaMemsetAsync(stats, 0, sizeof(float), s)) return e;
   const void* x = reinterpret_cast<const void*>(a[0]);
   int8_t* q = reinterpret_cast<int8_t*>(a[1]);
-  switch (dtype) {
-    case kF32: return launch<float>(x, n, vec, grid, stats, q, s);
-    case kBF16: return launch<__nv_bfloat16>(x, n, vec, grid, stats, q, s);
-    case kF16: return launch<__half>(x, n, vec, grid, stats, q, s);
-    default: return cudaErrorInvalidValue;
+  float* stats = reinterpret_cast<float*>(a[2]);
+  long long vectors = n / vec;
+  if (route == 0) {
+    const float* slots = reinterpret_cast<const float*>(a[8]);
+    const int nslots = (int)a[9];
+    if (nslots < 1 || a[8] % 4) return cudaErrorInvalidValue;
+    switch (dtype) {
+      case kF32: return launch_from_amax<float>(x, vectors, vec, grid, slots,
+                                                nslots, stats, q, s);
+      case kBF16: return launch_from_amax<__nv_bfloat16>(
+          x, vectors, vec, grid, slots, nslots, stats, q, s);
+      case kF16: return launch_from_amax<__half>(x, vectors, vec, grid, slots,
+                                                 nslots, stats, q, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  const void* k = pick_grid(dtype, vec);
+  if (!k || (route != 1 && route != 2) || a[10] % 4)
+    return cudaErrorInvalidValue;
+  unsigned* words = reinterpret_cast<unsigned*>(a[10]);
+  Workspace ws{words, words + 1, words + 2};
+  unsigned epoch = (unsigned)a[11];
+  int phase = route == 1 ? kBoth : kAbsmaxOnly;
+  void* args[] = {&x, &vectors, &ws, &epoch, &phase, &stats, &q};
+  if (route == 1)
+    return cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kThreads), args, 0,
+                                       s);
+  cudaError_t err = cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, 0,
+                                     s);
+  if (err) return err;
+  phase = kQuantizeOnly;
+  return cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, 0, s);
 }

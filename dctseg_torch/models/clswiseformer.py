@@ -31,7 +31,7 @@ from dctseg_torch.device import resolve_device
 from dctseg_torch.models.attention import (FusionClsWiseTransformer,
                                            TwoClsWiseTransformer)
 from dctseg_torch.models.layers import (NO_DROPOUT, Conv3d, Dropout,
-                                        InstanceNormAct)
+                                        InstanceNormAct, shared_input)
 from dctseg_torch.models.positional import PositionalEncoding
 from dctseg_torch.models.supervise import REGIONS, SuperviseHead
 from dctseg_torch.models.unet import Decoder, S2DConv3d, UnetEncoder
@@ -129,10 +129,14 @@ class ClsWiseFormer(nn.Module):
 
         # ---- decouple ----
         x_2_3 = torch.cat([self.conv_64_to_32(x2_1), x3_1], dim=-1)
-        edge_fea = {r: self.act(getattr(self, f"conv_mid_fea_{r[1]}")(x_2_3))
-                    for r in REGIONS}
-        sem_fea = {r: self.act(getattr(self, f"conv_semantic_{r[1]}")(
-            bottleneck)) for r in REGIONS}
+        # the three regions' convs of each kind read one input: int8, they
+        # share its quantization
+        edge_fea = dict(zip(REGIONS, map(self.act, shared_input(
+            [getattr(self, f"conv_mid_fea_{r[1]}") for r in REGIONS],
+            x_2_3))))
+        sem_fea = dict(zip(REGIONS, map(self.act, shared_input(
+            [getattr(self, f"conv_semantic_{r[1]}") for r in REGIONS],
+            bottleneck))))
         mid_sup = self.mid_supervise_label(*[sem_fea[r] for r in REGIONS])
         mid_edge_sup = self.mid_edge_supervise_label(
             *[edge_fea[r] for r in REGIONS])

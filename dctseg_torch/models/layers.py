@@ -150,14 +150,35 @@ class Conv3d(WeightPrep, nn.Module):
             return (*quant.prepare_weight(self.weight), b)
         return self.weight.to(self.dtype), b
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
-        if self.int8 and (not self.spatial_gate or quant.spatial_ok(x)):
+    def runs_int8(self, x: torch.Tensor) -> bool:
+        """True when the forward on ``x`` runs int8."""
+        return self.int8 and (not self.spatial_gate or quant.spatial_ok(x))
+
+    def forward(self, x: torch.Tensor, amax: torch.Tensor | None = None,
+                quantized: tuple | None = None) -> torch.Tensor:
+        """``amax``: x's per-sample absmax where a fused norm wrote x (the
+        int8 conv then quantizes x in one read), else None.  ``quantized``:
+        the (xq, stats) of x in this conv's dtype, where convs that read the
+        same x share one quantization (:func:`shared_input`)."""
+        if x.dtype != self.dtype:
+            x, amax = x.to(self.dtype), None   # amax is of the uncast x
+        if self.runs_int8(x):
             wq, sw, b = self.prepared("int8")
             return quant.conv3d_int8_prepared(x, wq, sw, self.stride,
-                                              self.padding, b)
+                                              self.padding, b, amax,
+                                              quantized)
         w, b = self.prepared("float")
         return ndhwc(F.conv3d(ncdhw(x), w, b, self.stride, self.padding))
+
+
+def shared_input(convs, x: torch.Tensor) -> list:
+    """Each of ``convs`` (Conv3d) on the same ``x``: where all of them run
+    int8 in one dtype, x is quantized once (K7) for all of them."""
+    dtype = convs[0].dtype
+    if all(c.dtype == dtype and c.runs_int8(x) for c in convs):
+        quantized = quant.quantize_input(x.to(dtype))
+        return [c(x, quantized=quantized) for c in convs]
+    return [c(x) for c in convs]
 
 
 class ConvTranspose3d(WeightPrep, nn.Module):

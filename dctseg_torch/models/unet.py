@@ -18,6 +18,12 @@ state_dict serves every flag combination.  Both stage inputs go through the
 relayout kernel (``ops/relayout.py``); the encoder's fuses the cast to the
 compute dtype.
 
+Int8 with fused norms: where a norm's output feeds an int8 conv (both
+convs of EnBlock, conv2 of EnBlock2/DeBlock, and the next block's conv1
+after a residual norm), the norm is the absmax variant of the fused kernel
+and the conv quantizes its input in one read (``ops/quant.py``); the other
+int8 convs find the absmax themselves.
+
 Remat: ``remat`` ('full' or 'save_convs') wraps every residual block in
 ``torch.utils.checkpoint`` (non-reentrant) while gradients are recorded;
 'save_convs' keeps the convolutions' outputs and recomputes only the norms
@@ -36,7 +42,8 @@ from dctseg_torch.models.layers import (NO_DROPOUT, Conv3d, ConvTranspose3d,
                                         Dropout)
 from dctseg_torch.ops import relayout
 from dctseg_torch.ops import s2d as s2dops
-from dctseg_torch.ops.fusednorm import fused_instance_norm_act
+from dctseg_torch.ops.fusednorm import (fused_instance_norm_act,
+                                        fused_instance_norm_act_amax)
 from dctseg_torch.ops.norms import instance_norm, leaky_relu
 
 _CONV_OPS = (torch.ops.aten.convolution.default,)
@@ -50,19 +57,25 @@ def _save_convs(ctx, op, *args, **kwargs):
 
 
 def _norm_act(x: torch.Tensor, eps: float, act: str, fused: bool,
-              s2d_view: bool = False,
-              residual: torch.Tensor | None = None) -> torch.Tensor:
-    """InstanceNorm + activation (+ residual): the fused kernel, or the
-    JAX package's plain composition (norm, cast, activation, add).  On the
-    s2d view the statistics are per fine channel (C / 8 of them)."""
+              s2d_view: bool = False, residual: torch.Tensor | None = None,
+              amax: bool = False) -> tuple:
+    """(y, y_amax): InstanceNorm + activation (+ residual), by the fused
+    kernel or the JAX package's plain composition (norm, cast, activation,
+    add); on the s2d view the statistics are per fine channel (C / 8 of
+    them).  ``y_amax``: with ``amax`` and the fused kernel, y's per-sample
+    absmax for the int8 conv that reads y (the kernel's absmax variant),
+    else None."""
     if fused:
         fine = x.shape[-1] // (s2dops.B3 if s2d_view else 1)
-        return fused_instance_norm_act(
-            x.contiguous(), fine, eps, act=act,
-            residual=None if residual is None else residual.contiguous())
+        kw = dict(act=act, residual=None if residual is None
+                  else residual.contiguous())
+        if amax:
+            return fused_instance_norm_act_amax(x.contiguous(), fine, eps,
+                                                **kw)
+        return fused_instance_norm_act(x.contiguous(), fine, eps, **kw), None
     y = s2dops.instance_norm_s2d(x, eps) if s2d_view else instance_norm(x, eps)
     y = torch.relu(y) if act == "relu" else leaky_relu(y)
-    return y + residual if residual is not None else y
+    return (y + residual if residual is not None else y), None
 
 
 class S2DConv3d(Conv3d):
@@ -95,10 +108,14 @@ class S2DConv3d(Conv3d):
         return s2dops.prepare(self.route, self.weight, self.bias, self.dtype,
                               kind == "int8", self.groups)
 
-    def forward(self, x8: torch.Tensor) -> torch.Tensor:
+    def forward(self, x8: torch.Tensor,
+                amax: torch.Tensor | None = None) -> torch.Tensor:
+        """``amax``: x8's per-sample absmax where a fused norm wrote it
+        (taken by the int8 routes), else None."""
+        if x8.dtype != self.dtype:
+            x8, amax = x8.to(self.dtype), None   # amax is of the uncast x8
         kind = "int8" if self.int8 else "float"
-        return s2dops.apply(self.route, x8.to(self.dtype),
-                            self.prepared(kind))
+        return s2dops.apply(self.route, x8, self.prepared(kind), amax)
 
 
 class S2DDeconv(ConvTranspose3d):
@@ -142,37 +159,47 @@ class _Block(nn.Module):
                           generator=generator)
         self.conv2 = conv(channels, channels, dtype=dtype,
                           generator=generator)
+        # whether the block's output feeds an int8 conv that takes its
+        # absmax (the next block's conv1; set by the parent)
+        self.feeds_int8 = False
 
-    def _norm(self, x, act, residual=None):
-        return _norm_act(x, self.eps, act, self.fused, self.s2d, residual)
+    def _norm(self, x, act, feeds_int8, residual=None):
+        """(y, y's absmax where ``feeds_int8`` and the norm is fused)."""
+        return _norm_act(x, self.eps, act, self.fused, self.s2d, residual,
+                         amax=feeds_int8)
 
-    def forward(self, x):
+    def forward(self, *args):
         if self.remat is None or not torch.is_grad_enabled():
-            return self.body(x)
+            return self.body(*args)
         if self.remat == "save_convs":
             return ckpt.checkpoint(
-                self.body, x, use_reentrant=False,
+                self.body, *args, use_reentrant=False,
                 context_fn=functools.partial(
                     ckpt.create_selective_checkpoint_contexts, _save_convs))
-        return ckpt.checkpoint(self.body, x, use_reentrant=False)
+        return ckpt.checkpoint(self.body, *args, use_reentrant=False)
 
 
 class _EnBlock(_Block):
     """Pre-activation residual block: [IN -> ReLU -> conv3] x2 + skip."""
 
     def body(self, x):
-        y = self.conv1(self._norm(x, "relu"))
-        y = self.conv2(self._norm(y, "relu"))
+        y = self.conv1(*self._norm(x, "relu", self.conv1.int8))
+        y = self.conv2(*self._norm(y, "relu", self.conv2.int8))
         return y + x
 
 
 class _EnBlock2(_Block):
     """Post-activation residual block: [conv3 -> IN -> LeakyReLU] x2, the
-    skip added after the last activation (DeBlock is identical)."""
+    skip added after the last activation (DeBlock is identical).
 
-    def body(self, x):
-        y = self._norm(self.conv1(x), "lrelu")
-        return self._norm(self.conv2(y), "lrelu", residual=x)
+    Takes (x, x's absmax or None) and returns (y, y's absmax or None): the
+    absmax of an output that a fused norm wrote, for the next block's int8
+    conv1 (``feeds_int8``)."""
+
+    def body(self, x, amax=None):
+        y = self._norm(self.conv1(x, amax), "lrelu", self.conv2.int8)
+        return self._norm(self.conv2(*y), "lrelu", self.feeds_int8,
+                          residual=x)
 
 
 def _named_conv(conv: nn.Module) -> nn.ModuleDict:
@@ -337,14 +364,23 @@ class Decoder(nn.Module):
                       generator=generator) if s2d else
             Conv3d(e // 16, num_classes, kernel_size=1, padding=0,
                    dtype=dtype, generator=generator))
+        # each pair's first block hands its output's absmax to the second's
+        # int8 conv1
+        for first, second in ((self.Enblock8_1, self.Enblock8_2),
+                              (self.DeBlock4, self.DeBlock4_1),
+                              (self.DeBlock3, self.DeBlock3_1),
+                              (self.DeBlock2, self.DeBlock2_1)):
+            first.feeds_int8 = second.conv1.int8
 
     def forward(self, x1_1, x2_1, x3_1, x):
-        x8 = self.Enblock8_2(self.Enblock8_1(self.down_channel(x)))
-        y4 = self.DeBlock4_1(self.DeBlock4(self.DeUp4(x8, x3_1)))
-        y3 = self.DeBlock3_1(self.DeBlock3(self.DeUp3(y4, x2_1)))
+        def pair(first, second, h):
+            return second(*first(h))[0]
+        x8 = pair(self.Enblock8_1, self.Enblock8_2, self.down_channel(x))
+        y4 = pair(self.DeBlock4, self.DeBlock4_1, self.DeUp4(x8, x3_1))
+        y3 = pair(self.DeBlock3, self.DeBlock3_1, self.DeUp3(y4, x2_1))
         if self.s2d_half and not self.s2d:
             y3 = s2dops.depth_to_space(y3)   # back to the plain grid
-        y2 = self.DeBlock2_1(self.DeBlock2(self.DeUp2(y3, x1_1)))
+        y2 = pair(self.DeBlock2, self.DeBlock2_1, self.DeUp2(y3, x1_1))
         y = self.endconv(y2).float()
         if not self.s2d:
             return torch.softmax(y, dim=-1)

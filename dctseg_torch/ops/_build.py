@@ -100,11 +100,11 @@ def build() -> Path:
 _vp, _int, _long = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
     # (int64 args: x, residual, out, ab, partial, tickets, flags, n, s, c,
-    #  f, blocks, rows_per_block, act, dtype, vec, fused, epoch, staged;
-    #  eps, slope, stream)
+    #  f, blocks, rows_per_block, act, dtype, vec, fused, epoch, staged,
+    #  amax; eps, slope, stream)
     "dctseg_fusednorm": [_vp, ctypes.c_float, ctypes.c_float, _vp],
-    # (dtype, vec, fused, residual, &blocks, &stage_bytes)
-    "dctseg_fusednorm_coresident": [_int, _int, _int, _int,
+    # (dtype, vec, fused, residual, amax, &blocks, &stage_bytes)
+    "dctseg_fusednorm_coresident": [_int, _int, _int, _int, _int,
                                     ctypes.POINTER(_int),
                                     ctypes.POINTER(_int)],
     # (int64 args: q, k, v, out, b, h, n, n2, d, 9 strides, dtype, kernel;
@@ -123,8 +123,11 @@ _SIGNATURES = {
     # (int64 args: xq, wq, stats, sw, bias, out, n, d, h, w, ci, od, oh, ow,
     #  co, k, sd, sh, sw, pd, ph, pw, out_dtype, vec; stream)
     "dctseg_int8_conv3d": [_vp, _vp],
-    # (int64 args: x, q, stats, n, dtype, vec, grid; stream)
-    "dctseg_quantize_absmax": [_vp, _vp],
+    # (int64 args: x, q, stats, n, dtype, vec, grid, route, amax slots,
+    #  slot count, workspace, epoch; stream)
+    "dctseg_quantize": [_vp, _vp],
+    # (dtype, vec, &blocks)
+    "dctseg_quantize_coresident": [_int, _int, ctypes.POINTER(_int)],
 }
 
 

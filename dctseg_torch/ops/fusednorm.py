@@ -20,6 +20,15 @@ the tickets at zero, so no call allocates or fills anything but its
 output.  The backward recomputes the plain version under autograd, on
 either device; the trainer keeps the kernel out of training, so no
 backward kernel is owed.
+
+:func:`fused_instance_norm_act_amax` (the operator
+``torch.ops.dctseg.fused_instance_norm_act_amax``) also returns, per
+sample, max |out| over the elements written: the statistic the int8
+activation quantizer needs (``ops/quant.py`` ``quantize_from_amax``), so
+that it reads the norm's output once.  Same kernel at one ``atomicMax`` a
+block, with a launch plan of its own (from its own occupancy, so the plain
+variant's plan does not depend on it); inference only (its backward
+raises).
 """
 
 from __future__ import annotations
@@ -73,6 +82,17 @@ def fused_instance_norm_act_plain(x: torch.Tensor, fine_channels: int,
     b = b.repeat(1, o)[:, None, :]
     y = _act(xr * a + b, act, slope).to(x.dtype).reshape(x.shape)
     return y + residual if residual is not None else y
+
+
+def fused_instance_norm_act_amax_plain(x: torch.Tensor, fine_channels: int,
+                                       eps: float = 1e-5, act: str = "none",
+                                       slope: float = 0.01,
+                                       residual: torch.Tensor | None = None):
+    """(out, amax): the plain version's output and, per sample, the float32
+    max of |out| (a NaN propagates)."""
+    out = fused_instance_norm_act_plain(x, fine_channels, eps, act, slope,
+                                        residual)
+    return out, out.reshape(out.shape[0], -1).float().abs().amax(dim=1)
 
 
 class LaunchPlan(NamedTuple):
@@ -146,7 +166,8 @@ class _Workspace:
 
 
 _workspaces: dict = {}           # (device index, stream) -> _Workspace
-# (device index, dtype code, vec, fused, residual) -> (blocks, stage bytes)
+# (device index, dtype code, vec, fused, residual, amax) -> (blocks, stage
+# bytes)
 _coresident: dict = {}
 # a fresh epoch per fused call, 1 .. 2^32 - 1 (next() is atomic)
 _epochs = itertools.count(1)
@@ -182,7 +203,20 @@ def fused_instance_norm_act(x: torch.Tensor, fine_channels: int,
     return library.call(_OP, x, residual, fine_channels, eps, act, slope)
 
 
+def fused_instance_norm_act_amax(x: torch.Tensor, fine_channels: int,
+                                 eps: float = 1e-5, act: str = "none",
+                                 slope: float = 0.01,
+                                 residual: torch.Tensor | None = None):
+    """(out, amax): :func:`fused_instance_norm_act` and, per sample, the
+    float32 max of |out| over the elements written (after the cast and the
+    residual add), shape (N,).  Inference only."""
+    _check(x, fine_channels, act, residual)
+    return library.call(_AMAX_OP, x, residual, fine_channels, eps, act,
+                        slope)
+
+
 fused_instance_norm_act.launches = 0   # kernel launches on CUDA tensors
+fused_instance_norm_act_amax.launches = 0   # those of the absmax variant
 
 
 def vector_width(x: torch.Tensor, *others) -> int:
@@ -194,18 +228,19 @@ def vector_width(x: torch.Tensor, *others) -> int:
 
 
 def coresident(device: int, dtype: torch.dtype, vec: int, fused: bool,
-               res: bool) -> tuple:
+               res: bool, amax: bool = False) -> tuple:
     """(blocks, stage bytes): the blocks of the fused kernel (or of each
-    split kernel) for ``dtype``, with or without a residual, that CUDA
-    device ``device`` holds at once, and the shared memory a fused block
-    may keep rows in.  An occupancy query, once per device, dtype, width,
-    route and residual."""
-    key = (device, _build.dtype_code(dtype), vec, fused, res)
+    split kernel) for ``dtype``, with or without a residual, of the plain
+    or the absmax variant (``amax``), that CUDA device ``device`` holds at
+    once, and the shared memory a fused block may keep rows in.  An
+    occupancy query, once per device, dtype, width, route, residual and
+    variant."""
+    key = (device, _build.dtype_code(dtype), vec, fused, res, amax)
     found = _coresident.get(key)
     if found is None:
         blocks, stage = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(_build.lib().dctseg_fusednorm_coresident(
-            key[1], vec, fused, res, ctypes.byref(blocks),
+            key[1], vec, fused, res, amax, ctypes.byref(blocks),
             ctypes.byref(stage)), "fusednorm occupancy")
         found = _coresident[key] = (blocks.value, stage.value)
     return found
@@ -213,36 +248,42 @@ def coresident(device: int, dtype: torch.dtype, vec: int, fused: bool,
 
 @functools.lru_cache(maxsize=256)
 def plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
-             device: int) -> LaunchPlan:
+             device: int, amax: bool = False) -> LaunchPlan:
     """The plan of a call on CUDA device ``device``: x of ``shape`` and
-    ``dtype`` moved ``vec`` lanes at a time, with or without a residual."""
+    ``dtype`` moved ``vec`` lanes at a time, with or without a residual,
+    of the plain or the absmax variant (``amax``)."""
     n, c = shape[0], shape[-1]
     if c // vec > THREADS:
         raise ValueError(f"fusednorm kernel takes C <= {THREADS * vec} "
                          f"channels here; got C={c}")
-    fused_blocks, stage_bytes = coresident(device, dtype, vec, True, res)
-    split_blocks = coresident(device, dtype, vec, False, res)[0]
+    fused_blocks, stage_bytes = coresident(device, dtype, vec, True, res,
+                                           amax)
+    split_blocks = coresident(device, dtype, vec, False, res, amax)[0]
     return plan_launch(n, math.prod(shape) // (n * c), c,
                        _ITEMSIZE[dtype], vec, fused_blocks,
                        split_blocks, stage_bytes)
 
 
-def _launch(x, residual, fine_channels, eps, act, slope):
+def _launch(x, residual, fine_channels, eps, act, slope, amax=False):
+    """The kernel's output; with ``amax`` (the absmax variant), (output,
+    per-sample absmax)."""
     if not x.is_contiguous() or (residual is not None
                                  and not residual.is_contiguous()):
         raise ValueError("the fusednorm kernel takes contiguous "
                          "(N, *spatial, C) tensors (channels last)")
     out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
     n, c = x.shape[0], x.shape[-1]
+    slots = (torch.empty(n, dtype=torch.float32, device=x.device) if amax
+             else None)
+    if x.numel() == 0:
+        return (out, slots.zero_()) if amax else out
     if x.numel() >= 2 ** 31 * n or n > 65535:
         raise ValueError("fusednorm kernel takes < 2^31 elements a sample "
                          "and at most 65535 samples")
     vec = vector_width(x, out, *(() if residual is None else (residual,)))
     device = x.get_device()
     plan = plan_for(tuple(x.shape), x.dtype, vec, residual is not None,
-                    device)
+                    device, amax)
     stream = _build.stream_of(x)
     ws = _workspaces.get((device, stream))
     if ws is None:
@@ -258,11 +299,12 @@ def _launch(x, residual, fine_channels, eps, act, slope):
         n, x.numel() // (n * c), c, fine_channels, plan.blocks,
         plan.rows_per_block, ACTS[act], _build.dtype_code(x.dtype), vec,
         fused, (next(_epochs) - 1) % 0xFFFFFFFF + 1 if fused else 0,
-        plan.staged))
+        plan.staged, 0 if slots is None else slots.data_ptr()))
     _build.check(_build.lib().dctseg_fusednorm(
         args.buffer_info()[0], eps, slope, stream), "fusednorm")
-    fused_instance_norm_act.launches += plan.launches
-    return out
+    (fused_instance_norm_act_amax if amax
+     else fused_instance_norm_act).launches += plan.launches
+    return (out, slots) if amax else out
 
 
 def _cpu(x, residual, fine_channels, eps, act, slope):
@@ -272,6 +314,21 @@ def _cpu(x, residual, fine_channels, eps, act, slope):
 
 def _fake(x, residual, fine_channels, eps, act, slope):
     return x.new_empty(x.shape)
+
+
+def _launch_amax(x, residual, fine_channels, eps, act, slope):
+    return _launch(x, residual, fine_channels, eps, act, slope, amax=True)
+
+
+def _cpu_amax(x, residual, fine_channels, eps, act, slope):
+    out, amax = fused_instance_norm_act_amax_plain(x, fine_channels, eps,
+                                                   act, slope, residual)
+    return out.contiguous(), amax
+
+
+def _fake_amax(x, residual, fine_channels, eps, act, slope):
+    return x.new_empty(x.shape), x.new_empty((x.shape[0],),
+                                             dtype=torch.float32)
 
 
 def _setup_context(ctx, inputs, output):
@@ -299,3 +356,8 @@ _OP = library.define(
     "float slope) -> Tensor",
     cuda=_launch, cpu=_cpu, fake=_fake, backward=_backward,
     setup_context=_setup_context)
+_AMAX_OP = library.define(
+    "fused_instance_norm_act_amax",
+    "(Tensor x, Tensor? residual, int fine_channels, float eps, str act, "
+    "float slope) -> (Tensor, Tensor)",
+    cuda=_launch_amax, cpu=_cpu_amax, fake=_fake_amax)

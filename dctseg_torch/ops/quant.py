@@ -6,7 +6,10 @@
     checkpoints stay f32 and ``ModelConfig(quantize=...)`` is a pure
     execution strategy;
   * activations: dynamic symmetric per-tensor int8, the scale computed on
-    the card at each call (K7, ``csrc/quantize.cu``);
+    the card at each call (K7, ``csrc/quantize.cu``): in one read of x
+    where the fused norm that wrote x reported its absmax
+    (``fusednorm.fused_instance_norm_act_amax``), else in one launch that
+    reads x twice;
   * the conv: s8 x s8 -> s32, exact, dequantized as ``acc * (sx * sw[c])``
     and cast to the activation's dtype, the bias added after the cast (K6,
     ``csrc/int8conv.cu``, an implicit GEMM on the tensor cores).
@@ -16,18 +19,21 @@ The arithmetic follows JAX's op order exactly, so on the CPU the port equals
 only: rounding has a zero gradient, the Trainer rejects quantized configs,
 and the two operators' backward raises.
 
-Each kernel is the operator ``torch.ops.dctseg.quantize_absmax`` /
+Each kernel is an operator, ``torch.ops.dctseg.quantize_absmax`` and
+``torch.ops.dctseg.quantize_from_amax`` (K7's two routes) and
 ``torch.ops.dctseg.int8_conv3d`` (``ops/library.py``): on a CUDA tensor it
 launches the kernel or raises, on a CPU tensor it runs the plain PyTorch
-version beside it.  ``quantize_absmax`` hands the scale back in a two-float
-``stats`` tensor (amax, sx) on the card, which ``int8_conv3d`` reads there:
-no host sync sits inside a quantized conv.
+version beside it.  K7 hands the scale back in a two-float ``stats``
+tensor (amax, sx) on the card, which ``int8_conv3d`` reads there: no host
+sync sits inside a quantized conv.
 """
 
 from __future__ import annotations
 
 import array
+import ctypes
 import functools
+import itertools
 import math
 from typing import NamedTuple, Sequence, Tuple
 
@@ -82,10 +88,17 @@ def enabled(quantize: str, op: str) -> bool:
     return op == "conv3" or op in extras
 
 
+def over_qmax(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 as a true division on every device, as JAX's eager op and
+    K7 divide: PyTorch's CUDA kernel multiplies by the reciprocal of a
+    Python-number divisor, which rounds some quotients an ulp away."""
+    return t / t.new_full((), _QMAX)
+
+
 def weight_scales(w: torch.Tensor) -> torch.Tensor:
     """Symmetric per-output-channel scales of a (Co, ...) weight."""
     amax = w.float().abs().amax(dim=tuple(range(1, w.dim())))
-    return torch.clamp(amax, min=1e-12) / _QMAX
+    return over_qmax(torch.clamp(amax, min=1e-12))
 
 
 def quantize_symmetric(t: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -135,15 +148,26 @@ def out_shape(x_shape, w_shape, stride, padding) -> Tuple[int, ...]:
 
 # ---- the plain versions ----
 
+def _quantize_with(xf: torch.Tensor, amax: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    sx = over_qmax(torch.clamp(amax, min=1e-12))
+    xq = torch.clamp(torch.round(xf / sx), -_QMAX, _QMAX).to(torch.int8)
+    return xq, torch.stack([amax, sx])
+
+
 def quantize_absmax_plain(x: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(xq, stats): x quantized to int8 with the per-tensor scale sx, and
     stats = [amax, sx] (float32).  A NaN in x propagates into both."""
     xf = x.float()
-    amax = xf.abs().amax()
-    sx = torch.clamp(amax, min=1e-12) / _QMAX
-    xq = torch.clamp(torch.round(xf / sx), -_QMAX, _QMAX).to(torch.int8)
-    return xq, torch.stack([amax, sx])
+    return _quantize_with(xf, xf.abs().amax())
+
+
+def quantize_from_amax_plain(x: torch.Tensor, amax: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_absmax_plain` of an x whose absmax is the max of
+    ``amax`` (float32 slots, such as a fused norm's per-sample absmax)."""
+    return _quantize_with(x.float(), amax.float().abs().amax())
 
 
 def int8_conv3d_plain(xq: torch.Tensor, stats: torch.Tensor,
@@ -169,39 +193,115 @@ THREADS = 256               # csrc/quantize.cu kThreads
 H100_SMS = 132
 QUANT_BLOCKS_PER_SM = 8     # 2,048 resident threads per SM
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
+# K7's routes (csrc/quantize.cu): "from_amax", one read of x whose absmax
+# the fused norm that wrote it reported; "grid", one cooperative launch
+# that finds the absmax itself (x read twice); "split", the grid route as
+# two launches, which only chip_smoke.py's timing asks for
+QUANT_ROUTES = ("from_amax", "grid", "split")
 
 
-def plan_quantize(numel: int, dtype: torch.dtype, aligned: int
-                  ) -> Tuple[int, int]:
-    """(vec, grid) of K7 on ``numel`` elements at an address aligned to
-    ``aligned`` bytes: the widest of 8, 4, 2, 1 elements that reads at most
-    16 bytes, divides numel and fits the address; one thread a vector up
-    to QUANT_BLOCKS_PER_SM blocks per SM."""
+class QuantPlan(NamedTuple):
+    """How one K7 call runs: ``route``, ``vec`` elements a thread moves at
+    a time, ``grid`` blocks, ``launches`` kernel launches."""
+    route: str
+    vec: int
+    grid: int
+    launches: int
+
+
+def quant_width(numel: int, dtype: torch.dtype, aligned: int) -> int:
+    """The widest of 8, 4, 2, 1 elements that reads at most 16 bytes,
+    divides numel and fits an address aligned to ``aligned`` bytes."""
     size = _ITEMSIZE[dtype]
-    vec = next(v for v in (8, 4, 2, 1) if v * size <= 16 and numel % v == 0
-               and aligned % (v * size) == 0)
+    return next(v for v in (8, 4, 2, 1) if v * size <= 16
+                and numel % v == 0 and aligned % (v * size) == 0)
+
+
+def plan_quantize(numel: int, dtype: torch.dtype, aligned: int,
+                  route: str = "grid",
+                  max_blocks: int = H100_SMS * QUANT_BLOCKS_PER_SM
+                  ) -> QuantPlan:
+    """K7's plan on ``numel`` elements at an address aligned to
+    ``aligned`` bytes: :func:`quant_width`'s vectors, one thread a vector,
+    at most ``max_blocks`` blocks (on the grid route, the blocks the card
+    holds at once: they wait for each other)."""
+    if route not in QUANT_ROUTES:
+        raise ValueError(f"unknown quantize route {route!r}; expected one "
+                         f"of {QUANT_ROUTES}")
+    vec = quant_width(numel, dtype, aligned)
     blocks = math.ceil(numel // vec / THREADS)
-    return vec, max(1, min(blocks, H100_SMS * QUANT_BLOCKS_PER_SM))
+    return QuantPlan(route, vec, max(1, min(blocks, max_blocks)),
+                     2 if route == "split" else 1)
 
 
-def _quantize_launch(x: torch.Tensor):
+_quant_workspaces: dict = {}     # (device index, stream) -> int32 [3]
+_quant_coresident: dict = {}     # (device index, dtype code, vec) -> blocks
+# a fresh epoch per grid call, 1 .. 2^32 - 1 (next() is atomic)
+_quant_epochs = itertools.count(1)
+
+
+def quant_coresident(device: int, dtype: torch.dtype, vec: int) -> int:
+    """The blocks of the grid route's kernel that CUDA device ``device``
+    holds at once, for ``dtype`` at ``vec``: an occupancy query, once per
+    device, dtype and width."""
+    key = (device, _build.dtype_code(dtype), vec)
+    found = _quant_coresident.get(key)
+    if found is None:
+        blocks = ctypes.c_int(0)
+        _build.check(_build.lib().dctseg_quantize_coresident(
+            key[1], vec, ctypes.byref(blocks)), "quantize occupancy")
+        found = _quant_coresident[key] = blocks.value
+    return found
+
+
+def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None,
+                     split: bool = False):
+    """K7 on a CUDA tensor: the from_amax route where ``amax`` is given,
+    else the grid route (``split``: as two launches)."""
     if not x.is_contiguous() or x.numel() == 0:
         raise ValueError("the quantize kernel takes a non-empty contiguous "
                          "tensor")
+    if amax is not None and (amax.dtype != torch.float32 or amax.dim() != 1
+                             or amax.numel() == 0
+                             or amax.device != x.device
+                             or not amax.is_contiguous()):
+        raise ValueError("amax must be a non-empty contiguous float32 "
+                         "vector on x's device")
     code = _build.dtype_code(x.dtype)
+    route = ("from_amax" if amax is not None else
+             "split" if split else "grid")
+    aligned = _build.alignment(x.data_ptr())
+    device, stream = x.get_device(), _build.stream_of(x)
+    max_blocks = H100_SMS * QUANT_BLOCKS_PER_SM
+    ws = 0
+    if route != "from_amax":
+        max_blocks = quant_coresident(
+            device, x.dtype, quant_width(x.numel(), x.dtype, aligned))
+        found = _quant_workspaces.get((device, stream))
+        if found is None:
+            # zeroed once; each call leaves its words at zero but the flag
+            found = _quant_workspaces[device, stream] = torch.zeros(
+                3, dtype=torch.int32, device=x.device)
+        ws = found.data_ptr()
+    plan = plan_quantize(x.numel(), x.dtype, aligned, route, max_blocks)
     xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     stats = torch.empty(2, dtype=torch.float32, device=x.device)
-    vec, grid = plan_quantize(x.numel(), x.dtype,
-                              _build.alignment(x.data_ptr()))
-    args = array.array("q", (x.data_ptr(), xq.data_ptr(), stats.data_ptr(),
-                             x.numel(), code, vec, grid))
-    _build.check(_build.lib().dctseg_quantize_absmax(
-        args.buffer_info()[0], _build.stream_of(x)), "quantize_absmax")
-    quantize_absmax.launches += 2
+    args = array.array("q", (
+        x.data_ptr(), xq.data_ptr(), stats.data_ptr(), x.numel(), code,
+        plan.vec, plan.grid, QUANT_ROUTES.index(route),
+        0 if amax is None else amax.data_ptr(),
+        0 if amax is None else amax.numel(), ws,
+        (next(_quant_epochs) - 1) % 0xFFFFFFFF + 1 if route == "grid"
+        else 0))
+    _build.check(_build.lib().dctseg_quantize(args.buffer_info()[0], stream),
+                 "quantize")
+    quantize_absmax.routes[route] += plan.launches
+    (quantize_from_amax if amax is not None
+     else quantize_absmax).launches += plan.launches
     return xq, stats
 
 
-def _quantize_fake(x):
+def _quantize_fake(x, amax=None):
     return (x.new_empty(x.shape, dtype=torch.int8),
             x.new_empty((2,), dtype=torch.float32))
 
@@ -209,17 +309,37 @@ def _quantize_fake(x):
 _QUANTIZE_OP = library.define(
     "quantize_absmax", "(Tensor x) -> (Tensor, Tensor)",
     cuda=_quantize_launch, cpu=quantize_absmax_plain, fake=_quantize_fake)
+_FROM_AMAX_OP = library.define(
+    "quantize_from_amax", "(Tensor x, Tensor amax) -> (Tensor, Tensor)",
+    cuda=_quantize_launch, cpu=quantize_from_amax_plain,
+    fake=_quantize_fake)
+
+
+def _check_device(x: torch.Tensor) -> None:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {x.device}")
 
 
 def quantize_absmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(xq, stats): K7 on a CUDA tensor (contiguous, float32, bfloat16 or
-    float16), its plain version on a CPU tensor."""
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no kernel for device {x.device}")
+    """(xq, stats): K7's grid route on a CUDA tensor (contiguous, float32,
+    bfloat16 or float16), its plain version on a CPU tensor."""
+    _check_device(x)
     return library.call(_QUANTIZE_OP, x)
 
 
-quantize_absmax.launches = 0    # kernel launches on CUDA tensors (2 a call)
+def quantize_from_amax(x: torch.Tensor, amax: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xq, stats) of an x whose absmax is the max of the float32 slots
+    ``amax`` (the per-sample absmax the fused norm reports of its output):
+    K7's from_amax route on a CUDA tensor, one read of x; the plain version
+    on a CPU tensor."""
+    _check_device(x)
+    return library.call(_FROM_AMAX_OP, x, amax)
+
+
+quantize_absmax.launches = 0    # grid-route launches on CUDA tensors
+quantize_from_amax.launches = 0   # from_amax-route launches
+quantize_absmax.routes = dict.fromkeys(QUANT_ROUTES, 0)   # K7's, by route
 
 
 # ---- K6: the int8 implicit-GEMM conv ----
@@ -451,12 +571,27 @@ int8_conv3d.routes = dict.fromkeys(ROUTES, 0)   # the launches by route
 
 # ---- the conv as the model calls it ----
 
+def quantize_input(x: torch.Tensor, amax: torch.Tensor | None = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xq, stats) of an int8 conv's float input: K7's from_amax route
+    where ``amax`` (x's per-sample absmax, as the fused norm that wrote x
+    reports it) is given, else its grid route."""
+    x = x.contiguous()
+    return (quantize_absmax(x) if amax is None
+            else quantize_from_amax(x, amax))
+
+
 def conv3d_int8_prepared(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
-                         stride=1, padding=1, bias=None) -> torch.Tensor:
+                         stride=1, padding=1, bias=None,
+                         amax: torch.Tensor | None = None,
+                         quantized: tuple | None = None) -> torch.Tensor:
     """The dynamically quantized conv of a float NDHWC ``x`` with a weight
-    already quantized by :func:`prepare_weight`: K7, then K6, the result in
-    x's dtype, ``bias`` added after the cast."""
-    xq, stats = quantize_absmax(x.contiguous())
+    already quantized by :func:`prepare_weight`: K7 (:func:`quantize_input`
+    with ``amax``), then K6, the result in x's dtype, ``bias`` added after
+    the cast.  ``quantized``: x's (xq, stats) where another conv on the same
+    x already computed them (no K7 then)."""
+    xq, stats = (quantize_input(x, amax) if quantized is None
+                 else quantized)
     b = None if bias is None else bias.to(x.dtype)
     return int8_conv3d(xq, stats, wq, sw, b, stride, padding, x.dtype)
 

@@ -314,15 +314,18 @@ def prepare(route: str, w: torch.Tensor, bias, dtype: torch.dtype,
     return w8.to(dtype), b8
 
 
-def apply(route: str, x8: torch.Tensor, prepared: tuple) -> torch.Tensor:
+def apply(route: str, x8: torch.Tensor, prepared: tuple,
+          amax: torch.Tensor | None = None) -> torch.Tensor:
     """Run ``route``'s conv on the s2d view ``x8`` with the tensors of
-    :func:`prepare`: int8 (K7, then K6) when they are (wq, sw, b8)."""
+    :func:`prepare`: int8 (K7, then K6) when they are (wq, sw, b8), K7 in
+    one read of x8 where ``amax`` (x8's per-sample absmax) is given."""
     stride, padding, _ = ROUTES[route]
     if route == "fine":
         x8 = depth_to_space(x8)
     if len(prepared) == 3:
         wq, sw, b8 = prepared
-        return quant.conv3d_int8_prepared(x8, wq, sw, stride, padding, b8)
+        return quant.conv3d_int8_prepared(x8, wq, sw, stride, padding, b8,
+                                          amax)
     w8, b8 = prepared
     return conv3d_s2d(x8, w8, b8, stride, padding)
 
