@@ -851,6 +851,8 @@ KERNEL_COUNTERS = {"fusednorm": fusednorm.fused_instance_norm_act,
                    "quantize_from_amax": quant.quantize_from_amax}
 INT8_COUNTERS = ("fusednorm_amax", "int8_conv3d", "quantize_absmax",
                  "quantize_from_amax")
+# K7's counter of each route: one operator a route
+K7_COUNTERS = {"grid": "quantize_absmax", "from_amax": "quantize_from_amax"}
 
 
 def reset_launches():
@@ -858,8 +860,6 @@ def reset_launches():
         fn.launches = 0
     for name in attn.fused_attention.kernel_launches:
         attn.fused_attention.kernel_launches[name] = 0
-    for route in quant.quantize_absmax.routes:
-        quant.quantize_absmax.routes[route] = 0
 
 
 def read_launches():
@@ -1451,9 +1451,9 @@ def k6_ptxas():
 def check_quantize(dev):
     """K7 against its plain version (xq and both stats torch.equal), f32
     and bf16, at the main path's activation shapes (B=8 at 32^3 x 64, the
-    s2d view at 64^3 x 128 B=8 bf16 only), on each route: grid (one
-    launch), split (two), and from_amax (one) with the per-sample absmax
-    as the fused norm reports it: randn activations, then the same with
+    s2d view at 64^3 x 128 B=8 bf16 only), on each route, one launch a
+    call on its own counter: grid, and from_amax with the per-sample
+    absmax as the fused norm reports it: randn activations, then the same with
     exact half-way ties planted: amax 127 s and a third of the values
     (k + 0.5) s for s = 2^-3, so that sx = s and x / sx = k + 0.5 exactly,
     which round half to even.  Returns the largest difference (0)."""
@@ -1478,18 +1478,16 @@ def check_quantize(dev):
                 pq, pstats = quant.quantize_absmax_plain(x)
                 for route, call in (
                         ("grid", lambda: quant.quantize_absmax(x)),
-                        ("split", lambda: quant._quantize_launch(
-                            x, split=True)),
                         ("from_amax", lambda: quant.quantize_from_amax(
                             x, slots))):
-                    before = dict(quant.quantize_absmax.routes)
+                    before = {k: KERNEL_COUNTERS[k].launches
+                              for k in K7_COUNTERS.values()}
                     xq, stats = call()
-                    launched = {k: n - before[k] for k, n in
-                                quant.quantize_absmax.routes.items()
-                                if n != before[k]}
+                    launched = {r: KERNEL_COUNTERS[k].launches - before[k]
+                                for r, k in K7_COUNTERS.items()
+                                if KERNEL_COUNTERS[k].launches != before[k]}
                     ok = (torch.equal(xq, pq) and torch.equal(stats, pstats)
-                          and launched == {route: 2 if route == "split"
-                                           else 1}
+                          and launched == {route: 1}
                           and (not ties or stats[1].item() == 2.0 ** -3))
                     err = (xq.int() - pq.int()).abs().max().item()
                     worst = max(worst, float(err))
@@ -1925,22 +1923,18 @@ def time_k6(dev, g, x_shape, w_shape, stride, pads, iters=10, plain=True,
     return row
 
 
-K7_TIMED = ("grid", "split", "from_amax")
-
-
 def time_k7(dev, g, shape, iters=10):
-    """K7 on a bf16 activation, on each route (grid, its two-launch split,
-    and from_amax with the per-sample absmax a fused norm reports): call
-    time (CUDA events, back to back) and the card's time (queued_ms); the
-    plain version's time; the bound (x read once, xq written once) and the
-    two-pass floor (x read twice, by the absmax and by the quantize)."""
+    """K7 on a bf16 activation, on each route (grid, and from_amax with the
+    per-sample absmax a fused norm reports): call time (CUDA events, back
+    to back) and the card's time (queued_ms); the plain version's time;
+    the bound (x read once, xq written once) and the two-pass floor (x
+    read twice, by the absmax and by the quantize)."""
     x = torch.randn(shape, device=dev, generator=g).bfloat16()
     slots = x.reshape(shape[0], -1).float().abs().amax(dim=1)
     calls = {"grid": lambda: quant.quantize_absmax(x),
-             "split": lambda: quant._quantize_launch(x, split=True),
              "from_amax": lambda: quant.quantize_from_amax(x, slots)}
     row = dict(shape=list(shape))
-    for route in K7_TIMED:
+    for route in K7_COUNTERS:
         row[f"{route}_ms"] = time_ms(calls[route], iters)
         row[f"{route}_device_ms"] = queued_ms(calls[route], iters)
     row["plain_ms"] = time_ms(lambda: quant.quantize_absmax_plain(x), iters)
@@ -2029,7 +2023,7 @@ def time_int8(dev, calls):
             for key in ("ms", "device_ms"):
                 k7[key] += n * t[f"{route}_{key}"]
                 k7[f"{route}_{key}"] += n * t[f"{route}_{key}"]
-            for other in K7_TIMED:
+            for other in K7_COUNTERS:
                 k7[f"all_{other}_device_ms"] += n * t[f"{other}_device_ms"]
             for key in ("plain_ms", "bound_ms", "two_pass_floor_ms"):
                 k7[key] += n * t[key]

@@ -401,24 +401,20 @@ using namespace dctseg;
 
 // What the card holds at once, for (dtype, vec, residual) and the variant
 // (amax: with the absmax output), on the current device; each variant has
-// its own plan, so the plain variant's never depends on the absmax one's.
-// Split route (fused == 0): the blocks of the less-occupying of its two
-// kernels, one wave.  Fused route: the blocks of its kernel (the largest
-// grid its cooperative launch takes) and the shared memory each block may
-// stage rows in without lowering that count; also raises the kernel's
-// dynamic shared-memory limit to match.
+// its own plan.  Split route (fused == 0): the blocks of the less-occupying
+// of its two kernels, one wave.  Fused route: the blocks of its kernel (the
+// largest grid its cooperative launch takes) and the shared memory each
+// block may stage rows in without lowering that count; also raises the
+// kernel's dynamic shared-memory limit to match.
 extern "C" int dctseg_fusednorm_coresident(int dtype, int vec, int fused,
                                            int res, int amax, int* blocks,
                                            int* stage_bytes) {
-  const void* ks[2] = {
-      fused ? pick<kFused>(dtype, vec, res, amax)
-            : pick<kStats>(dtype, vec, res, false),
-      fused ? nullptr : pick<kApply>(dtype, vec, res, amax)};
-  const int nk = fused ? 1 : 2;
-  for (int i = 0; i < nk; ++i)
-    if (!ks[i]) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, optin = 0, sm_smem = 0, per_sm = 1 << 30;
-  int static_smem = 0;
+  const void* k = fused ? pick<kFused>(dtype, vec, res, amax)
+                        : pick<kStats>(dtype, vec, res, false);
+  const void* apply = fused ? k : pick<kApply>(dtype, vec, res, amax);
+  if (!k) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, optin = 0, sm_smem = 0, per_sm = 0, per_sm2 = 0;
+  cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
   if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                          dev);
@@ -426,34 +422,25 @@ extern "C" int dctseg_fusednorm_coresident(int dtype, int vec, int fused,
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (!err) err = cudaDeviceGetAttribute(
       &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  for (int i = 0; i < nk && !err; ++i) {
-    int got = 0;
-    cudaFuncAttributes attr;
-    err = blocks_per_sm(ks[i], 0, &got);
-    if (!err) err = cudaFuncGetAttributes(&attr, ks[i]);
-    per_sm = min(per_sm, got);
-    static_smem = max(static_smem, (int)attr.sharedSizeBytes);
-  }
+  if (!err) err = blocks_per_sm(k, 0, &per_sm);
+  if (!err) err = blocks_per_sm(apply, 0, &per_sm2);
+  if (!err) err = cudaFuncGetAttributes(&attr, k);
   if (err) return err;
+  per_sm = min(per_sm, per_sm2);
   *blocks = per_sm * sms;
   *stage_bytes = 0;
   if (!fused || per_sm < 1) return cudaSuccess;
-  const int room = optin - static_smem;
-  for (int i = 0; i < nk && !err; ++i)
-    err = cudaFuncSetAttribute(ks[i],
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               room);
+  const int room = optin - (int)attr.sharedSizeBytes;
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             room);
   // the block's share of the SM, less its static part (and the 1 KB the
   // SM reserves per block), in whole 4 KB steps, as long as the count holds
-  int bytes = max(0, min(room, sm_smem / per_sm - 1024 - static_smem))
-              & ~4095;
-  while (!err && bytes > 0) {
-    int with = per_sm;
-    for (int i = 0; i < nk && !err && with >= per_sm; ++i)
-      err = blocks_per_sm(ks[i], bytes, &with);
-    if (with >= per_sm) break;
+  int bytes = max(0, min(room, sm_smem / per_sm - 1024 -
+                                   (int)attr.sharedSizeBytes)) & ~4095;
+  int with = 0;
+  while (!err && bytes > 0 && !(err = blocks_per_sm(k, bytes, &with)) &&
+         with < per_sm)
     bytes -= 4096;
-  }
   *stage_bytes = bytes;
   return err;
 }

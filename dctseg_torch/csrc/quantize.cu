@@ -32,8 +32,6 @@
 //     epoch, which the other blocks wait for.  Then every block quantizes
 //     its share, walking it backwards, so that it starts on what the
 //     absmax read last, the part most likely still in L2.
-//   split -- the grid route as two ordinary launches (absmax, then
-//     quantize): the same kernel, for comparing the two on the card.
 
 #include <cstdint>
 
@@ -47,8 +45,6 @@ constexpr int kUnroll = 4;        // vectors in flight a thread
 // About a second of polling before a barrier that never opens traps
 // instead of hanging the card.
 constexpr unsigned kMaxSpins = 1u << 24;
-
-enum Phase : int { kBoth = 0, kAbsmaxOnly = 1, kQuantizeOnly = 2 };
 
 // The caller's workspace of the grid route, zero between calls except
 // `flag`, which holds the epoch of the last call.
@@ -174,63 +170,59 @@ from_amax_kernel(const T* __restrict__ x, long long vectors,
   quantize_share<T, VEC>(x, vectors, sx, q, false);
 }
 
-// Routes grid (phase kBoth, one cooperative launch) and split (kAbsmaxOnly
-// then kQuantizeOnly, two launches).
+// Route grid: one cooperative launch of co-resident blocks.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 grid_kernel(const T* __restrict__ x, long long vectors, Workspace ws,
-            unsigned epoch, int phase, float* __restrict__ stats,
+            unsigned epoch, float* __restrict__ stats,
             int8_t* __restrict__ q) {
   using P = Pack<T, VEC>;
   __shared__ float block_sx;
-  if (phase != kQuantizeOnly) {
-    const P* xv = reinterpret_cast<const P*>(x);
-    const long long stride = (long long)gridDim.x * kThreads;
-    long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
-    unsigned m = 0;
-    for (; v + (kUnroll - 1) * stride < vectors; v += kUnroll * stride) {
-      P p[kUnroll];
+  const P* xv = reinterpret_cast<const P*>(x);
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
+  unsigned m = 0;
+  for (; v + (kUnroll - 1) * stride < vectors; v += kUnroll * stride) {
+    P p[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) p[u] = xv[v + u * stride];
+    for (int u = 0; u < kUnroll; ++u) p[u] = xv[v + u * stride];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
+    for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
-        for (int j = 0; j < VEC; ++j)
-          m = max(m, abs_bits(to_f32(p[u].v[j])));
-    }
-    for (; v < vectors; v += stride) {
-      const P p = xv[v];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) m = max(m, abs_bits(to_f32(p.v[j])));
-    }
-    m = block_max(m);
-    if (threadIdx.x == 0) {
-      atomicMax(ws.amax, m);
-      __threadfence();
-      if (atomicAdd(ws.ticket, 1u) == gridDim.x - 1) {
-        // every block's max is in: read it back and leave the word and
-        // the ticket at zero for the next call
-        __threadfence();
-        const float amax = __uint_as_float(atomicExch(ws.amax, 0u));
-        stats[0] = amax;
-        stats[1] = scale_of(amax);
-        *ws.ticket = 0u;
-        __threadfence();
-        if (phase == kBoth) atomicExch(ws.flag, epoch);
-      } else if (phase == kBoth) {
-        unsigned spins = 0;
-        while (*reinterpret_cast<volatile unsigned*>(ws.flag) != epoch) {
-          __nanosleep(64);
-          if (++spins > kMaxSpins) __trap();
-        }
-        __threadfence();
-      }
-    }
-    if (phase == kAbsmaxOnly) return;
+      for (int j = 0; j < VEC; ++j)
+        m = max(m, abs_bits(to_f32(p[u].v[j])));
   }
-  if (threadIdx.x == 0) block_sx = __ldcg(stats + 1);
+  for (; v < vectors; v += stride) {
+    const P p = xv[v];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) m = max(m, abs_bits(to_f32(p.v[j])));
+  }
+  m = block_max(m);
+  if (threadIdx.x == 0) {
+    atomicMax(ws.amax, m);
+    __threadfence();
+    if (atomicAdd(ws.ticket, 1u) == gridDim.x - 1) {
+      // every block's max is in: read it back and leave the word and the
+      // ticket at zero for the next call
+      __threadfence();
+      const float amax = __uint_as_float(atomicExch(ws.amax, 0u));
+      stats[0] = amax;
+      stats[1] = scale_of(amax);
+      *ws.ticket = 0u;
+      __threadfence();
+      atomicExch(ws.flag, epoch);
+    } else {
+      unsigned spins = 0;
+      while (*reinterpret_cast<volatile unsigned*>(ws.flag) != epoch) {
+        __nanosleep(64);
+        if (++spins > kMaxSpins) __trap();
+      }
+      __threadfence();
+    }
+    block_sx = __ldcg(stats + 1);
+  }
   __syncthreads();
-  quantize_share<T, VEC>(x, vectors, block_sx, q, phase == kBoth);
+  quantize_share<T, VEC>(x, vectors, block_sx, q, true);
 }
 
 int itemsize(int dtype) { return dtype == kF32 ? 4 : 2; }
@@ -304,10 +296,10 @@ extern "C" int dctseg_quantize_coresident(int dtype, int vec, int* blocks) {
 // args (int64, ops/quant.py _quantize_launch): x, q, stats, n, dtype, vec,
 // grid, route, amax slots, slot count, workspace, epoch.  x: contiguous, n
 // elements of dtype; q: n int8; stats: float32 [2].  Route 0 (from_amax):
-// the float32 slots, whose max is max |x|.  Routes 1 (grid: a grid of
-// co-resident blocks) and 2 (split): the workspace, three uint32 words,
-// zero but for the last (the epoch of the last grid call).  A vector width
-// that does not divide n or fit the pointers is refused.
+// the float32 slots, whose max is max |x|.  Route 1 (grid: a grid of
+// co-resident blocks): the workspace, three uint32 words, zero but for the
+// last (the epoch of the last grid call), and a fresh epoch.  A vector
+// width that does not divide n or fit the pointers is refused.
 extern "C" int dctseg_quantize(const int64_t* a, void* stream) {
   const long long n = a[3];
   const int dtype = (int)a[4], vec = (int)a[5], grid = (int)a[6];
@@ -335,19 +327,11 @@ extern "C" int dctseg_quantize(const int64_t* a, void* stream) {
     }
   }
   const void* k = pick_grid(dtype, vec);
-  if (!k || (route != 1 && route != 2) || a[10] % 4)
-    return cudaErrorInvalidValue;
+  if (!k || route != 1 || a[10] % 4) return cudaErrorInvalidValue;
   unsigned* words = reinterpret_cast<unsigned*>(a[10]);
   Workspace ws{words, words + 1, words + 2};
   unsigned epoch = (unsigned)a[11];
-  int phase = route == 1 ? kBoth : kAbsmaxOnly;
-  void* args[] = {&x, &vectors, &ws, &epoch, &phase, &stats, &q};
-  if (route == 1)
-    return cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kThreads), args, 0,
-                                       s);
-  cudaError_t err = cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, 0,
+  void* args[] = {&x, &vectors, &ws, &epoch, &stats, &q};
+  return cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kThreads), args, 0,
                                      s);
-  if (err) return err;
-  phase = kQuantizeOnly;
-  return cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, 0, s);
 }

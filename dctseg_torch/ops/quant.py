@@ -193,20 +193,18 @@ THREADS = 256               # csrc/quantize.cu kThreads
 H100_SMS = 132
 QUANT_BLOCKS_PER_SM = 8     # 2,048 resident threads per SM
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
-# K7's routes (csrc/quantize.cu): "from_amax", one read of x whose absmax
-# the fused norm that wrote it reported; "grid", one cooperative launch
-# that finds the absmax itself (x read twice); "split", the grid route as
-# two launches, which only chip_smoke.py's timing asks for
-QUANT_ROUTES = ("from_amax", "grid", "split")
+# K7's routes (csrc/quantize.cu), one launch a call each: "from_amax", one
+# read of x whose absmax the fused norm that wrote it reported; "grid", one
+# cooperative launch that finds the absmax itself (x read twice)
+QUANT_ROUTES = ("from_amax", "grid")
 
 
 class QuantPlan(NamedTuple):
     """How one K7 call runs: ``route``, ``vec`` elements a thread moves at
-    a time, ``grid`` blocks, ``launches`` kernel launches."""
+    a time, ``grid`` blocks."""
     route: str
     vec: int
     grid: int
-    launches: int
 
 
 def quant_width(numel: int, dtype: torch.dtype, aligned: int) -> int:
@@ -230,8 +228,7 @@ def plan_quantize(numel: int, dtype: torch.dtype, aligned: int,
                          f"of {QUANT_ROUTES}")
     vec = quant_width(numel, dtype, aligned)
     blocks = math.ceil(numel // vec / THREADS)
-    return QuantPlan(route, vec, max(1, min(blocks, max_blocks)),
-                     2 if route == "split" else 1)
+    return QuantPlan(route, vec, max(1, min(blocks, max_blocks)))
 
 
 _quant_workspaces: dict = {}     # (device index, stream) -> int32 [3]
@@ -254,10 +251,9 @@ def quant_coresident(device: int, dtype: torch.dtype, vec: int) -> int:
     return found
 
 
-def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None,
-                     split: bool = False):
+def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None):
     """K7 on a CUDA tensor: the from_amax route where ``amax`` is given,
-    else the grid route (``split``: as two launches)."""
+    else the grid route."""
     if not x.is_contiguous() or x.numel() == 0:
         raise ValueError("the quantize kernel takes a non-empty contiguous "
                          "tensor")
@@ -268,8 +264,7 @@ def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None,
         raise ValueError("amax must be a non-empty contiguous float32 "
                          "vector on x's device")
     code = _build.dtype_code(x.dtype)
-    route = ("from_amax" if amax is not None else
-             "split" if split else "grid")
+    route = "from_amax" if amax is not None else "grid"
     aligned = _build.alignment(x.data_ptr())
     device, stream = x.get_device(), _build.stream_of(x)
     max_blocks = H100_SMS * QUANT_BLOCKS_PER_SM
@@ -295,9 +290,8 @@ def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None,
         else 0))
     _build.check(_build.lib().dctseg_quantize(args.buffer_info()[0], stream),
                  "quantize")
-    quantize_absmax.routes[route] += plan.launches
     (quantize_from_amax if amax is not None
-     else quantize_absmax).launches += plan.launches
+     else quantize_absmax).launches += 1
     return xq, stats
 
 
@@ -339,7 +333,6 @@ def quantize_from_amax(x: torch.Tensor, amax: torch.Tensor
 
 quantize_absmax.launches = 0    # grid-route launches on CUDA tensors
 quantize_from_amax.launches = 0   # from_amax-route launches
-quantize_absmax.routes = dict.fromkeys(QUANT_ROUTES, 0)   # K7's, by route
 
 
 # ---- K6: the int8 implicit-GEMM conv ----

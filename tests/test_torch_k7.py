@@ -349,10 +349,9 @@ def test_tiny_int8_forward_equals_two_pass(monkeypatch, path, base, spec):
     (4 * 32, torch.float32, 8, 2)])
 def test_quantize_plan(route, numel, dtype, aligned, vec):
     """The widest vector that fits the length and the address; one thread
-    a vector, at most max_blocks blocks; one launch a call, two on split."""
+    a vector, at most max_blocks blocks."""
     plan = quant.plan_quantize(numel, dtype, aligned, route, max_blocks=1056)
     assert plan.route == route and plan.vec == vec
-    assert plan.launches == (2 if route == "split" else 1)
     blocks = -(-numel // vec // quant.THREADS)
     assert plan.grid == max(1, min(blocks, 1056))
     assert quant.plan_quantize(numel, dtype, aligned, route,
@@ -401,19 +400,16 @@ def recorder(monkeypatch):
 def test_k7_launch_arguments(recorder, monkeypatch):
     """The argument arrays K7's wrapper hands ``dctseg_quantize`` on each
     route (x, q, stats, n, dtype, vec, grid, route, slots, slot count,
-    workspace, epoch), and its counters: one launch a call, two on
-    split."""
+    workspace, epoch), and its counters: one launch a call, each route on
+    its operator's."""
     for counter in (quant.quantize_absmax, quant.quantize_from_amax):
         monkeypatch.setattr(counter, "launches", 0)
-    monkeypatch.setattr(quant.quantize_absmax, "routes",
-                        dict.fromkeys(quant.QUANT_ROUTES, 0))
     x = torch.zeros(2, 8, 8, 8, 16, dtype=torch.bfloat16)
     amax = torch.zeros(2)
     xq, stats = quant._quantize_launch(x, amax)
     quant._quantize_launch(x)
     quant._quantize_launch(x)
-    quant._quantize_launch(x, split=True)
-    (_, a), (_, g1), (_, g2), (_, s) = recorder.calls
+    (_, a), (_, g1), (_, g2) = recorder.calls
     grid = -(-x.numel() // 8 // quant.THREADS)
     assert a[:2] == [x.data_ptr(), xq.data_ptr()]
     assert a[3:10] == [x.numel(), 1, 8, grid, 0, amax.data_ptr(), 2]
@@ -422,11 +418,8 @@ def test_k7_launch_arguments(recorder, monkeypatch):
     assert ws.dtype == torch.int32 and not ws.any()
     assert g1[7:11] == [1, 0, 0, ws.data_ptr()]
     assert 0 < g1[11] < 2 ** 32 and g2[11] != g1[11]   # a fresh epoch
-    assert s[7] == 2 and s[11] == 0
     assert quant.quantize_from_amax.launches == 1
-    assert quant.quantize_absmax.launches == 4
-    assert quant.quantize_absmax.routes == {"from_amax": 1, "grid": 2,
-                                            "split": 2}
+    assert quant.quantize_absmax.launches == 2
     assert xq.dtype == torch.int8 and stats.shape == (2,)
     with pytest.raises(ValueError, match="amax"):
         quant._quantize_launch(x, amax.double())
