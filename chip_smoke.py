@@ -23,7 +23,9 @@ Phases (any failure raises and the script exits non-zero):
      the order-statistic kernel in its count mode and its search mode
      (exact, on the pooled distances of those volumes, against
      count_leq_plain and the binary search), the int8 activation quantizer
-     K7 (torch.equal, f32 and bf16, with exact half-way ties planted) and
+     K7 (torch.equal, f32 and bf16, with exact half-way ties planted), K1's
+     fused route and K7's grid route replayed in a CUDA graph on 3 inputs
+     (each replay torch.equal to an eager call) and
      the int8 conv K6 (torch.equal against its float64 oracle, f32 and bf16
      out, at every call of one int8 and one int8_all forward on each path,
      recorded, each on its tma route, and on ragged shapes on its mma_sync
@@ -46,6 +48,25 @@ Phases (any failure raises and the script exits non-zero):
          path), one int8_all forward's launches, and
          Predictor(fold_params=True) equal to the unfolded engine bit for
          bit;
+       - fused dispatch: Predictor(fuse_dispatch=True) (crops and the B=8
+         forward as one captured CUDA graph) on the direct and s2d paths,
+         float and int8: each of the 3 volumes replayed (the first again
+         after the others) and held torch.equal to the staged engine's
+         eager tiled_probs, the replays launching nothing from Python, one
+         profiled replay running the same port kernels as one profiled
+         eager call (K1's fused route and, under int8, K7's grid route
+         among them) and the eager call as many as its launch counters
+         say; both engines timed in turns over 2 rounds of the volumes
+         (median, spread, idle share, peak memory); fused flip TTA equal
+         to staged, and replays after update_params equal to the eager
+         forward under the new weights; fold_params with fuse_dispatch on
+         direct int8 likewise;
+       - A8: one float B=8 forward on each path under torch.profiler: the
+         top ops and kernels by device time against the busy time, where
+         the aten::copy_ calls come from (by op, and by line of the port
+         from one more forward under a dispatch mode), layout-transform
+         kernels and conv-bias adds; then profile_model at full width on
+         fake tensors on the card (parameters and flops pinned);
        - evaluation: DeviceMetrics on the card against the host scipy
          metrics (exact) on 2 synthetic 128^3 label pairs in both HD95
          modes, then the evaluate CLI (dctseg_torch.cli.evaluate:
@@ -103,18 +124,21 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import traceback
 import urllib.request
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from dctseg_torch import metrics
 from dctseg_torch.cli import evaluate, train
@@ -131,6 +155,7 @@ from dctseg_torch.ops import attention as attn
 from dctseg_torch.ops import (edt, fusednorm, minplus, orderstats, quant,
                               relayout)
 from dctseg_torch.train.trainer import Trainer
+from dctseg_torch.utils import profiling
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
@@ -2393,6 +2418,395 @@ def time_metrics(dev, pred, tgt):
     return row
 
 
+# ---- fused dispatch (Predictor(fuse_dispatch=True)) and profiling ----
+
+# the fused-dispatch phase's engines: (UNet path, quantize spec)
+FUSED_PATHS = {"direct": ("direct", "none"), "s2d": ("s2d", "none"),
+               "direct_int8": ("direct", "int8"),
+               "s2d_int8": ("s2d", "int8")}
+FUSED_ROUNDS = 2                 # timed rounds over the volumes, in turns
+# the port's kernels, by the name of their __global__ function
+PORT_KERNELS = ("norm_kernel", "attention_mma_kernel",
+                "attention_simt_kernel", "s2d_kernel", "tma_conv_kernel",
+                "mma_sync_conv_kernel", "grid_kernel", "from_amax_kernel")
+_PORT_KERNEL = re.compile(r"(?:^|[\s:])(" + "|".join(PORT_KERNELS)
+                          + r")<([^>]*)>")
+NORM_MODES = {"0": "stats", "1": "apply", "2": "fused"}
+# each launch counter and the kernels its launches run
+COUNTER_KERNELS = {
+    "fusednorm+fusednorm_amax": ("norm_kernel/stats", "norm_kernel/apply",
+                                 "norm_kernel/fused"),
+    "attention": ("attention_mma_kernel", "attention_simt_kernel"),
+    "relayout": ("s2d_kernel",),
+    "int8_conv3d": ("tma_conv_kernel", "mma_sync_conv_kernel"),
+    "quantize_absmax": ("grid_kernel",),
+    "quantize_from_amax": ("from_amax_kernel",)}
+# one B=8 full-width forward, counted by tests/test_torch_profiling.py
+FULL_FLOPS = 4_257_332_019_200
+FULL_PARAMS = 16_824_556
+A8_TOP = 15
+
+
+def port_kernels(prof) -> collections.Counter:
+    """The port's kernels among a profile's device events, by function
+    name; K1's by its mode (``norm_kernel/fused``: the fused route's
+    cooperative kernel, ``/stats`` and ``/apply``: the split route's)."""
+    found = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = _PORT_KERNEL.search(e.name)
+        if m:
+            name = m.group(1)
+            if name == "norm_kernel":
+                name += "/" + NORM_MODES[m.group(2).split(",")[2].strip()]
+            found[name] += 1
+    return found
+
+
+def profiled(fn):
+    """(profile, fn()) with the card's events recorded."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return prof, out
+
+
+def event_ms(fn) -> float:
+    """One call of ``fn`` timed with CUDA events to a synchronise."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def check_replays(name, staged, fused, volumes):
+    """The fused engine's first call captures; then every volume is
+    replayed (the first again at the end) and held torch.equal to the
+    staged engine's eager tiled_probs, the replays launching nothing from
+    Python; one replay and one eager call under torch.profiler launch the
+    same port kernels, the eager call as many as its launch counters say,
+    K1's fused route among them (and K7's grid route under int8)."""
+    reset_launches()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    outs = [fused.tiled_probs(volumes[0])]
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved() - reserved
+    capture_launches = read_launches()
+    reset_launches()
+    outs += [fused.tiled_probs(v) for v in (*volumes[1:], volumes[0])]
+    torch.cuda.synchronize()
+    replay_launches = read_launches()
+    equal = []
+    for v, out in zip((*volumes, volumes[0]), outs):
+        reset_launches()
+        want = staged.tiled_probs(v)
+        eager_launches = read_launches()
+        equal.append(torch.equal(out, want))
+        del want
+    del outs
+    prof_f, _ = profiled(lambda: fused.tiled_probs(volumes[1]))
+    prof_s, _ = profiled(lambda: staged.tiled_probs(volumes[1]))
+    replayed, eager = port_kernels(prof_f), port_kernels(prof_s)
+    by_counter = {c: sum(eager[k] for k in ks)
+                  for c, ks in COUNTER_KERNELS.items()}
+    counted = {c: sum(eager_launches[k] for k in c.split("+"))
+               for c in COUNTER_KERNELS}
+    int8 = eager_launches["int8_conv3d"] > 0
+    row = dict(capture_s=capture_s, graph_pool_bytes=pool,
+               replays=len(equal),
+               replays_equal_eager=equal, replayed_kernels=dict(replayed),
+               eager_kernels=dict(eager), eager_launch_counters=counted,
+               capture_launches=capture_launches,
+               fused_busy_ms=device_busy_ms(prof_f),
+               staged_busy_ms=device_busy_ms(prof_s))
+    ok = (all(equal) and replayed == eager and by_counter == counted
+          and not any(replay_launches.values())
+          and all(capture_launches[k] == 2 * eager_launches[k]
+                  for k in capture_launches)
+          and replayed["norm_kernel/fused"] > 0
+          and (not int8 or replayed["grid_kernel"] > 0))
+    log(check="fused_dispatch_replays", path=name, ok=ok, **row)
+    if not ok:
+        raise AssertionError(f"fused dispatch ({name}): {row}")
+    return row
+
+
+def time_fused(name, staged, fused, volumes, row):
+    """tiled_probs a volume, the two engines in turns over FUSED_ROUNDS
+    rounds of the volumes: median and spread of each, its idle share (the
+    profiled call's busy time against the median), and its peak memory
+    after a cache flush: allocated, and the footprint, which for the fused
+    engine adds the graph's pool (what its replays use, allocated at the
+    capture)."""
+    engines = {"staged": staged, "fused": fused}
+    times = collections.defaultdict(list)
+    for r in range(FUSED_ROUNDS):
+        for i, v in enumerate(volumes):
+            order = (("staged", "fused") if (r * len(volumes) + i) % 2 == 0
+                     else ("fused", "staged"))
+            for k in order:
+                times[k].append(event_ms(lambda: engines[k].tiled_probs(v)))
+    out = {}
+    for k, engine in engines.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine.tiled_probs(volumes[0])
+        torch.cuda.synchronize()
+        med = statistics.median(times[k])
+        peak = torch.cuda.max_memory_allocated()
+        out[k] = dict(ms=times[k], median_ms=med,
+                      spread_ms=[min(times[k]), max(times[k])],
+                      device_busy_ms=row[f"{k}_busy_ms"],
+                      idle_share=1 - row[f"{k}_busy_ms"] / med,
+                      peak_allocated_bytes=peak,
+                      footprint_bytes=peak + (row["graph_pool_bytes"]
+                                              if k == "fused" else 0))
+    out["fused_vs_staged"] = out["fused"]["median_ms"] / out["staged"][
+        "median_ms"] - 1
+    log(timing="fused_dispatch", path=name, engine="tiled_probs",
+        dtype="bfloat16", unit="ms per volume, engines in turns", **out)
+    return out
+
+
+def check_update(name, staged, fused, volumes, weights2):
+    """update_params on the fused engine (whose model the staged engine
+    shares): its replays change and equal the eager forward under the new
+    weights."""
+    before = fused.tiled_probs(volumes[0])
+    fused.update_params(weights2)
+    after = [fused.tiled_probs(v) for v in volumes[:2]]
+    equal = [torch.equal(a, staged.tiled_probs(v))
+             for a, v in zip(after, volumes)]
+    changed = not torch.equal(before, after[0])
+    ok = all(equal) and changed
+    log(check="fused_dispatch_update_params", path=name, ok=ok,
+        replays_equal_eager=equal, answer_changed=changed)
+    if not ok:
+        raise AssertionError(f"fused replay after update_params ({name})")
+
+
+def check_graph_replay(dev):
+    """K1's fused route and K7's grid route, the two cooperative kernels
+    with a barrier, captured in one CUDA graph (with workspaces the graph
+    owns) and replayed on 3 inputs in turn, then the first again: each
+    replay torch.equal to an eager call on the same input (a replay that
+    read its barrier's earlier generation would read stale statistics),
+    and a profiled replay runs both kernels."""
+    g = gen(dev, SEED + 30)
+    shape = (8, 32, 32, 32, 64)
+    if fusednorm.plan_for(shape, torch.bfloat16, 8, False,
+                          torch.cuda.current_device()).route != "fused":
+        raise AssertionError(f"fusednorm at {shape} is not on its fused "
+                             "route")
+    xs = [torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+          for _ in range(3)]
+
+    def step(x):
+        y = fusednorm.fused_instance_norm_act(x, shape[-1], act="relu")
+        return (y, *quant.quantize_absmax(y))
+
+    static = xs[0].clone()
+    graph, owned = torch.cuda.CUDAGraph(), {}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with _build.owned_workspaces(owned):
+        with torch.cuda.stream(side):
+            step(static)
+        with torch.cuda.graph(graph, stream=side):
+            out = step(static)
+    torch.cuda.current_stream().wait_stream(side)
+    equal = []
+    for x in (*xs, xs[0]):
+        static.copy_(x)
+        graph.replay()
+        equal.append(all(torch.equal(a, b) for a, b in zip(out, step(x))))
+    static.copy_(xs[1])
+    prof, _ = profiled(graph.replay)
+    kernels = port_kernels(prof)
+    ok = all(equal) and kernels == {"norm_kernel/fused": 1,
+                                    "grid_kernel": 1}
+    log(check="graph_replay_k1_fused_k7_grid", shape=list(shape), ok=ok,
+        replays_equal_eager=equal, replayed_kernels=dict(kernels))
+    if not ok:
+        raise AssertionError("K1/K7 replayed in a CUDA graph differ from "
+                             "eager calls")
+
+
+def run_fused_dispatch(dev, cfg_kw, weights, volumes):
+    """Predictor(fuse_dispatch=True) at full width, bf16, on the direct and
+    s2d paths, float and int8: replays against the eager forward and their
+    kernels (check_replays), both engines in turns (time_fused); on the
+    direct path also fused flip TTA against staged and update_params; then
+    fold_params with fuse_dispatch on direct int8, with update_params.
+    Returns {path: row}."""
+    weights2 = cwf.ClsWiseFormer(ModelConfig(**cfg_kw), torch.Generator(
+        ).manual_seed(SEED + 1)).state_dict()
+    rows = {}
+    for name, (path, spec) in FUSED_PATHS.items():
+        model = int8_model(dev, cfg_kw, weights, path, spec)
+        staged = Predictor(model, device=dev)
+        fused = Predictor(model, device=dev, fuse_dispatch=True)
+        row = check_replays(name, staged, fused, volumes)
+        row.update(time_fused(name, staged, fused, volumes, row))
+        if name == "direct":
+            g = gen(dev, SEED + 20)
+            tta = []
+            for _ in range(3):
+                x = torch.randn((1, 128, 128, 128, 4), device=dev,
+                                generator=g)
+                tta.append(torch.equal(fused.tta_probs(x),
+                                       staged.tta_probs(x)))
+            log(check="fused_dispatch_tta", path=name, ok=all(tta),
+                replays_equal_eager=tta)
+            if not all(tta):
+                raise AssertionError("fused tta_probs differs from staged")
+            check_update(name, staged, fused, volumes, weights2)
+        rows[name] = row
+        del model, staged, fused
+        torch.cuda.empty_cache()
+    model = int8_model(dev, cfg_kw, weights, "direct", "int8")
+    staged = Predictor(model, device=dev)
+    both = Predictor(model, device=dev, fold_params=True, fuse_dispatch=True)
+    equal = [torch.equal(both.tiled_probs(v), staged.tiled_probs(v))
+             for v in (*volumes, volumes[0])]
+    log(check="fused_dispatch_fold_params", path="direct_int8",
+        ok=all(equal), replays_equal_eager=equal)
+    if not all(equal):
+        raise AssertionError("folded fused replays differ from eager")
+    check_update("direct_int8_folded", staged, both, volumes, weights2)
+    del model, staged, both
+    torch.cuda.empty_cache()
+    return rows
+
+
+def copy_parents(prof) -> dict:
+    """The ops that called a profile's aten::copy_, with their counts."""
+    return dict(collections.Counter(
+        e.cpu_parent.name if e.cpu_parent is not None else "(python)"
+        for e in prof.events() if e.name == "aten::copy_"
+        and e.device_type != torch.autograd.DeviceType.CUDA).most_common())
+
+
+class CopySites(TorchDispatchMode):
+    """Counts the calls that copy a tensor (casts, clones, contiguous and
+    reshape where they copy, block_diag, repeat, scatter, padding: the
+    callers of aten::copy_ as the forward dispatches them under inference
+    mode) by op and by the innermost frame of the port's code on the
+    Python stack that made them."""
+    OPS = ("aten::to", "aten::_to_copy", "aten::clone", "aten::contiguous",
+           "aten::reshape", "aten::copy_", "aten::block_diag",
+           "aten::repeat", "aten::scatter", "aten::constant_pad_nd")
+
+    def __init__(self):
+        super().__init__()
+        self.sites = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func._schema.name
+        if name in self.OPS and profiling.moves_data(func, args, out):
+            pkg = f"{os.sep}dctseg_torch{os.sep}"
+            own = [f for f in traceback.extract_stack() if pkg in f.filename]
+            site = (f"{own[-1].filename.split(pkg)[-1]}:{own[-1].lineno} "
+                    f"{own[-1].name}" if own else "(outside the port)")
+            self.sites[name, site] += 1
+        return out
+
+
+def ancestors(e):
+    while e.cpu_parent is not None:
+        e = e.cpu_parent
+        yield e.name
+
+
+def attribute_forward(dev, cfg_kw, weights, vol):
+    """A8: one float bf16 B=8 forward (seg_probs on the 8 crops of ``vol``)
+    on each path under torch.profiler: the top A8_TOP ops by their own
+    device time and their sum against the busy time, the top kernels, the
+    ops that call aten::copy_ and, from one more forward under CopySites,
+    the lines of the port that call them, the kernels that
+    transform a layout (cuDNN's NCHW/NHWC converters, transposes), and the
+    conv-bias adds (aten::add_ inside aten::_convolution; cuDNN's
+    implicit GEMMs on NHWC, "nhwckrsc_nhwc", are not transforms)."""
+    x = Predictor.crops(vol)
+    rows = {}
+    for path in PATHS:
+        predictor = Predictor(int8_model(dev, cfg_kw, weights, path, "none"),
+                              device=dev)
+        predictor.seg_probs(x)
+        torch.cuda.synchronize()
+        prof, _ = profiled(lambda: predictor.seg_probs(x))
+        ops = sorted((r for r in prof.key_averages()
+                      if r.device_type != torch.autograd.DeviceType.CUDA),
+                     key=lambda r: -r.self_device_time_total)[:A8_TOP]
+        kernels = collections.defaultdict(lambda: [0, 0.0])
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                k = kernels[e.name[:120]]
+                k[0] += 1
+                k[1] += (e.time_range.end - e.time_range.start) / 1e3
+        layout = {k: v for k, v in kernels.items()
+                  if "implicit_gemm" not in k and re.search(
+                      r"nchwtonhwc|nhwctonchw|transpose|convert|reorder|"
+                      r"padding", k, re.I)}
+        cpu = [e for e in prof.events()
+               if e.device_type != torch.autograd.DeviceType.CUDA]
+        busy = device_busy_ms(prof)
+        top_ms = sum(r.self_device_time_total for r in ops) / 1e3
+        rows[path] = row = dict(
+            device_busy_ms=busy,
+            top_ops={r.key: [r.count, r.self_device_time_total / 1e3]
+                     for r in ops},
+            top_ops_ms=top_ms, top_ops_share=top_ms / busy,
+            top_kernels=dict(sorted(kernels.items(),
+                                    key=lambda kv: -kv[1][1])[:A8_TOP]),
+            kernel_launches=sum(v[0] for v in kernels.values()),
+            copy_calls=sum(e.name == "aten::copy_" for e in cpu),
+            copy_parents=copy_parents(prof),
+            layout_kernels=layout,
+            convolutions=sum(e.name == "aten::convolution" for e in cpu),
+            conv_bias_adds=sum(e.name == "aten::add_"
+                               and "aten::_convolution" in ancestors(e)
+                               for e in cpu))
+        with CopySites() as sites:
+            predictor.seg_probs(x)
+        row["copy_sites"] = {f"{op} {site}": n for (op, site), n
+                             in sites.sites.most_common(A8_TOP)}
+        log(phase="a8_forward", path=path, dtype="bfloat16", batch=8,
+            unit="ms of device time, [calls, ms] per op / kernel", **row)
+        del predictor
+    return rows
+
+
+def run_profiling(dev, cfg_kw, weights):
+    """The profiling module at full width: profile_model of a B=8 forward
+    on fake tensors on the card (nothing runs), its parameters and flops
+    held to the counts the CPU tests pin."""
+    model = cwf.build_model(ModelConfig(**cfg_kw), device=dev)
+    model.load_state_dict(weights, strict=True)
+    t0 = time.perf_counter()
+    stats = profiling.profile_model(
+        model, torch.zeros((8, 128, 128, 128, 4), device=dev))
+    ok = stats["params"] == FULL_PARAMS and stats["flops"] == FULL_FLOPS
+    log(phase="profile_model", batch=8, seconds=time.perf_counter() - t0,
+        flops_readable=profiling.clever_format(stats["flops"]), ok=ok,
+        **stats)
+    if not ok:
+        raise AssertionError(f"profile_model at full width: {stats}")
+    return stats
+
+
 def main() -> int:
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -2448,6 +2862,7 @@ def main() -> int:
                                 torch.Generator().manual_seed(SEED)
                                 ).state_dict()
     quantize_err = check_quantize(dev)
+    check_graph_replay(dev)
     int8_calls = record_int8_calls(dev, cfg_kw, weights)
     int8_err = check_int8_conv(dev, int8_calls)
     log(phase="kernel_checks", ok=True)
@@ -2498,6 +2913,11 @@ def main() -> int:
     # int8 on both paths, against the float engine in turns
     int8_rows = run_int8_main_path(dev, cfg_kw, weights, volumes, int8_calls)
     run_int8_witness(dev, cfg_kw, weights, volumes[0])
+    # fused dispatch: CUDA graphs against the staged engine; A8: where one
+    # forward's device time goes; the profiling module at full width
+    fused_rows = run_fused_dispatch(dev, cfg_kw, weights, volumes)
+    attribute_forward(dev, cfg_kw, weights, volumes[0])
+    run_profiling(dev, cfg_kw, weights)
     del volumes
 
     # ---- 4b. evaluation path, full width
@@ -2540,6 +2960,15 @@ def main() -> int:
         log(timing="tiled_probs", path=name, dtype="bfloat16",
             first_volume_ms=vol_ms[0],
             steady_volume_ms=sum(steady) / len(steady))
+    for name, row in fused_rows.items():
+        log(timing="tiled_probs_fused_dispatch", path=name,
+            dtype="bfloat16", unit="ms per volume, engines in turns",
+            **{k: {m: row[k][m] for m in ("median_ms", "spread_ms",
+                                          "idle_share",
+                                          "peak_allocated_bytes",
+                                          "footprint_bytes")}
+               for k in ("staged", "fused")},
+            fused_vs_staged=row["fused_vs_staged"])
     for name, row in int8_rows.items():
         log(timing="tiled_probs_int8", path=name, dtype="bfloat16",
             unit="ms per volume, float and int8 engines in turns",

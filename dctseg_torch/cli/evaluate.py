@@ -75,6 +75,12 @@ def parse_args(argv=None):
     p.add_argument("--base-channels", type=int, default=16)
     p.add_argument("--fp32", action="store_true",
                    help="fp32 compute and wire (default bf16)")
+    p.add_argument("--pallas-attention", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="the attention kernel (csrc/attention.cu) in the "
+                        "couplers; on by default here, where the JAX "
+                        "driver's flag is off by default: "
+                        "--no-pallas-attention runs the plain attention")
     p.add_argument("--quantize", default="none",
                    help="int8 post-training quantization spec: 'int8', "
                         "'int8+pw+deconv+down' or 'int8_all' (inference "
@@ -124,7 +130,7 @@ def main(argv=None) -> dict:
     mcfg = ModelConfig(
         img_dim=a.img_dim, base_channels=a.base_channels,
         compute_dtype="float32" if a.fp32 else "bfloat16",
-        quantize=a.quantize,
+        quantize=a.quantize, use_pallas_attention=a.pallas_attention,
         **({} if a.img_dim == 128
            else {"top_num": min(128, (a.img_dim // 16) ** 3)}))
     model = build_model(mcfg, device=device,

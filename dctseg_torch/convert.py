@@ -11,6 +11,10 @@ JAX package's converter, kept here as a copy):
   dense kernel           (I, O)          -> (O, I)
   LayerNorm scale / bias                 -> weight / bias
 
+``plain_unet_state_dict_from_jax`` does the same for the JAX package's
+PlainUnet (params ``unet/...`` and ``decoder/...``), whose port keeps the
+encoder's reference names under ``unet.`` instead of ``Unet_list.``.
+
 The four positional-encoding buffers (``label_0X_position_encoding.pe``,
 ``fusion_label_pos.pe``) are constants: they are rebuilt from the config
 as (1024, 1, token_dim) sinusoid tables -- the reference's (1024, 1, 512)
@@ -177,23 +181,49 @@ def pe_buffer(cfg: ModelConfig) -> np.ndarray:
     return reference_pe_buffer(cfg.geometry["token_dim"])
 
 
+def _from_tree(tree: dict, name: str) -> np.ndarray:
+    """The port's tensor ``name`` (a ClsWiseFormer key) from a flax params
+    tree."""
+    path, rule = _jax_path(name)
+    node = tree
+    for p in path:
+        node = node[p]
+    return _to_torch_layout(np.asarray(node, np.float32), rule)
+
+
+def _tensor(w: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(w, np.float32, order="C"))
+
+
 def state_dict_from_jax(params: dict, cfg: ModelConfig
                         ) -> Dict[str, torch.Tensor]:
     """flax params tree (numpy or array-like leaves, with or without the
     top-level 'params' key) -> the port's state_dict (f32 CPU tensors)."""
     tree = params.get("params", params)
-    out: Dict[str, torch.Tensor] = {}
-    for name in state_dict_names(cfg):
-        if name.endswith(".pe"):
-            w = pe_buffer(cfg)
-        else:
-            path, rule = _jax_path(name)
-            node = tree
-            for p in path:
-                node = node[p]
-            w = _to_torch_layout(np.asarray(node, np.float32), rule)
-        out[name] = torch.from_numpy(np.array(w, np.float32, order="C"))
-    return out
+    return {name: _tensor(pe_buffer(cfg) if name.endswith(".pe")
+                          else _from_tree(tree, name))
+            for name in state_dict_names(cfg)}
+
+
+_ENCODER = "Unet_list."
+
+
+def plain_unet_state_dict_names() -> List[str]:
+    """The port's PlainUnet state_dict keys: ClsWiseFormer's encoder keys
+    under ``unet.``, its decoder keys as they are."""
+    return ["unet." + n[len(_ENCODER):] if n.startswith(_ENCODER) else n
+            for n in state_dict_names(ModelConfig())
+            if n.startswith((_ENCODER, "decoder."))]
+
+
+def plain_unet_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's PlainUnet params tree (``unet/...``,
+    ``decoder/...``; with or without the top-level 'params' key) -> the
+    port's PlainUnet state_dict (f32 CPU tensors)."""
+    tree = params.get("params", params)
+    return {name: _tensor(_from_tree(tree, _ENCODER + name[len("unet."):]
+                                     if name.startswith("unet.") else name))
+            for name in plain_unet_state_dict_names()}
 
 
 def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:

@@ -153,6 +153,8 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((n + kTileQ - 1) / kTileQ, h, b);
+  // No host state changes per call (the pointers aside): a CUDA graph may
+  // capture this launch and replay it.
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), h, n, n2, d, st, scale);
@@ -415,6 +417,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
     opted_in |= 1u << (dev & 31);
   }
   const dim3 grid((n + kMmaRows - 1) / kMmaRows, h, b);
+  // No host state changes per call (the pointers aside): a CUDA graph may
+  // capture this launch and replay it.
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), h, n, n2, st, scale);

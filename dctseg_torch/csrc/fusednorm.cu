@@ -35,14 +35,22 @@
 //       fused -- one cooperative launch, every sample on `bps` co-resident
 //         blocks.  Each thread keeps its first `staged` packs in shared
 //         memory; the blocks of a sample meet at a barrier after the
-//         statistics (the last block publishes a and b and raises the
-//         sample's flag to this call's epoch), then apply, re-reading the
-//         staged packs from shared memory and the rest from L2.  Taken
-//         where all samples fit on the chip at once.
+//         statistics (the last block publishes a and b and bumps the
+//         sample's generation word), then apply, re-reading the staged
+//         packs from shared memory and the rest from L2.  Taken where all
+//         samples fit on the chip at once.
 //       split -- a statistics launch and an apply launch over the same
 //         partition, for larger tensors.
-//   * The workspace (partials, a and b, tickets, flags) is the caller's,
-//     kept across calls: nothing is allocated or zeroed per call.
+//   * The workspace (partials, a and b, tickets, generation words) is the
+//     caller's, kept across calls: nothing is allocated or zeroed per call.
+//   * No argument changes from call to call but the pointers, so a CUDA
+//     graph may capture the launch and replay it.  The fused route's
+//     barrier needs a value that is new each call; the card derives it:
+//     every block reads its sample's generation word before it takes its
+//     ticket, and the block that draws the last ticket, which every other
+//     block's read precedes, publishes a and b and then bumps the word.
+//     So all blocks of a call read the same generation g, and wait for
+//     g + 1.
 //   * The absmax variant (AMAX) also reports, per sample, the max of |out|
 //     over every element it writes (after the cast and the residual add):
 //     the input statistic of the int8 activation quantizer (quantize.cu),
@@ -51,9 +59,9 @@
 //     floats for non-negative values, a NaN above inf, as quantize.cu
 //     orders them); warp and block reductions, then one atomicMax per block
 //     on the sample's slot.  The sample's last statistics block zeroes the
-//     slot before any apply block of the call runs: before it raises the
-//     sample's flag on the fused route, in the statistics launch on the
-//     split route.  No memset.
+//     slot before any apply block of the call runs: before it bumps the
+//     sample's generation on the fused route, in the statistics launch on
+//     the split route.  No memset.
 
 #include <stdint.h>
 
@@ -80,11 +88,10 @@ struct Params {
   float* ab;                  // [n][2][c]: scales, then shifts
   float* partial;             // [n][bps][2][c]: sums, then squares
   unsigned* tickets;          // [n], zero between calls
-  unsigned* flags;            // [n], the epoch of the last fused call
+  unsigned* generations;      // [n], fused calls finished per sample
   unsigned* amax;             // [n] bits of max |out| (AMAX), else null
   int n, s, c, f, bps, rows_per_block, act;
   int staged;                 // fused route: packs a thread keeps in smem
-  unsigned epoch;
   float eps, slope;
 };
 
@@ -164,6 +171,7 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
   __shared__ float part[2 * kThreads];
   __shared__ float tot[2 * kThreads * VEC];
   __shared__ int is_last;
+  __shared__ unsigned generation;   // fused route: the sample's, this call
   // fused route: the first p.staged packs of each thread, [k][kThreads]
   extern __shared__ __align__(16) unsigned char dynamic_smem[];
   P* stage = reinterpret_cast<P*>(dynamic_smem);
@@ -238,8 +246,16 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
     // last one for sample n finishes its statistics.
     __threadfence();
     __syncthreads();
-    if (tid == 0)
+    if (tid == 0) {
+      // the generation is read before the ticket is taken: the last
+      // ticket's block bumps it only after every block's read
+      if (MODE == kFused) {
+        generation =
+            *reinterpret_cast<volatile unsigned*>(p.generations + n);
+        __threadfence();
+      }
       is_last = atomicAdd(p.tickets + n, 1u) == (unsigned)(p.bps - 1);
+    }
     __syncthreads();
     if (is_last) {
       __threadfence();
@@ -274,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
       __syncthreads();
       if (tid == 0) {
         p.tickets[n] = 0;
-        if (MODE == kFused) atomicExch(p.flags + n, p.epoch);
+        if (MODE == kFused) atomicExch(p.generations + n, generation + 1u);
       }
     }
   }
@@ -282,7 +298,8 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
   if (MODE == kFused) {
     if (tid == 0) {
       unsigned spins = 0;
-      while (*reinterpret_cast<volatile unsigned*>(p.flags + n) != p.epoch) {
+      while (*reinterpret_cast<volatile unsigned*>(p.generations + n) ==
+             generation) {
         __nanosleep(64);
         if (++spins > kMaxSpins) __trap();
       }
@@ -445,9 +462,9 @@ extern "C" int dctseg_fusednorm_coresident(int dtype, int vec, int fused,
   return err;
 }
 
-// args (int64, ops/fusednorm.py _launch): x, residual (0 for none), out,
-// ab, partial, tickets, flags, n, s, c, f, bps, rows_per_block, act, dtype,
-// vec, fused, epoch, staged, amax (0 for none: the plain variant).  The
+// args (int64, ops/fusednorm.py launch_args): x, residual (0 for none),
+// out, ab, partial, tickets, generations, n, s, c, f, bps, rows_per_block,
+// act, dtype, vec, fused, staged, amax (0 for none: the plain variant).  The
 // wrapper guarantees c / vec <= 256, f | c, s * c < 2^31, 16-byte pointers
 // where vec > 1, and for the fused route a grid of bps * n co-resident
 // blocks.
@@ -460,7 +477,7 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
   p.ab = reinterpret_cast<float*>(a[3]);
   p.partial = reinterpret_cast<float*>(a[4]);
   p.tickets = reinterpret_cast<unsigned*>(a[5]);
-  p.flags = reinterpret_cast<unsigned*>(a[6]);
+  p.generations = reinterpret_cast<unsigned*>(a[6]);
   p.n = (int)a[7];
   p.s = (int)a[8];
   p.c = (int)a[9];
@@ -470,9 +487,8 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
   p.act = (int)a[13];
   const int dtype = (int)a[14], vec = (int)a[15];
   const bool fused = a[16] != 0;
-  p.epoch = (unsigned)a[17];
-  p.staged = (int)a[18];
-  p.amax = reinterpret_cast<unsigned*>(a[19]);
+  p.staged = (int)a[17];
+  p.amax = reinterpret_cast<unsigned*>(a[18]);
   p.eps = eps;
   p.slope = slope;
   const bool res = p.res != nullptr, amax = p.amax != nullptr;
@@ -482,6 +498,8 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 block(kThreads);
   void* args[] = {&p};
+  // Both routes take no host state that changes per call (the pointers
+  // aside): a captured launch replays as it ran.
   if (fused) {
     const void* k = pick<kFused>(dtype, vec, res, amax);
     if (!k) return cudaErrorInvalidValue;

@@ -824,6 +824,9 @@ int launch_tma(const int64_t* a, cudaStream_t stream) {
   const void* bias = reinterpret_cast<const void*>(a[4]);
   void* out = reinterpret_cast<void*>(a[5]);
   void* args[] = {&xmap, &wmap, &stats, &sw, &bias, &out, &g};
+  // The tensor maps travel by value as __grid_constant__ arguments and
+  // nothing else changes per call (the pointers aside): a CUDA graph may
+  // capture this launch and replay it.
   return cudaLaunchKernel(kern, dim3(grid), dim3(kTmaThreads), args,
                           (size_t)smem, stream);
 }
@@ -855,6 +858,8 @@ int launch_mma_sync(const int64_t* a, cudaStream_t stream) {
   void* args[] = {&xq, &wq, &stats, &sw, &bias, &out, &g};
   const dim3 grid((unsigned)((m + kBM - 1) / kBM),
                   (unsigned)((g.co + kBN - 1) / kBN));
+  // No host state changes per call (the pointers aside): a CUDA graph may
+  // capture this launch and replay it.
   return cudaLaunchKernel(kern, grid, dim3(kThreads), args, 0, stream);
 }
 

@@ -246,6 +246,10 @@ cudaError_t launch(Params& p, cudaStream_t stream) {
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   void* args[] = {&p};
+  // The tickets return to zero in every launch and each launch's pass
+  // number is fixed by its place in the search, so no host state changes
+  // from call to call (the pointers aside): a captured search would replay
+  // as it ran.
   return cudaLaunchKernel(k, dim3((unsigned)blocks, (unsigned)p.c),
                           dim3(kThreads), args, 0, stream);
 }

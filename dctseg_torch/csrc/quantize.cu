@@ -28,10 +28,16 @@
 //     Each block reduces its grid-stride share of x, then one atomicMax on
 //     a word of the caller's workspace and a ticket; the block that draws
 //     the last ticket reads the word back and zeroes it (and the ticket)
-//     for the next call, writes stats, and raises a flag to this call's
-//     epoch, which the other blocks wait for.  Then every block quantizes
-//     its share, walking it backwards, so that it starts on what the
-//     absmax read last, the part most likely still in L2.
+//     for the next call, writes stats, and bumps a generation word, which
+//     the other blocks wait for.  Then every block quantizes its share,
+//     walking it backwards, so that it starts on what the absmax read
+//     last, the part most likely still in L2.
+// No argument changes from call to call but the pointers, so a CUDA graph
+// may capture a launch and replay it: the grid route's barrier takes its
+// new value from the card.  Every block reads the generation word before
+// it takes its ticket, and the last ticket's block bumps it after every
+// other block's read, so all blocks of a call read the same g and wait
+// for g + 1.
 
 #include <cstdint>
 
@@ -47,11 +53,11 @@ constexpr int kUnroll = 4;        // vectors in flight a thread
 constexpr unsigned kMaxSpins = 1u << 24;
 
 // The caller's workspace of the grid route, zero between calls except
-// `flag`, which holds the epoch of the last call.
+// `generation`, which counts the calls that have finished their absmax.
 struct Workspace {
-  unsigned* amax;     // bits of max |x| of the running call
-  unsigned* ticket;   // blocks that have added theirs
-  unsigned* flag;     // the epoch of the last call whose absmax is final
+  unsigned* amax;        // bits of max |x| of the running call
+  unsigned* ticket;      // blocks that have added theirs
+  unsigned* generation;  // grid calls whose absmax is final
 };
 
 __device__ __forceinline__ unsigned abs_bits(float v) {
@@ -174,8 +180,7 @@ from_amax_kernel(const T* __restrict__ x, long long vectors,
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 grid_kernel(const T* __restrict__ x, long long vectors, Workspace ws,
-            unsigned epoch, float* __restrict__ stats,
-            int8_t* __restrict__ q) {
+            float* __restrict__ stats, int8_t* __restrict__ q) {
   using P = Pack<T, VEC>;
   __shared__ float block_sx;
   const P* xv = reinterpret_cast<const P*>(x);
@@ -199,6 +204,10 @@ grid_kernel(const T* __restrict__ x, long long vectors, Workspace ws,
   }
   m = block_max(m);
   if (threadIdx.x == 0) {
+    // this call's generation, read before the ticket is taken
+    const unsigned generation =
+        *reinterpret_cast<volatile unsigned*>(ws.generation);
+    __threadfence();
     atomicMax(ws.amax, m);
     __threadfence();
     if (atomicAdd(ws.ticket, 1u) == gridDim.x - 1) {
@@ -210,10 +219,11 @@ grid_kernel(const T* __restrict__ x, long long vectors, Workspace ws,
       stats[1] = scale_of(amax);
       *ws.ticket = 0u;
       __threadfence();
-      atomicExch(ws.flag, epoch);
+      atomicExch(ws.generation, generation + 1u);
     } else {
       unsigned spins = 0;
-      while (*reinterpret_cast<volatile unsigned*>(ws.flag) != epoch) {
+      while (*reinterpret_cast<volatile unsigned*>(ws.generation) ==
+             generation) {
         __nanosleep(64);
         if (++spins > kMaxSpins) __trap();
       }
@@ -293,13 +303,14 @@ extern "C" int dctseg_quantize_coresident(int dtype, int vec, int* blocks) {
   return err;
 }
 
-// args (int64, ops/quant.py _quantize_launch): x, q, stats, n, dtype, vec,
-// grid, route, amax slots, slot count, workspace, epoch.  x: contiguous, n
+// args (int64, ops/quant.py quantize_args): x, q, stats, n, dtype, vec,
+// grid, route, amax slots, slot count, workspace.  x: contiguous, n
 // elements of dtype; q: n int8; stats: float32 [2].  Route 0 (from_amax):
 // the float32 slots, whose max is max |x|.  Route 1 (grid: a grid of
 // co-resident blocks): the workspace, three uint32 words, zero but for the
-// last (the epoch of the last grid call), and a fresh epoch.  A vector
-// width that does not divide n or fit the pointers is refused.
+// last (the generation).  A vector width that does not divide n or fit the
+// pointers is refused.  Neither route takes host state that changes per
+// call (the pointers aside): a captured launch replays as it ran.
 extern "C" int dctseg_quantize(const int64_t* a, void* stream) {
   const long long n = a[3];
   const int dtype = (int)a[4], vec = (int)a[5], grid = (int)a[6];
@@ -330,8 +341,7 @@ extern "C" int dctseg_quantize(const int64_t* a, void* stream) {
   if (!k || route != 1 || a[10] % 4) return cudaErrorInvalidValue;
   unsigned* words = reinterpret_cast<unsigned*>(a[10]);
   Workspace ws{words, words + 1, words + 2};
-  unsigned epoch = (unsigned)a[11];
-  void* args[] = {&x, &vectors, &ws, &epoch, &stats, &q};
+  void* args[] = {&x, &vectors, &ws, &stats, &q};
   return cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kThreads), args, 0,
                                      s);
 }

@@ -12,17 +12,32 @@ multi-checkpoint ensembling (the JAX package's ``dctseg/infer/engine.py``).
     uses the correct ``101:128`` window.
 
 Volumes are NDHWC.  Every engine runs under ``torch.inference_mode()``.
+
+Fused dispatch (``Predictor(fuse_dispatch=True)``, the JAX engine's
+``dctseg/infer/engine.py:55-66``): ``tiled_probs`` and ``tta_probs`` of one
+volume run the crop (or flip) construction and the B=8 forward as ONE
+captured CUDA graph, the counterpart of the JAX engine's one compiled
+program, replayed per volume; stitch and unflip-mean stay outside it, as
+the JAX engine stages them.  The first call for each input shape and dtype
+warms up on a side stream and captures there; later calls copy the volume
+into the graph's static input and replay.  Every graph owns its kernels'
+workspaces (``ops/_build.py`` ``owned_workspaces``), and the engine's
+graphs share one memory pool.  A failed capture raises.  On the CPU the
+same stage runs eagerly.  The kernels' launch counters count in Python,
+so a graph's launches count once, at its capture (and once more in its
+warm-up), and not at its replays: count replayed kernels from a profile.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from dctseg_torch.device import resolve_device
 from dctseg_torch.models import layers
+from dctseg_torch.ops import _build
 
 FLIP_COMBOS: List[tuple] = [
     (), (1,), (2,), (3,), (1, 2), (1, 3), (2, 3), (1, 2, 3),
@@ -41,10 +56,27 @@ CROPS = [
 ]
 
 
+class _Captured(NamedTuple):
+    """One fused stage captured as a CUDA graph: its static input and
+    output, and the kernel workspaces it owns."""
+    graph: torch.cuda.CUDAGraph
+    static_in: torch.Tensor
+    static_out: torch.Tensor
+    workspaces: dict
+
+
 class Predictor:
     """Inference over one model.  ``device`` defaults to the GPU (raises if
     there is none; pass ``device='cpu'`` for the CPU).  ``microbatch`` caps
     the per-call forward batch of the 8-variant engines.
+
+    ``fuse_dispatch`` runs the crop or flip construction of a one-volume
+    ``tiled_probs`` or ``tta_probs`` and its B=8 forward as one CUDA graph
+    (module docstring); off by default, and off under ``microbatch``, as in
+    the JAX engine.  With ``fold_params`` the graphs read the folded
+    tensors, and ``update_params`` copies the new values into them (and
+    into the parameters, which ``load_state_dict`` does in place), so a
+    graph never answers with the old weights.
 
     ``fold_params`` (the JAX engine's ``dctseg/infer/engine.py:68-99``)
     computes the per-call weight work once: the convs' casts to the compute
@@ -58,12 +90,15 @@ class Predictor:
 
     def __init__(self, model: torch.nn.Module, device=None,
                  microbatch: Optional[int] = None,
-                 fold_params: bool = False):
+                 fold_params: bool = False, fuse_dispatch: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.microbatch = microbatch
         self.fold_params = fold_params
         self._folded = layers.fold(self.model) if fold_params else None
+        self.fuse_dispatch = fuse_dispatch and microbatch is None
+        self._graphs: dict = {}   # (stage, shape, dtype) -> _Captured
+        self._pool = None         # the graphs' shared memory pool
 
     def _input(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
@@ -88,6 +123,48 @@ class Predictor:
         """(B, D, H, W, M) -> (B, D, H, W, C) decoder softmax probs."""
         return self._forward(self._input(x))
 
+    # ---- fused dispatch ----
+
+    def _stage(self, build: Callable, x: torch.Tensor) -> torch.Tensor:
+        """``model_probs(build(x))``: on CUDA under ``fuse_dispatch`` one
+        replay of this shape's captured graph, else staged.  A replay's
+        output is the graph's static output, which the next replay
+        overwrites: the caller consumes it first, in stream order."""
+        if not self.fuse_dispatch:
+            return self._forward(build(x))
+        if self.device.type != "cuda":
+            return self.model_probs(build(x))
+        key = (build.__name__, tuple(x.shape), x.dtype)
+        captured = self._graphs.get(key)
+        if captured is None:
+            captured = self._graphs[key] = self._capture(build, x)
+        else:
+            captured.static_in.copy_(x)
+        captured.graph.replay()
+        return captured.static_out
+
+    def _capture(self, build: Callable, x: torch.Tensor) -> _Captured:
+        """Warm ``model_probs(build(.))`` up on a side stream, then capture
+        it there on a static input that holds a copy of ``x`` (a capture
+        runs nothing: the caller replays)."""
+        static_in = torch.empty_like(x, memory_format=torch.contiguous_format)
+        static_in.copy_(x)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph, owned = torch.cuda.CUDAGraph(), {}
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with _build.owned_workspaces(owned):
+            # the warm-up makes the kernels' plans, occupancy queries and
+            # workspaces, none of which a capture may allocate
+            with torch.cuda.stream(side):
+                self.model_probs(build(static_in))
+            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                static_out = self.model_probs(build(static_in))
+        current.wait_stream(side)
+        return _Captured(graph, static_in, static_out, owned)
+
     # ---- flip TTA ----
 
     @staticmethod
@@ -109,11 +186,12 @@ class Predictor:
 
     @torch.inference_mode()
     def tta_probs(self, x) -> torch.Tensor:
-        """8-way flip TTA with double-softmax averaging; x is (1, ...)."""
+        """8-way flip TTA with double-softmax averaging; x is (1, ...).
+        Under ``fuse_dispatch`` the flips and the forward are one graph."""
         x = self._input(x)
         if x.shape[0] != 1:
             raise ValueError("TTA operates per volume: x must be (1, ...)")
-        return self.tta_probs_batch(x)
+        return self.unflip_mean(self._stage(self.flip_batch, x))
 
     # ---- sliding-window tiling ----
 
@@ -141,11 +219,14 @@ class Predictor:
 
     @torch.inference_mode()
     def tiled_probs(self, x, stitch_mode: str = "reference") -> torch.Tensor:
-        """(1, 240, 240, >=155, M) -> (1, 240, 240, 155, C)."""
+        """(1, 240, 240, >=155, M) -> (1, 240, 240, 155, C).  Under
+        ``fuse_dispatch`` the crops and the forward are one graph."""
+        _check_stitch(stitch_mode)
         x = self._input(x)
         if x.shape[0] != 1:
             raise ValueError("tiling operates per volume: x must be (1, ...)")
-        return self.tiled_probs_batch(x, stitch_mode)
+        t = self._stage(self.crops, x)
+        return self.stitch_volume(t, stitch_mode == "reference")[None]
 
     # ---- V volumes per forward ----
 
@@ -153,8 +234,11 @@ class Predictor:
     def tta_probs_batch(self, x) -> torch.Tensor:
         """(V, D, H, W, M) -> (V, D, H, W, C): the 8 flip variants of V
         volumes through ONE forward (B=8V, volume-major), each volume's
-        double-softmax mean as in :meth:`tta_probs`."""
+        double-softmax mean as in :meth:`tta_probs`; V=1 is
+        :meth:`tta_probs`."""
         x = self._input(x)
+        if x.shape[0] == 1:
+            return self.tta_probs(x)
         probs = self._forward(_cat(
             [self.flip_batch(x[v:v + 1]) for v in range(x.shape[0])]))
         return _cat([self.unflip_mean(probs[8 * v:8 * v + 8])
@@ -165,10 +249,11 @@ class Predictor:
                           ) -> torch.Tensor:
         """(V, 240, 240, >=155, M) -> (V, 240, 240, 155, C): the 8 crops of
         V volumes through ONE forward (B=8V, volume-major), each stitched as
-        in :meth:`tiled_probs`."""
-        if stitch_mode not in ("reference", "aligned"):
-            raise ValueError(f"unknown stitch_mode {stitch_mode!r}")
+        in :meth:`tiled_probs`; V=1 is :meth:`tiled_probs`."""
+        _check_stitch(stitch_mode)
         x = self._input(x)
+        if x.shape[0] == 1:
+            return self.tiled_probs(x, stitch_mode)
         t = self._forward(_cat([self.crops(x[v:v + 1])
                                 for v in range(x.shape[0])]))
         ref = stitch_mode == "reference"
@@ -193,10 +278,19 @@ class Predictor:
 
     def update_params(self, state_dict) -> None:
         """Swap checkpoints (for ensembling): load a state_dict into the
-        model in place, strictly; under ``fold_params`` fold it again."""
+        model in place, strictly; under ``fold_params`` fold it again, into
+        the folded tensors in place, where the captured graphs read them."""
         self.model.load_state_dict(state_dict, strict=True)
         if self.fold_params:
-            self._folded = layers.fold(self.model)
+            with torch.no_grad():
+                for key, tensors in layers.fold(self.model).items():
+                    for old, new in zip(self._folded[key], tensors):
+                        old.copy_(new)
+
+
+def _check_stitch(stitch_mode: str) -> None:
+    if stitch_mode not in ("reference", "aligned"):
+        raise ValueError(f"unknown stitch_mode {stitch_mode!r}")
 
 
 def _cat(parts: Sequence[torch.Tensor]) -> torch.Tensor:

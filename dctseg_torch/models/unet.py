@@ -24,6 +24,9 @@ after a residual norm), the norm is the absmax variant of the fused kernel
 and the conv quantizes its input in one read (``ops/quant.py``); the other
 int8 convs find the absmax themselves.
 
+:class:`PlainUnet` is the encoder straight into the decoder, the JAX
+package's standalone UNet.
+
 Remat: ``remat`` ('full' or 'save_convs') wraps every residual block in
 ``torch.utils.checkpoint`` (non-reentrant) while gradients are recorded;
 'save_convs' keeps the convolutions' outputs and recomputes only the norms
@@ -388,3 +391,43 @@ class Decoder(nn.Module):
         y = torch.softmax(y.reshape(n, d, h, w, s2dops.B3, self.num_classes),
                           dim=-1)
         return s2dops.depth_to_space(y.reshape(n, d, h, w, cb))
+
+
+class PlainUnet(nn.Module):
+    """The UNet encoder straight into the decoder, without the decouple and
+    couple stages (the JAX package's ``dctseg/models/unet.py`` PlainUnet):
+    the reference's standalone UNet, an ablation baseline and the
+    profiling driver's second model.  Same fields as the JAX module;
+    ``remat`` with ``remat_policy`` wraps the residual blocks while
+    gradients are recorded.  Submodules ``unet`` and ``decoder`` carry the
+    reference's names inside (``dctseg_torch/convert.py``
+    ``plain_unet_state_dict_from_jax``).  (B, D, H, W, 4) ->
+    (B, D, H, W, num_classes) f32 softmax probs."""
+
+    def __init__(self, base_channels: int = 16, num_classes: int = 4,
+                 init_dropout: float = 0.2,
+                 dtype: torch.dtype = torch.float32, remat: bool = True,
+                 remat_policy: str = "full", fused_norms: bool = False,
+                 s2d: bool = True, s2d_half: bool = True,
+                 conv3: str = "dense", quantize: str = "none",
+                 eps: float = 1e-5, in_channels: int = 4, generator=None):
+        super().__init__()
+        self.dtype, self.s2d = dtype, s2d
+        kw = dict(s2d=s2d, s2d_half=s2d_half, conv3=conv3,
+                  remat=remat_policy if remat else None, quantize=quantize)
+        self.unet = UnetEncoder(in_channels, base_channels, dtype, eps,
+                                fused_norms, generator,
+                                init_dropout=init_dropout, **kw)
+        self.decoder = Decoder(16 * base_channels, num_classes,
+                               base_channels, dtype, eps, fused_norms,
+                               generator, **kw)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``train`` turns InitConv's dropout on, with masks drawn from
+        ``generator``."""
+        if not self.s2d:
+            # on the s2d path the relayout kernel does the cast
+            x = x.to(self.dtype)
+        drop = Dropout(generator) if train else NO_DROPOUT
+        return self.decoder(*self.unet(x, drop))

@@ -11,6 +11,7 @@ the CPU-only test machines import the kernel modules without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -99,8 +100,8 @@ def build() -> Path:
 
 _vp, _int, _long = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
-    # (int64 args: x, residual, out, ab, partial, tickets, flags, n, s, c,
-    #  f, blocks, rows_per_block, act, dtype, vec, fused, epoch, staged,
+    # (int64 args: x, residual, out, ab, partial, tickets, generations, n,
+    #  s, c, f, blocks, rows_per_block, act, dtype, vec, fused, staged,
     #  amax; eps, slope, stream)
     "dctseg_fusednorm": [_vp, ctypes.c_float, ctypes.c_float, _vp],
     # (dtype, vec, fused, residual, amax, &blocks, &stage_bytes)
@@ -124,7 +125,7 @@ _SIGNATURES = {
     #  co, k, sd, sh, sw, pd, ph, pw, out_dtype, vec; stream)
     "dctseg_int8_conv3d": [_vp, _vp],
     # (int64 args: x, q, stats, n, dtype, vec, grid, route, amax slots,
-    #  slot count, workspace, epoch; stream)
+    #  slot count, workspace; stream)
     "dctseg_quantize": [_vp, _vp],
     # (dtype, vec, &blocks)
     "dctseg_quantize_coresident": [_int, _int, ctypes.POINTER(_int)],
@@ -180,6 +181,43 @@ def alignment(*ptrs: int) -> int:
         low |= p
     low &= 31
     return low & -low if low else 32
+
+
+# Stores of kernel workspaces that a caller owns, innermost last
+# (owned_workspaces)
+_owners: list = []
+
+
+@contextlib.contextmanager
+def owned_workspaces(store: dict):
+    """Inside, the kernels keep the workspaces they make or grow in
+    ``store`` instead of their modules' shared caches, for as long as the
+    caller keeps ``store``.  A CUDA graph captures the workspaces'
+    addresses: the engine runs a graph's warm-up and capture inside a store
+    of the graph's own, so that no other call reallocates or shares
+    them."""
+    _owners.append(store)
+    try:
+        yield store
+    finally:
+        _owners.pop()
+
+
+def workspaces(cache: dict) -> dict:
+    """Where a kernel module keeps its workspaces: ``cache`` (its own, by
+    (device, stream)), or inside :func:`owned_workspaces` the owner's
+    dict for that module."""
+    return _owners[-1].setdefault(id(cache), {}) if _owners else cache
+
+
+def refuse_in_capture(what: str) -> None:
+    """Raise if the current stream is capturing a CUDA graph: ``what``
+    (allocating or zeroing a workspace) belongs in the warm-up, and a
+    capture would bake in an address that a later call could free."""
+    if (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(f"{what} during CUDA graph capture: warm up on "
+                           "the capture stream first")
 
 
 def check(err: int, what: str) -> None:

@@ -14,10 +14,15 @@ The kernel runs by one of two routes, which :func:`plan_launch` picks from
 the shape and the card's occupancy: ``fused``, one cooperative launch in
 which each sample's blocks meet at a barrier between the statistics and the
 apply (where all samples fit on the chip at once), or ``split``, a
-statistics launch and an apply launch.  Its workspace (partial sums, scales and shifts, tickets and
-flags) is kept per (device, stream) and grows on demand; the kernel leaves
-the tickets at zero, so no call allocates or fills anything but its
-output.  The backward recomputes the plain version under autograd, on
+statistics launch and an apply launch.  Its workspace (partial sums,
+scales and shifts, tickets and generation words) is kept per (device,
+stream) and grows on demand; the kernel leaves the tickets at zero and
+counts the fused route's calls in the generation words itself, so no call
+allocates or fills anything but its output, and the launch's arguments
+(:func:`launch_args`) hold nothing that changes from call to call but the
+pointers: a CUDA graph can capture a call and replay it.  Inside
+``_build.owned_workspaces`` (the engine's graphs) the workspace is the
+owner's.  The backward recomputes the plain version under autograd, on
 either device; the trainer keeps the kernel out of training, so no
 backward kernel is owed.
 
@@ -36,7 +41,6 @@ from __future__ import annotations
 import array
 import ctypes
 import functools
-import itertools
 import math
 from typing import NamedTuple
 
@@ -101,7 +105,7 @@ class LaunchPlan(NamedTuple):
     threads covering ``rows_per_iter`` rows at a time.  On the fused route
     each thread keeps its first ``staged`` rows in shared memory for the
     apply.  ``workspace_bytes``: partial sums, scales and shifts, tickets
-    and flags."""
+    and generation words."""
     route: str
     blocks: int
     rows_per_block: int
@@ -146,8 +150,8 @@ def plan_launch(n: int, s: int, c: int, itemsize: int, vec: int,
 class _Workspace:
     """One (device, stream)'s scratch: ``floats`` holds the scales and
     shifts ([n][2][c]) then the partial sums ([n][blocks][2][c]);
-    ``counters`` the tickets ([ncap], zero between calls) then the flags
-    ([ncap], the epoch of the last fused call to finish each sample)."""
+    ``counters`` the tickets ([ncap], zero between calls) then the
+    generation words ([ncap], the fused calls finished per sample)."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -155,12 +159,15 @@ class _Workspace:
         self.counters = torch.zeros(0, dtype=torch.int32, device=device)
 
     def reserve(self, n: int, floats: int) -> None:
-        if self.floats.numel() < floats:
+        grow = self.floats.numel() < floats, self.counters.numel() < 2 * n
+        if any(grow):
+            _build.refuse_in_capture("growing the fusednorm workspace")
+        if grow[0]:
             self.floats = torch.empty(max(floats, 2 * self.floats.numel()),
                                       dtype=torch.float32, device=self.device)
-        if self.counters.numel() < 2 * n:
+        if grow[1]:
             # zeroed once here; each call's last blocks return the tickets
-            # to zero, and flags only ever take fresh epochs
+            # to zero, and the generations only count up
             self.counters = torch.zeros(2 * max(n, self.counters.numel()),
                                         dtype=torch.int32, device=self.device)
 
@@ -169,8 +176,11 @@ _workspaces: dict = {}           # (device index, stream) -> _Workspace
 # (device index, dtype code, vec, fused, residual, amax) -> (blocks, stage
 # bytes)
 _coresident: dict = {}
-# a fresh epoch per fused call, 1 .. 2^32 - 1 (next() is atomic)
-_epochs = itertools.count(1)
+# the int64 arguments of csrc/fusednorm.cu dctseg_fusednorm, in order
+LAUNCH_ARGS = ("x", "residual", "out", "ab", "partial", "tickets",
+               "generations", "n", "s", "c", "fine_channels", "blocks",
+               "rows_per_block", "act", "dtype", "vec", "fused", "staged",
+               "amax")
 
 
 def _check(x, fine_channels, act, residual):
@@ -264,6 +274,25 @@ def plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
                        split_blocks, stage_bytes)
 
 
+def launch_args(plan: LaunchPlan, x: int, residual: int, out: int,
+                floats: int, counters: int, ncap: int, shape: tuple,
+                fine_channels: int, act: str, dtype: torch.dtype, vec: int,
+                amax: int) -> array.array:
+    """The kernel's int64 arguments (:data:`LAUNCH_ARGS`) for a call of
+    ``plan`` on x of ``shape``: the addresses of x, the residual, the
+    output, the workspace's floats and counters (``ncap`` tickets, then as
+    many generation words) and the absmax slots (0 for none), then the
+    shape and the plan.  Nothing in them changes between two calls on the
+    same tensors."""
+    n, c = shape[0], shape[-1]
+    return array.array("q", (
+        x, residual, out, floats, floats + 4 * 2 * n * c, counters,
+        counters + 4 * ncap, n, math.prod(shape) // (n * c), c,
+        fine_channels, plan.blocks, plan.rows_per_block, ACTS[act],
+        _build.dtype_code(dtype), vec, plan.route == "fused", plan.staged,
+        amax))
+
+
 def _launch(x, residual, fine_channels, eps, act, slope, amax=False):
     """The kernel's output; with ``amax`` (the absmax variant), (output,
     per-sample absmax)."""
@@ -285,21 +314,17 @@ def _launch(x, residual, fine_channels, eps, act, slope, amax=False):
     plan = plan_for(tuple(x.shape), x.dtype, vec, residual is not None,
                     device, amax)
     stream = _build.stream_of(x)
-    ws = _workspaces.get((device, stream))
+    cache = _build.workspaces(_workspaces)
+    ws = cache.get((device, stream))
     if ws is None:
-        ws = _workspaces[device, stream] = _Workspace(x.device)
-    floats = 2 * n * c * (1 + plan.blocks)
-    ws.reserve(n, floats)
-    fp, cp = ws.floats.data_ptr(), ws.counters.data_ptr()
-    ncap = ws.counters.numel() // 2
-    fused = plan.route == "fused"
-    args = array.array("q", (
-        x.data_ptr(), 0 if residual is None else residual.data_ptr(),
-        out.data_ptr(), fp, fp + 4 * 2 * n * c, cp, cp + 4 * ncap,
-        n, x.numel() // (n * c), c, fine_channels, plan.blocks,
-        plan.rows_per_block, ACTS[act], _build.dtype_code(x.dtype), vec,
-        fused, (next(_epochs) - 1) % 0xFFFFFFFF + 1 if fused else 0,
-        plan.staged, 0 if slots is None else slots.data_ptr()))
+        _build.refuse_in_capture("making a fusednorm workspace")
+        ws = cache[device, stream] = _Workspace(x.device)
+    ws.reserve(n, 2 * n * c * (1 + plan.blocks))
+    args = launch_args(
+        plan, x.data_ptr(), 0 if residual is None else residual.data_ptr(),
+        out.data_ptr(), ws.floats.data_ptr(), ws.counters.data_ptr(),
+        ws.counters.numel() // 2, tuple(x.shape), fine_channels, act,
+        x.dtype, vec, 0 if slots is None else slots.data_ptr())
     _build.check(_build.lib().dctseg_fusednorm(
         args.buffer_info()[0], eps, slope, stream), "fusednorm")
     (fused_instance_norm_act_amax if amax

@@ -16,6 +16,13 @@ Each kernel module defines its operator here when it is imported:
     defined without one (the int8 pair, inference only) gets a backward
     that raises.
 
+Each operator whose kernel does matrix work also has a flop formula for
+``torch.utils.flop_counter.FlopCounterMode`` (``utils/profiling.py``
+``flops_of``): the attention 4*B*H*N*N2*D (two products of 2*N*N2*D a
+head), the int8 conv 2 * its multiply-accumulates.  The norm, the
+quantizer and the relayout have none and count 0, as FlopCounterMode
+counts elementwise work.
+
 As operators the kernels survive ``torch.export`` as one graph node each, so
 a serving bundle (``dctseg_torch/infer/serving.py``) carries them, and the
 eager model calls the same operators: there is one route.  The operators are
@@ -29,10 +36,31 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import math
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 NAMESPACE = "dctseg"
 LIB = torch.library.Library(NAMESPACE, "DEF")
+
+
+def attention_flops(q_shape, k_shape, v_shape, scale, *, out_shape=None,
+                    **kwargs) -> int:
+    """softmax(q k^T) v on q (B, H, N, D), k and v (B, H, N2, D)."""
+    b, h, n, d = q_shape
+    return 4 * b * h * n * k_shape[2] * d
+
+
+def int8_conv_flops(xq_shape, stats_shape, wq_shape, *args, out_shape=None,
+                    **kwargs) -> int:
+    """2 * MACs: every output element (N, Do, Ho, Wo, Co) sums k^3 * Ci
+    products (wq in K6's (Co, k, k, k, Ci) layout)."""
+    return 2 * math.prod(out_shape) * math.prod(wq_shape[1:])
+
+
+FLOP_FORMULAS = {"fused_attention": attention_flops,
+                 "int8_conv3d": int8_conv_flops}
 
 
 def define(name: str, schema: str, *, cuda: Callable, cpu: Callable,
@@ -52,7 +80,10 @@ def define(name: str, schema: str, *, cuda: Callable, cpu: Callable,
                                "gradient")
     torch.library.register_autograd(qualname, backward,
                                     setup_context=setup_context, lib=LIB)
-    return getattr(getattr(torch.ops, NAMESPACE), name).default
+    packet = getattr(getattr(torch.ops, NAMESPACE), name)
+    if name in FLOP_FORMULAS:
+        register_flop_formula(packet)(FLOP_FORMULAS[name])
+    return packet.default
 
 
 def call(op: torch._ops.OpOverload, *args):

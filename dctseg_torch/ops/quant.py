@@ -33,7 +33,6 @@ from __future__ import annotations
 import array
 import ctypes
 import functools
-import itertools
 import math
 from typing import NamedTuple, Sequence, Tuple
 
@@ -233,8 +232,9 @@ def plan_quantize(numel: int, dtype: torch.dtype, aligned: int,
 
 _quant_workspaces: dict = {}     # (device index, stream) -> int32 [3]
 _quant_coresident: dict = {}     # (device index, dtype code, vec) -> blocks
-# a fresh epoch per grid call, 1 .. 2^32 - 1 (next() is atomic)
-_quant_epochs = itertools.count(1)
+# the int64 arguments of csrc/quantize.cu dctseg_quantize, in order
+QUANT_ARGS = ("x", "xq", "stats", "numel", "dtype", "vec", "grid", "route",
+              "amax", "slots", "workspace")
 
 
 def quant_coresident(device: int, dtype: torch.dtype, vec: int) -> int:
@@ -251,6 +251,19 @@ def quant_coresident(device: int, dtype: torch.dtype, vec: int) -> int:
     return found
 
 
+def quantize_args(plan: QuantPlan, x: int, xq: int, stats: int, numel: int,
+                  dtype: torch.dtype, amax: int, slots: int,
+                  workspace: int) -> array.array:
+    """K7's int64 arguments (:data:`QUANT_ARGS`) for a call of ``plan``:
+    the addresses of x, xq and stats, x's size and dtype, the plan, the
+    absmax slots (route from_amax) and the workspace (route grid; 0
+    elsewhere).  Nothing in them changes between two calls on the same
+    tensors, so a CUDA graph may capture a call."""
+    return array.array("q", (
+        x, xq, stats, numel, _build.dtype_code(dtype), plan.vec, plan.grid,
+        QUANT_ROUTES.index(plan.route), amax, slots, workspace))
+
+
 def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None):
     """K7 on a CUDA tensor: the from_amax route where ``amax`` is given,
     else the grid route."""
@@ -263,7 +276,7 @@ def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None):
                              or not amax.is_contiguous()):
         raise ValueError("amax must be a non-empty contiguous float32 "
                          "vector on x's device")
-    code = _build.dtype_code(x.dtype)
+    _build.dtype_code(x.dtype)   # refuses a dtype K7 does not take
     route = "from_amax" if amax is not None else "grid"
     aligned = _build.alignment(x.data_ptr())
     device, stream = x.get_device(), _build.stream_of(x)
@@ -272,22 +285,22 @@ def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None):
     if route != "from_amax":
         max_blocks = quant_coresident(
             device, x.dtype, quant_width(x.numel(), x.dtype, aligned))
-        found = _quant_workspaces.get((device, stream))
+        cache = _build.workspaces(_quant_workspaces)
+        found = cache.get((device, stream))
         if found is None:
-            # zeroed once; each call leaves its words at zero but the flag
-            found = _quant_workspaces[device, stream] = torch.zeros(
+            _build.refuse_in_capture("making the quantize workspace")
+            # zeroed once; each call leaves its words at zero but the
+            # generation, which counts up
+            found = cache[device, stream] = torch.zeros(
                 3, dtype=torch.int32, device=x.device)
         ws = found.data_ptr()
     plan = plan_quantize(x.numel(), x.dtype, aligned, route, max_blocks)
     xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     stats = torch.empty(2, dtype=torch.float32, device=x.device)
-    args = array.array("q", (
-        x.data_ptr(), xq.data_ptr(), stats.data_ptr(), x.numel(), code,
-        plan.vec, plan.grid, QUANT_ROUTES.index(route),
-        0 if amax is None else amax.data_ptr(),
-        0 if amax is None else amax.numel(), ws,
-        (next(_quant_epochs) - 1) % 0xFFFFFFFF + 1 if route == "grid"
-        else 0))
+    args = quantize_args(plan, x.data_ptr(), xq.data_ptr(), stats.data_ptr(),
+                         x.numel(), x.dtype,
+                         0 if amax is None else amax.data_ptr(),
+                         0 if amax is None else amax.numel(), ws)
     _build.check(_build.lib().dctseg_quantize(args.buffer_info()[0], stream),
                  "quantize")
     (quantize_from_amax if amax is not None

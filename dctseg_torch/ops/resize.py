@@ -8,6 +8,7 @@ import functools
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 
 @functools.lru_cache(maxsize=32)
@@ -26,6 +27,27 @@ def _interp_matrix(n_in: int, scale: int) -> np.ndarray:
     return w
 
 
+_DEVICE_MATRICES: dict = {}
+
+
+def _device_matrix(n_in: int, scale: int, device: torch.device
+                   ) -> torch.Tensor:
+    """:func:`_interp_matrix` on ``device``, copied there once: a forward
+    captured in a CUDA graph may not copy from pageable host memory."""
+    key = (n_in, scale, device)
+    found = _DEVICE_MATRICES.get(key)
+    if found is None:
+        # a normal tensor even when the first call runs under
+        # inference_mode, so that training can use the cached matrix
+        with torch.inference_mode(False):
+            found = torch.from_numpy(_interp_matrix(n_in, scale)).to(device)
+        # under torch.export the matrix is fake: it becomes a constant of
+        # the exported program and must not serve later eager calls
+        if not is_fake(found):
+            _DEVICE_MATRICES[key] = found
+    return found
+
+
 def trilinear_upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Upsample an NDHWC tensor spatially by an integer factor."""
     _, d, h, w, _ = x.shape
@@ -33,7 +55,7 @@ def trilinear_upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
     x = x.float()
 
     def mat(n):
-        return torch.from_numpy(_interp_matrix(n, scale)).to(x.device)
+        return _device_matrix(n, scale, x.device)
 
     x = torch.einsum("od,bdhwc->bohwc", mat(d), x)
     x = torch.einsum("oh,bdhwc->bdowc", mat(h), x)

@@ -384,7 +384,8 @@ class _Recorder:
 
 @pytest.fixture
 def recorder(monkeypatch):
-    rec = _Recorder({"dctseg_quantize": 12, "dctseg_fusednorm": 20})
+    rec = _Recorder({"dctseg_quantize": len(quant.QUANT_ARGS),
+                     "dctseg_fusednorm": len(fusednorm.LAUNCH_ARGS)})
     monkeypatch.setattr(_build, "lib", lambda: rec)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
     for mod, name in ((quant, "_quant_workspaces"),
@@ -400,7 +401,8 @@ def recorder(monkeypatch):
 def test_k7_launch_arguments(recorder, monkeypatch):
     """The argument arrays K7's wrapper hands ``dctseg_quantize`` on each
     route (x, q, stats, n, dtype, vec, grid, route, slots, slot count,
-    workspace, epoch), and its counters: one launch a call, each route on
+    workspace: no per-call epoch, so two grid calls differ only in their
+    output pointers), and its counters: one launch a call, each route on
     its operator's."""
     for counter in (quant.quantize_absmax, quant.quantize_from_amax):
         monkeypatch.setattr(counter, "launches", 0)
@@ -413,11 +415,11 @@ def test_k7_launch_arguments(recorder, monkeypatch):
     grid = -(-x.numel() // 8 // quant.THREADS)
     assert a[:2] == [x.data_ptr(), xq.data_ptr()]
     assert a[3:10] == [x.numel(), 1, 8, grid, 0, amax.data_ptr(), 2]
-    assert a[10:] == [0, 0]
+    assert a[10:] == [0]
     ws = quant._quant_workspaces[-1, 0]
     assert ws.dtype == torch.int32 and not ws.any()
-    assert g1[7:11] == [1, 0, 0, ws.data_ptr()]
-    assert 0 < g1[11] < 2 ** 32 and g2[11] != g1[11]   # a fresh epoch
+    assert g1[7:] == [1, 0, 0, ws.data_ptr()]
+    assert len(g1) == len(quant.QUANT_ARGS) and g2[3:] == g1[3:]
     assert quant.quantize_from_amax.launches == 1
     assert quant.quantize_absmax.launches == 2
     assert xq.dtype == torch.int8 and stats.shape == (2,)
@@ -429,7 +431,7 @@ def test_k7_launch_arguments(recorder, monkeypatch):
 def test_fusednorm_launch_arguments(recorder, monkeypatch, amax):
     """Each variant hands the kernel its own plan (from its own occupancy
     query) and the absmax variant a pointer to its (N,) float32 slots as
-    the 20th argument (0 for the plain variant); each counts its launches
+    the 19th argument (0 for the plain variant); each counts its launches
     apart."""
     for fn in (fusednorm.fused_instance_norm_act,
                fusednorm.fused_instance_norm_act_amax):
@@ -444,10 +446,10 @@ def test_fusednorm_launch_arguments(recorder, monkeypatch, amax):
     if amax:
         out, slots = got
         assert slots.shape == (2,) and slots.dtype == torch.float32
-        assert args[19] == slots.data_ptr()
+        assert args[18] == slots.data_ptr()
     else:
         out = got
-        assert args[19] == 0
+        assert args[18] == 0
     assert args[:3] == [x.data_ptr(), 0, out.data_ptr()]
     counted = (fusednorm.fused_instance_norm_act_amax if amax
                else fusednorm.fused_instance_norm_act)
