@@ -17,6 +17,15 @@ on the GPU unless given ``--device cpu``.  Its weights: a reference-format
 saved it (random seeded weights when the directory holds none).  It prints
 the mean metrics as one JSON line at the end (per epoch for the sweep).
 ``--multimodel`` ensembles the newest 4 checkpoints of --checkpoint-dir.
+
+Several GPUs: one process per GPU, each started with the same flags plus
+--coordinator HOST:PORT --num-processes N --process-id I (or under
+torchrun).  The JAX driver needs none of these, being one process over
+many chips; the port runs one process per GPU.  Every process loads every
+volume; each forward's crops or flips split over the data axis and each
+volume's D axis over --spatial-shards consecutive processes.  Only the
+primary process scores (K4, K5) and writes the CSV, PNG and NIfTI output
+and the JSON line.
 """
 
 from __future__ import annotations
@@ -85,7 +94,20 @@ def parse_args(argv=None):
                    help="int8 post-training quantization spec: 'int8', "
                         "'int8+pw+deconv+down' or 'int8_all' (inference "
                         "only; dctseg_torch/ops/quant.py)")
-    p.add_argument("--spatial-shards", type=int, default=1)
+    p.add_argument("--spatial-shards", type=int, default=1,
+                   help="shard each volume's D axis over this many "
+                        "consecutive processes; the crops or flips of a "
+                        "forward fan out over the rest (data axis)")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="the number of processes, checked against the "
+                        "group (default: all of them)")
+    p.add_argument("--coordinator", default="",
+                   help="rank 0's HOST:PORT (or an init_method URL) for a "
+                        "multi-process run (one process per GPU; the JAX "
+                        "driver, one process over many chips, has no such "
+                        "flag); default: MASTER_ADDR and MASTER_PORT")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--random-params", action="store_true",
                    help="skip checkpoint loading (smoke runs)")
     p.add_argument("--num-samples", type=int, default=None,
@@ -97,17 +119,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _not_ported(a) -> str:
-    if a.spatial_shards > 1:
-        return "multi-GPU spatial sharding is not ported yet (ROADMAP A12)"
-    return ""
-
-
 def main(argv=None) -> dict:
     a = parse_args(argv)
-    reason = _not_ported(a)
-    if reason:
-        raise NotImplementedError(reason)
     from dctseg_torch.config import DataConfig, ModelConfig
     from dctseg_torch.convert import load_reference_checkpoint
     from dctseg_torch.data.brats import BraTSDataset
@@ -116,6 +129,8 @@ def main(argv=None) -> dict:
     from dctseg_torch.infer.engine import Predictor
     from dctseg_torch.infer.validate import validate_softmax
     from dctseg_torch.models.clswiseformer import build_model
+    from dctseg_torch.parallel import distributed
+    from dctseg_torch.parallel.mesh import make_mesh
     from dctseg_torch.train.checkpoint import Checkpointer
     from dctseg_torch.utils.export import export_checkpoint_sweep_csv
     from dctseg_torch.utils.logging_utils import setup_logging
@@ -124,7 +139,14 @@ def main(argv=None) -> dict:
     if a.strategy == "sweep" and a.random_params:
         raise ValueError("--strategy sweep evaluates the checkpoints of "
                          "--checkpoint-dir; it takes no --random-params")
-    device = resolve_device(a.device)
+    device = (distributed.initialize(a.coordinator or None, a.num_processes,
+                                     a.process_id, device=a.device)
+              or resolve_device(a.device))
+    multi_gpu = distributed.world_size() > 1 or a.spatial_shards > 1
+    if multi_gpu and a.quantize != "none":
+        raise NotImplementedError(
+            "--quantize over several GPUs is not ported yet (ROADMAP A12.2: "
+            "K7's per-tensor absmax reduced over the group)")
     set_process_title("dctseg:test")  # reference test*.py:146 'Testing!'
     log = setup_logging(os.path.join(a.output_dir, "eval.txt"))
     mcfg = ModelConfig(
@@ -177,7 +199,12 @@ def main(argv=None) -> dict:
     def make_loader():
         return PrefetchLoader(ds, batch_size=1, shuffle=False, num_workers=2)
 
-    predictor = Predictor(model, device=device)
+    mesh = None
+    if multi_gpu:
+        mesh = make_mesh(a.num_devices, spatial=a.spatial_shards)
+        log.info("multi-GPU eval mesh: %s", mesh.shape)
+    predictor = Predictor(model, device=device, mesh=mesh)
+    score = distributed.is_primary()
     log.info("sum===== %d", sum(p.numel() for p in model.parameters()))
     if a.strategy == "sweep":
         csv_path = os.path.join(a.output_dir, "save_pth.csv")
@@ -185,7 +212,10 @@ def main(argv=None) -> dict:
         for epoch in ckpt.all_epochs():
             predictor.update_params(ckpt.restore_params(epoch))
             out = validate_softmax(make_loader(), predictor, "tta",
-                                   use_hd95=not a.no_hd95, hd95_mode=a.hd95)
+                                   use_hd95=not a.no_hd95, hd95_mode=a.hd95,
+                                   score=score)
+            if not score:
+                continue
             export_checkpoint_sweep_csv(csv_path, f"epoch_{epoch}",
                                         out["wt"], out["tc"], out["et"])
             results[epoch] = out
@@ -208,8 +238,12 @@ def main(argv=None) -> dict:
         snapshot=a.snapshot, csv_export=a.csv,
         save_nifti=a.save_nifti, visual=os.path.join(a.output_dir, "visual"),
         stitch_mode=a.stitch_mode, postprocess=a.postprocess,
-        paired=a.paired)
+        paired=a.paired, score=score)
 
 
 if __name__ == "__main__":
-    print(json.dumps(main()), flush=True)
+    from dctseg_torch.parallel import distributed
+    result = main()
+    if distributed.is_primary():
+        print(json.dumps(result), flush=True)
+    distributed.shutdown()

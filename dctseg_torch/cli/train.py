@@ -1,5 +1,4 @@
-"""Training CLI of the port (the JAX package's ``scripts/train.py``, one
-device):
+"""Training CLI of the port (the JAX package's ``scripts/train.py``):
 
     python -m dctseg_torch.cli.train [--root DIR] [--amp] [--end-epoch N] ...
 
@@ -10,10 +9,19 @@ resolutions with the dense 3^3 strategy, plain norms, the remat rule below,
 bf16 compute over float32 parameters with --amp.  Prints the last logged
 metrics as one JSON line at the end.
 
+Several GPUs: one process per GPU, each started with the same flags plus
+--coordinator HOST:PORT --num-processes N --process-id I (or under
+torchrun, which sets MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE and
+LOCAL_RANK).  The processes form a (data, space) mesh with
+--spatial-shards consecutive ranks sharing each sample's D axis; the
+global batch is --batch-size times N / --spatial-shards.  NCCL on the GPU,
+gloo with --device cpu.
+
 Examples:
   python -m dctseg_torch.cli.train --end-epoch 2            # synthetic
   python -m dctseg_torch.cli.train --device cpu --img-dim 16 \\
       --base-channels 4 --num-samples 2 --input-shape 24 24 20 --end-epoch 1
+  torchrun --nproc-per-node 4 -m dctseg_torch.cli.train --spatial-shards 2
 """
 
 from __future__ import annotations
@@ -59,6 +67,21 @@ def parse_args(argv=None):
     p.add_argument("--experiment", default="clswiseformer_tpu")
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--log-dir", default="logs")
+    # multi-GPU: one process per GPU (the reference's
+    # torch.distributed.launch shape)
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="the number of processes, checked against the "
+                        "group (default: all of them)")
+    p.add_argument("--coordinator", default="",
+                   help="rank 0's HOST:PORT (or an init_method URL) for a "
+                        "multi-process run; default: MASTER_ADDR and "
+                        "MASTER_PORT from the environment")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--spatial-shards", type=int, default=1,
+                   help="shard each sample's D axis over this many "
+                        "consecutive processes (a data x space mesh; "
+                        "halo-exchanged convs)")
     # model
     p.add_argument("--img-dim", type=int, default=128)
     p.add_argument("--base-channels", type=int, default=16)
@@ -135,7 +158,8 @@ def build_config(a):
         amp_lr_restart_epoch=(249 if a.amp and not a.no_amp_lr_quirk
                               else None),
         resume=a.resume, checkpoint_dir=a.checkpoint_dir,
-        experiment=a.experiment, device_prefetch=a.device_prefetch,
+        experiment=a.experiment, num_devices=a.num_devices,
+        spatial_shards=a.spatial_shards, device_prefetch=a.device_prefetch,
         grad_accum=a.grad_accum, restore_opt=a.restore_opt,
         preempt_save=not a.no_preempt_save)
     return Config(model=model, data=data, train=train)
@@ -145,11 +169,16 @@ def main(argv=None):
     """Train; returns (trainer, the last logged metrics)."""
     a = parse_args(argv)
     from dctseg_torch.device import resolve_device
+    from dctseg_torch.parallel import distributed
     from dctseg_torch.train.trainer import Trainer
     from dctseg_torch.utils.logging_utils import setup_logging
     from dctseg_torch.utils.proctitle import set_process_title
 
-    device = resolve_device(a.device)
+    # join the process group before anything touches the device (nothing
+    # to join for one process)
+    device = (distributed.initialize(a.coordinator or None, a.num_processes,
+                                     a.process_id, device=a.device)
+              or resolve_device(a.device))
     set_process_title("dctseg:train")  # reference train.py:120 'Training!'
     stamp = time.strftime("%Y%m%d_%H%M%S")
     log = setup_logging(os.path.join(a.log_dir,
@@ -158,10 +187,11 @@ def main(argv=None):
         log.info("%s=%s", k, v)
     cfg = build_config(a)
     trainer = Trainer(cfg, device=device)
-    log.info("device: %s  batch: %d", device, cfg.train.batch_size)
+    log.info("device: %s  mesh: %s  global batch: %d", device,
+             trainer.mesh.shape, trainer.global_batch)
 
     eval_fn = None
-    if a.eval_at_save:
+    if a.eval_at_save and distributed.is_primary():
         from dctseg_torch.data.brats import BraTSDataset
         from dctseg_torch.data.pipeline import PrefetchLoader
         from dctseg_torch.infer.engine import Predictor
@@ -186,4 +216,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    print(json.dumps(main()[1]), flush=True)
+    from dctseg_torch.parallel import distributed
+    last = main()[1]
+    if distributed.is_primary():
+        print(json.dumps(last), flush=True)
+    distributed.shutdown()

@@ -146,8 +146,7 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training loop settings (field names and defaults as in the JAX
-    package's ``TrainConfig``, without its multi-device fields, ROADMAP
-    A12)."""
+    package's ``TrainConfig``)."""
     lr: float = 2e-4
     weight_decay: float = 1e-5
     amsgrad: bool = True
@@ -163,6 +162,12 @@ class TrainConfig:
     resume: str = ""                 # checkpoint directory to resume from
     checkpoint_dir: str = "checkpoints"
     experiment: str = "clswiseformer_tpu"
+    # the processes of the group (one per GPU); None takes them all, a
+    # number is checked against them (parallel/mesh.py make_mesh)
+    num_devices: Optional[int] = None
+    # consecutive ranks sharing each sample's D axis (the mesh's space axis;
+    # the batch scales with the data axis, world / spatial_shards)
+    spatial_shards: int = 1
     log_every: int = 1
     # batches whose host-to-device copy runs ahead on a side stream while
     # the current step runs; 0 copies each batch when its step starts

@@ -62,6 +62,15 @@
 //     slot before any apply block of the call runs: before it bumps the
 //     sample's generation on the fused route, in the statistics launch on
 //     the split route.  No memset.
+//   * The external-statistics variant (dctseg_fusednorm_ext) serves a
+//     volume whose D axis is sharded over several GPUs: the split route's
+//     two launches, called apart.  The statistics launch's last block
+//     writes the sample's raw f32 sums of x and x^2 per fine channel
+//     ([n][2][f], the offsets folded) instead of a and b; the caller
+//     all-reduces them over the GPUs; the apply launch takes the reduced
+//     sums and the whole volume's count and computes a and b per lane by
+//     the same formula.  With the local count it gives the split route's
+//     bits.
 
 #include <stdint.h>
 
@@ -90,15 +99,33 @@ struct Params {
   unsigned* tickets;          // [n], zero between calls
   unsigned* generations;      // [n], fused calls finished per sample
   unsigned* amax;             // [n] bits of max |out| (AMAX), else null
+  // external statistics: [n][2][f] sums of x, then of x^2 (the statistics
+  // launch writes them, the apply launch reads them); null otherwise
+  float* sums;
   int n, s, c, f, bps, rows_per_block, act;
   int staged;                 // fused route: packs a thread keeps in smem
   float eps, slope;
+  float count;                // external statistics: the elements summed
 };
 
 __device__ __forceinline__ float activate(float y, int act, float slope) {
   if (act == kRelu) return y > 0.f ? y : 0.f;
   if (act == kLrelu) return y >= 0.f ? y : slope * y;
   return y;
+}
+
+// The scale a and shift b of a fine channel from its sums of x and x^2
+// over cnt elements.  Rounded operations throughout, so that no product is
+// fused into an FMA: the statistics' last block and the
+// external-statistics apply, which computes them in registers, give the
+// same bits (and the plain version's order of operations).
+__device__ __forceinline__ float2 scale_shift(float s, float q, float cnt,
+                                              float eps) {
+  const float mean = __fdiv_rn(s, cnt);
+  const float var =
+      fmaxf(__fsub_rn(__fdiv_rn(q, cnt), __fmul_rn(mean, mean)), 0.f);
+  const float scale = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+  return make_float2(scale, __fmul_rn(-mean, scale));
 }
 
 template <typename T, int VEC>
@@ -275,13 +302,15 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
           a += tot[o * p.f + ch];
           b += tot[c + o * p.f + ch];
         }
-        const float mean = a / cnt;
-        const float var = fmaxf(b / cnt - mean * mean, 0.f);
-        const float scale = 1.f / sqrtf(var + p.eps);
-        const float shift = -mean * scale;
+        if (p.sums) {   // external statistics: the raw sums
+          p.sums[(size_t)n * 2 * p.f + ch] = a;
+          p.sums[(size_t)n * 2 * p.f + p.f + ch] = b;
+          continue;
+        }
+        const float2 ab = scale_shift(a, b, cnt, p.eps);
         for (int o = 0; o < offsets; ++o) {
-          abn[o * p.f + ch] = scale;
-          abn[c + o * p.f + ch] = shift;
+          abn[o * p.f + ch] = ab.x;
+          abn[c + o * p.f + ch] = ab.y;
         }
       }
       // the absmax slot starts this call at zero, before any apply block
@@ -310,11 +339,25 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
   // the absmax variant's block reduction needs every thread
   if (!AMAX && nk == 0) return;
   float sa[VEC], sb[VEC];
-  const float* abn = p.ab + (size_t)n * 2 * c + g * VEC;
+  if (MODE == kApply && p.sums) {
+    // external statistics: a and b of each lane's fine channel from the
+    // reduced sums, as the statistics' last block computes them
+    const float* sn = p.sums + (size_t)n * 2 * p.f;
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    sa[j] = __ldcg(abn + j);
-    sb[j] = __ldcg(abn + c + j);
+    for (int j = 0; j < VEC; ++j) {
+      const int ch = (g * VEC + j) % p.f;
+      const float2 ab =
+          scale_shift(__ldcg(sn + ch), __ldcg(sn + p.f + ch), p.count, p.eps);
+      sa[j] = ab.x;
+      sb[j] = ab.y;
+    }
+  } else {
+    const float* abn = p.ab + (size_t)n * 2 * c + g * VEC;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      sa[j] = __ldcg(abn + j);
+      sb[j] = __ldcg(abn + c + j);
+    }
   }
   const T* rs = RES ? static_cast<const T*>(p.res) + base : nullptr;
   T* os = static_cast<T*>(p.out) + base;
@@ -489,8 +532,10 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
   const bool fused = a[16] != 0;
   p.staged = (int)a[17];
   p.amax = reinterpret_cast<unsigned*>(a[18]);
+  p.sums = nullptr;
   p.eps = eps;
   p.slope = slope;
+  p.count = 0.f;
   const bool res = p.res != nullptr, amax = p.amax != nullptr;
   if (p.c % vec || p.c / vec > kThreads || p.f < 1 || p.c % p.f ||
       p.bps < 1 || p.n < 1 || p.n > 65535 || p.staged < 0)
@@ -514,6 +559,48 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
                                      st);
   if (err) return err;
   return cudaLaunchKernel(apply, dim3(p.bps, p.n), block, args, 0, st);
+}
+
+// The external-statistics variant: one launch of the split route, phase 0
+// its statistics launch, writing the raw sums (sums: [n][2][f] f32), phase
+// 1 its apply launch, reading the sums reduced over the GPUs and `count`,
+// the elements they summed per sample and fine channel.  args: those of
+// dctseg_fusednorm (fused 0, staged 0, amax 0), then the sums' address.
+extern "C" int dctseg_fusednorm_ext(const int64_t* a, float eps, float slope,
+                                    float count, int phase, void* stream) {
+  Params p;
+  p.x = reinterpret_cast<const void*>(a[0]);
+  p.res = reinterpret_cast<const void*>(a[1]);
+  p.out = reinterpret_cast<void*>(a[2]);
+  p.ab = reinterpret_cast<float*>(a[3]);
+  p.partial = reinterpret_cast<float*>(a[4]);
+  p.tickets = reinterpret_cast<unsigned*>(a[5]);
+  p.generations = reinterpret_cast<unsigned*>(a[6]);
+  p.n = (int)a[7];
+  p.s = (int)a[8];
+  p.c = (int)a[9];
+  p.f = (int)a[10];
+  p.bps = (int)a[11];
+  p.rows_per_block = (int)a[12];
+  p.act = (int)a[13];
+  const int dtype = (int)a[14], vec = (int)a[15];
+  p.staged = (int)a[17];
+  p.amax = nullptr;
+  p.sums = reinterpret_cast<float*>(a[19]);
+  p.eps = eps;
+  p.slope = slope;
+  p.count = count;
+  if (a[16] || a[18] || !p.sums || p.staged || !(count > 0.f) ||
+      p.c % vec || p.c / vec > kThreads || p.f < 1 || p.c % p.f ||
+      p.bps < 1 || p.n < 1 || p.n > 65535 || (phase != 0 && phase != 1))
+    return cudaErrorInvalidValue;
+  const void* k = phase == 0 ? pick<kStats>(dtype, vec, false, false)
+                             : pick<kApply>(dtype, vec, p.res != nullptr,
+                                            false);
+  if (!k) return cudaErrorInvalidValue;
+  void* args[] = {&p};
+  return cudaLaunchKernel(k, dim3(p.bps, p.n), dim3(kThreads), args, 0,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The message of an error code returned by any entry of the library

@@ -26,6 +26,14 @@ graphs share one memory pool.  A failed capture raises.  On the CPU the
 same stage runs eagerly.  The kernels' launch counters count in Python,
 so a graph's launches count once, at its capture (and once more in its
 warm-up), and not at its replays: count replayed kernels from a profile.
+
+Several GPUs (``Predictor(mesh=...)``, the JAX engine's mesh): every rank
+of a ``parallel.mesh`` holds the same input; a forward's batch (the 8
+crops or flips) splits over the ``data`` axis where it divides, each
+sample's D axis over ``space`` (``parallel/spatial.py``), and the
+probabilities are gathered back, so every rank returns the whole result.
+``fuse_dispatch`` and ``fold_params`` are off under a mesh, as in the JAX
+engine.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import torch
 from dctseg_torch.device import resolve_device
 from dctseg_torch.models import layers
 from dctseg_torch.ops import _build
+from dctseg_torch.parallel import spatial
+from dctseg_torch.parallel.mesh import batch_rows
 
 FLIP_COMBOS: List[tuple] = [
     (), (1,), (2,), (3,), (1, 2), (1, 3), (2, 3), (1, 2, 3),
@@ -86,17 +96,30 @@ class Predictor:
     a recompiled executable, whose op order differs, so its folded results
     are only rounding-close; here the folded forward runs the same ops in
     the same order on tensors the unfolded one would compute, so the two
-    agree bit for bit."""
+    agree bit for bit.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) runs each forward over the ranks of
+    a process group (module docstring); every rank calls the same engines
+    on the same input.  int8 under a mesh is not ported (ROADMAP A12.2)."""
 
     def __init__(self, model: torch.nn.Module, device=None,
                  microbatch: Optional[int] = None,
-                 fold_params: bool = False, fuse_dispatch: bool = False):
+                 fold_params: bool = False, fuse_dispatch: bool = False,
+                 mesh=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.microbatch = microbatch
-        self.fold_params = fold_params
-        self._folded = layers.fold(self.model) if fold_params else None
-        self.fuse_dispatch = fuse_dispatch and microbatch is None
+        self.mesh = mesh
+        if mesh is not None and mesh.size > 1 and getattr(
+                getattr(model, "cfg", None), "quantize", "none") != "none":
+            raise NotImplementedError(
+                "int8 under a multi-GPU mesh is not ported yet (ROADMAP "
+                "A12.2: K7's per-tensor absmax must be reduced over the "
+                "group)")
+        self.fold_params = fold_params and mesh is None
+        self._folded = layers.fold(self.model) if self.fold_params else None
+        self.fuse_dispatch = (fuse_dispatch and microbatch is None
+                              and mesh is None)
         self._graphs: dict = {}   # (stage, shape, dtype) -> _Captured
         self._pool = None         # the graphs' shared memory pool
 
@@ -107,9 +130,17 @@ class Predictor:
 
     def model_probs(self, xs: torch.Tensor) -> torch.Tensor:
         """The model's decoder softmax on one batch, on the folded weights
-        where ``fold_params`` is on."""
-        with layers.folded(self._folded):
-            return self.model(xs)[0]
+        where ``fold_params`` is on; under a mesh this rank's rows and slab,
+        gathered back."""
+        if self.mesh is None:
+            with layers.folded(self._folded):
+                return self.model(xs)[0]
+        rows = batch_rows(self.mesh, xs.shape[0])
+        with spatial.sharded(spatial.space_shard(self.mesh)):
+            y = self.model(xs[rows])[0]
+        if rows.stop - rows.start == xs.shape[0]:
+            return y
+        return spatial.all_gather_cat(y, self.mesh.data_group, dim=0)
 
     def _forward(self, xs: torch.Tensor) -> torch.Tensor:
         mb = self.microbatch

@@ -52,6 +52,7 @@ def validate_softmax(
         device_metrics: bool = True,
         hd95_mode: str = "reference",
         paired: int = 1,
+        score: bool = True,
 ) -> Dict[str, float]:
     """``hd95_mode``: 'reference' reproduces the reference's batched-mask
     medpy quirk (its headline numbers); 'surface' is the corrected 3-D
@@ -61,7 +62,11 @@ def validate_softmax(
     forward (B=8V for the tiling and TTA engines), with a smaller remainder
     group at the end.  ``param_sets``: state_dicts to ensemble over.
     ``device_metrics``: Dice/mIoU/HD95 on the predictor's device
-    (:class:`~dctseg_torch.metrics.DeviceMetrics`), or on the host."""
+    (:class:`~dctseg_torch.metrics.DeviceMetrics`), or on the host.
+
+    ``score=False`` runs the forwards only and returns {}: the other ranks
+    of a multi-GPU predictor, whose primary scores and writes the
+    outputs."""
     if hd95_mode not in ("reference", "surface"):
         raise ValueError(f"hd95_mode must be 'reference' or 'surface', "
                          f"got {hd95_mode!r}")
@@ -76,7 +81,7 @@ def validate_softmax(
     dmetrics = (metrics.DeviceMetrics(batched_call_shape=batched_call_shape,
                                       use_hd95=use_hd95,
                                       device=predictor.device)
-                if device_metrics else None)
+                if device_metrics and score else None)
 
     def run(x):
         if strategy == "tta":
@@ -132,6 +137,8 @@ def validate_softmax(
         yield from pending
 
     for i, (batch, out_dev, t0, vshare) in enumerate(stream()):
+        if not score:
+            continue
         name = batch.names[0]
         output = out_dev[0].cpu().numpy().astype(np.int32)
         # t0 is taken at dispatch and the result fetched one group later, so
@@ -197,6 +204,8 @@ def validate_softmax(
                 os.path.join(savepath, f"{name}.nii.gz"), seg,
                 affine=batch.affines[0])
 
+    if not score:
+        return {}
     if summary_rows:
         export.export_volume_summary_csv(
             os.path.join(visual, "sum.csv"), summary_rows)

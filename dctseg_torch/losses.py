@@ -12,16 +12,58 @@ computes in float32.
                                          8-valued edge code
   softmax_dice2 / sigmoid_dice /
   generalized_dice / dual_focal_loss     the reference's other criteria
+
+Data parallel: under :func:`batch_group` every sum and mean over the batch
+runs over the global batch, the rows of every rank of the group, as the
+JAX package's loss runs over its sharded global batch: the local sums are
+all-reduced (with autograd) and the means divide by the global count.
+Every rank then holds the same loss, and its gradient is the group's size
+times its rows' share, which an average over the ranks turns into the
+global batch's gradient.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from dctseg_torch.parallel import spatial
+
 Tensor = torch.Tensor
+
+_GROUP: contextvars.ContextVar = contextvars.ContextVar("dctseg_loss_group",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def batch_group(group):
+    """Reduce the losses' batch sums over ``group`` (None: this rank's
+    batch alone)."""
+    token = _GROUP.set(group)
+    try:
+        yield
+    finally:
+        _GROUP.reset(token)
+
+
+def _bsum(t: Tensor, dim=None) -> Tensor:
+    """``t.sum(dim)`` over the global batch."""
+    s = t.sum() if dim is None else t.sum(dim=dim)
+    return spatial.reduce_sum(s, _GROUP.get())
+
+
+def _bmean(t: Tensor) -> Tensor:
+    """``t.mean()`` over the global batch (every rank's ``t`` has the same
+    shape)."""
+    group = _GROUP.get()
+    if group is None:
+        return t.mean()
+    return _bsum(t) / (t.numel() * dist.get_world_size(group))
 
 # Edge-label decode: an 8-valued edge code per voxel; the positive set per
 # region is NCR {1, 5, 6, 7}, edema {2, 5, 6, 8}, enhancing {4, 5, 7, 8}:
@@ -40,9 +82,9 @@ def dice_loss(probs: Tensor, target_onehot: Tensor, num_cls: int,
     """Soft dice over classes: 1 - mean_c 2|p t| / (|p| + |t| + eps).
     probs / target: (B, D, H, W, C)."""
     p, t = probs.float(), target_onehot.float()
-    num = (p * t).sum(dim=(0, 1, 2, 3))
-    left = p.sum(dim=(0, 1, 2, 3))
-    right = t.sum(dim=(0, 1, 2, 3))
+    num = _bsum(p * t, (0, 1, 2, 3))
+    left = _bsum(p, (0, 1, 2, 3))
+    right = _bsum(t, (0, 1, 2, 3))
     dice = (2.0 * num / (left + right + eps)).sum()
     return 1.0 - dice / num_cls
 
@@ -57,7 +99,7 @@ def softmax_weighted_loss(probs: Tensor, target_onehot: Tensor,
     weighted = 1.0 - per_class / total
     logp = torch.log(torch.clamp(p, 0.005, 1.0))
     cross = -(weighted[:, None, None, None, :] * t * logp)
-    return cross.sum(dim=-1).mean()
+    return _bmean(cross.sum(dim=-1))
 
 
 def softmax_dice(probs: Tensor, target: Tensor) -> Tensor:
@@ -121,7 +163,7 @@ def total_loss(outputs, target: Tensor, edge: Tensor,
 def _dice_1m(o: Tensor, t: Tensor, eps: float = 1e-5) -> Tensor:
     """1 - 2|o t| / (|o| + |t| + eps)."""
     o, t = o.float(), t.float()
-    return 1.0 - 2.0 * (o * t).sum() / (o.sum() + t.sum() + eps)
+    return 1.0 - 2.0 * _bsum(o * t) / (_bsum(o) + _bsum(t) + eps)
 
 
 def softmax_dice2(probs: Tensor, target: Tensor):
@@ -149,7 +191,7 @@ def generalized_dice(probs: Tensor, target: Tensor, eps: float = 1e-5,
     t = one_hot_last(target, c)
     p = probs.float().reshape(-1, c).T[1:]          # (C-1, V)
     t = t.reshape(-1, c).T[1:]
-    tsum = t.sum(dim=-1)
+    tsum = _bsum(t, -1)
     if weight_type == "square":
         w = 1.0 / (tsum * tsum + eps)
     elif weight_type == "identity":
@@ -158,8 +200,8 @@ def generalized_dice(probs: Tensor, target: Tensor, eps: float = 1e-5,
         w = 1.0 / (torch.sqrt(tsum) + eps)
     else:
         raise ValueError(f"weight_type {weight_type!r}")
-    intersect = (p * t).sum(dim=-1)
-    denom = (p + t).sum(dim=-1)
+    intersect = _bsum(p * t, -1)
+    denom = _bsum(p + t, -1)
     loss = 1.0 - 2.0 * (intersect * w).sum() / ((denom * w).sum() + eps)
     per = 2.0 * intersect / (denom + eps)
     return loss, per[0], per[1], per[2]
@@ -174,7 +216,7 @@ def dual_focal_loss(probs: Tensor, target: Tensor):
     t = one_hot_last(target, c).reshape(-1, c).T      # (C, V)
     p = probs.float().reshape(-1, c).T
     score = 1.0 - (t - p) ** 2
-    loss = -torch.log_softmax(score, dim=0).mean()
+    loss = _bmean(-torch.log_softmax(score, dim=0))
     return loss, 1 - l1, 1 - l2, 1 - l3
 
 

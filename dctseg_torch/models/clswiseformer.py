@@ -14,7 +14,16 @@ Dataflow:
   mutual cross-region coupler over the summed class streams
   sum_fusion conv -> decoder -> softmax seg probs
 
-Activations are NDHWC, as in the JAX package.  Submodule and parameter names
+Activations are NDHWC, as in the JAX package.
+
+Under ``parallel.spatial.sharded`` (a space group) the forward takes the
+whole volume, as every rank of the group holds it, and runs the UNet and
+the decouple convs on this rank's slab of D (halo-exchanged convs, norms
+with statistics reduced over the group).  It gathers the decouple features
+before ``patchify``: the tokens, the top-k routing and the scatter need the
+whole grid, and the couplers and supervision heads run on it, replicated.
+``sum_fusion``'s output is split into slabs again for the decoder, whose
+probabilities are gathered at the end.  Submodule and parameter names
 are the reference's 222 state_dict keys (``dctseg_torch/convert.py``), for
 every combination of the s2d flags.
 """
@@ -37,6 +46,7 @@ from dctseg_torch.models.supervise import REGIONS, SuperviseHead
 from dctseg_torch.models.unet import Decoder, S2DConv3d, UnetEncoder
 from dctseg_torch.ops.patchify import patchify, unpatchify
 from dctseg_torch.ops.routing import scatter_update, topk_select
+from dctseg_torch.parallel import spatial
 
 
 class ClsWiseFormer(nn.Module):
@@ -115,16 +125,36 @@ class ClsWiseFormer(nn.Module):
         of 2-class prob maps (final semantic, final edge, mid semantic, mid
         edge), all NDHWC, f32.  ``train`` turns dropout on, with masks drawn
         from ``generator`` (on x's device)."""
-        cfg, g, k = self.cfg, self.geom, self.cfg.top_num
-        d = cfg.img_dim
+        cfg, d = self.cfg, self.cfg.img_dim
         if tuple(x.shape[1:]) != (d, d, d, cfg.in_channels):
             raise ValueError(
                 f"ClsWiseFormer(img_dim={d}) expects input (B, {d}, {d}, "
                 f"{d}, {cfg.in_channels}); got {tuple(x.shape)}")
+        shard = spatial.active()
+        if shard is not None and d % (8 * shard.size):
+            raise ValueError(
+                f"img_dim {d} does not cut into {shard.size} D slabs that "
+                f"are multiples of the UNet's total stride 8")
         drop = Dropout(generator) if train else NO_DROPOUT
+        x = spatial.split(x, shard)
         if not cfg.s2d_fullres:
             # on the s2d path the relayout kernel does the cast
             x = x.to(self.dtype)
+        skips, edge_fea, sem_fea = self._encode(x, drop)
+        # the whole grid from here to sum_fusion, replicated over the group
+        with spatial.sharded(None):
+            (final_sup, final_edge_sup, mid_sup, mid_edge_sup,
+             fused) = self._couple(
+                {r: spatial.gather(v, shard) for r, v in edge_fea.items()},
+                {r: spatial.gather(v, shard) for r, v in sem_fea.items()},
+                drop)
+        seg = self.decoder(*skips, spatial.split(fused, shard))
+        return (spatial.gather(seg, shard), final_sup, final_edge_sup,
+                mid_sup, mid_edge_sup)
+
+    def _encode(self, x, drop):
+        """The UNet encoder and the decouple convs: the skips, and the edge
+        and semantic features per region."""
         x1_1, x2_1, x3_1, bottleneck = self.Unet_list(x, drop)
 
         # ---- decouple ----
@@ -137,6 +167,13 @@ class ClsWiseFormer(nn.Module):
         sem_fea = dict(zip(REGIONS, map(self.act, shared_input(
             [getattr(self, f"conv_semantic_{r[1]}") for r in REGIONS],
             bottleneck))))
+        return (x1_1, x2_1, x3_1), edge_fea, sem_fea
+
+    def _couple(self, edge_fea, sem_fea, drop):
+        """The couplers and the supervision heads on the whole grid:
+        (final_sup, final_edge_sup, mid_sup, mid_edge_sup, sum_fusion's
+        output)."""
+        g, k = self.geom, self.cfg.top_num
         mid_sup = self.mid_supervise_label(*[sem_fea[r] for r in REGIONS])
         mid_edge_sup = self.mid_edge_supervise_label(
             *[edge_fea[r] for r in REGIONS])
@@ -181,15 +218,16 @@ class ClsWiseFormer(nn.Module):
         fusion_token = sum(sem_class_tokens[r] for r in REGIONS)
         fusion_feature = sum(sem_grids[r] for r in REGIONS)
         selected, fusion_idx = topk_select(fusion_feature, fusion_token, k)
-        selected = drop(self.fusion_label_pos(selected), cfg.dropout_rate)
+        selected = drop(self.fusion_label_pos(selected),
+                        self.cfg.dropout_rate)
         result = self.fusion_transformer_1_2_4(
             torch.cat([fusion_token, selected], dim=1), drop)
         fused = scatter_update(fusion_feature, fusion_idx, result[:, 1:k + 1])
         fused = result[:, 0:1] * fused
         enc = unpatchify(fused, g["sem_ch"], (g["sem_size"],) * 3,
                          g["sem_patch"])
-        seg = self.decoder(x1_1, x2_1, x3_1, self.sum_fusion(enc))
-        return seg, final_sup, final_edge_sup, mid_sup, mid_edge_sup
+        return (final_sup, final_edge_sup, mid_sup, mid_edge_sup,
+                self.sum_fusion(enc))
 
 
 def build_model(cfg: ModelConfig | None = None, device=None,

@@ -32,6 +32,7 @@ from torch import nn
 
 from dctseg_torch.ops import quant
 from dctseg_torch.ops.norms import instance_norm, layer_norm, leaky_relu
+from dctseg_torch.parallel import spatial
 
 
 def _uniform_(t: torch.Tensor, fan_in: int, generator) -> None:
@@ -168,6 +169,10 @@ class Conv3d(WeightPrep, nn.Module):
                                               self.padding, b, amax,
                                               quantized)
         w, b = self.prepared("float")
+        if spatial.active() is not None:
+            # a D slab: the halo first (parallel/spatial.py)
+            return spatial.conv3d(x, w, b, self.stride,
+                                  (self.padding, self.padding))
         return ndhwc(F.conv3d(ncdhw(x), w, b, self.stride, self.padding))
 
 

@@ -35,6 +35,7 @@ and activations.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -46,8 +47,11 @@ from dctseg_torch.models.layers import (NO_DROPOUT, Conv3d, ConvTranspose3d,
 from dctseg_torch.ops import relayout
 from dctseg_torch.ops import s2d as s2dops
 from dctseg_torch.ops.fusednorm import (fused_instance_norm_act,
-                                        fused_instance_norm_act_amax)
+                                        fused_instance_norm_act_amax,
+                                        fused_norm_apply, fused_norm_stats,
+                                        norm_count)
 from dctseg_torch.ops.norms import instance_norm, leaky_relu
+from dctseg_torch.parallel import spatial
 
 _CONV_OPS = (torch.ops.aten.convolution.default,)
 
@@ -59,6 +63,25 @@ def _save_convs(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _on_this_shard(policy=None):
+    """A checkpoint ``context_fn``: ``policy``'s contexts (or none), with
+    the recomputation, which runs inside the backward, on the D slab of
+    the space group the forward ran on (``parallel/spatial.py``)."""
+    shard = spatial.active()
+
+    def contexts():
+        fwd, rec = (policy() if policy is not None
+                    else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, _both(rec, spatial.sharded(shard))
+    return contexts
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
 def _norm_act(x: torch.Tensor, eps: float, act: str, fused: bool,
               s2d_view: bool = False, residual: torch.Tensor | None = None,
               amax: bool = False) -> tuple:
@@ -67,7 +90,23 @@ def _norm_act(x: torch.Tensor, eps: float, act: str, fused: bool,
     add); on the s2d view the statistics are per fine channel (C / 8 of
     them).  ``y_amax``: with ``amax`` and the fused kernel, y's per-sample
     absmax for the int8 conv that reads y (the kernel's absmax variant),
-    else None."""
+    else None.  On a D slab under ``parallel.spatial.sharded`` the fused
+    kernel runs its external-statistics variant, the sums all-reduced over
+    the space group between its two launches (the plain norms reduce
+    theirs in ``ops/norms.py``)."""
+    shard = spatial.active()
+    if fused and shard is not None:
+        if amax:
+            raise NotImplementedError(
+                "int8 under a space group is not ported yet (ROADMAP "
+                "A12.2: K7's absmax reduced over the group)")
+        fine = x.shape[-1] // (s2dops.B3 if s2d_view else 1)
+        x = x.contiguous()
+        sums = spatial.reduce_stats(fused_norm_stats(x, fine), shard)
+        return fused_norm_apply(
+            x, sums, norm_count(x, fine) * shard.size, fine, eps, act=act,
+            residual=None if residual is None else residual.contiguous()
+        ), None
     if fused:
         fine = x.shape[-1] // (s2dops.B3 if s2d_view else 1)
         kw = dict(act=act, residual=None if residual is None
@@ -174,12 +213,11 @@ class _Block(nn.Module):
     def forward(self, *args):
         if self.remat is None or not torch.is_grad_enabled():
             return self.body(*args)
-        if self.remat == "save_convs":
-            return ckpt.checkpoint(
-                self.body, *args, use_reentrant=False,
-                context_fn=functools.partial(
-                    ckpt.create_selective_checkpoint_contexts, _save_convs))
-        return ckpt.checkpoint(self.body, *args, use_reentrant=False)
+        policy = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    _save_convs)
+                  if self.remat == "save_convs" else None)
+        return ckpt.checkpoint(self.body, *args, use_reentrant=False,
+                               context_fn=_on_this_shard(policy))
 
 
 class _EnBlock(_Block):

@@ -104,6 +104,10 @@ _SIGNATURES = {
     #  s, c, f, blocks, rows_per_block, act, dtype, vec, fused, staged,
     #  amax; eps, slope, stream)
     "dctseg_fusednorm": [_vp, ctypes.c_float, ctypes.c_float, _vp],
+    # (the int64 args of dctseg_fusednorm, then the sums; eps, slope,
+    #  count, phase, stream)
+    "dctseg_fusednorm_ext": [_vp, ctypes.c_float, ctypes.c_float,
+                             ctypes.c_float, _int, _vp],
     # (dtype, vec, fused, residual, amax, &blocks, &stage_bytes)
     "dctseg_fusednorm_coresident": [_int, _int, _int, _int, _int,
                                     ctypes.POINTER(_int),

@@ -34,6 +34,16 @@ that it reads the norm's output once.  Same kernel at one ``atomicMax`` a
 block, with a launch plan of its own (from its own occupancy, so the plain
 variant's plan does not depend on it); inference only (its backward
 raises).
+
+The external-statistics variant serves a volume whose D axis is sharded
+over a space group (``parallel/spatial.py``): :func:`fused_norm_stats`
+(``torch.ops.dctseg.fused_norm_stats``) is the split route's statistics
+launch, writing each sample's raw f32 sums of x and x^2 per fine channel,
+(N, 2, F); the caller all-reduces them over the group; and
+:func:`fused_norm_apply` (``torch.ops.dctseg.fused_norm_apply``) is the
+split route's apply launch on the reduced sums and the whole volume's
+count.  With the local sums and count the pair gives the split route's
+output bit for bit.  Inference only (their backward raises).
 """
 
 from __future__ import annotations
@@ -65,27 +75,56 @@ def _act(y: torch.Tensor, act: str, slope: float) -> torch.Tensor:
     return y
 
 
+def norm_count(x: torch.Tensor, fine_channels: int) -> float:
+    """The elements a sample's statistic of one fine channel sums: the
+    spatial positions times the offsets folded onto the channel."""
+    return float(math.prod(x.shape[1:-1]) * (x.shape[-1] // fine_channels))
+
+
+def fused_norm_stats_plain(x: torch.Tensor,
+                           fine_channels: int) -> torch.Tensor:
+    """Plain version of the external-statistics launch: (N, 2, F) f32, the
+    sums of x and of x^2 per (sample, fine channel)."""
+    n, cb = x.shape[0], x.shape[-1]
+    o = cb // fine_channels
+    xr = x.reshape(n, -1, cb).float()
+    s = xr.sum(dim=1).reshape(n, o, fine_channels).sum(dim=1)
+    sq = xr.square().sum(dim=1).reshape(n, o, fine_channels).sum(dim=1)
+    return torch.stack([s, sq], dim=1)
+
+
+def fused_norm_apply_plain(x: torch.Tensor, sums: torch.Tensor,
+                           count: float, fine_channels: int,
+                           eps: float = 1e-5, act: str = "none",
+                           slope: float = 0.01,
+                           residual: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Plain version of the external-statistics apply: the norm of x by
+    the (N, 2, F) ``sums`` over ``count`` elements."""
+    n, cb = x.shape[0], x.shape[-1]
+    o = cb // fine_channels
+    mean = sums[:, 0] / count
+    var = torch.clamp(sums[:, 1] / count - mean.square(), min=0.0)
+    a = torch.rsqrt(var + eps)
+    b = -mean * a
+    # lane o*C + c carries fine channel c
+    a = a.repeat(1, o)[:, None, :]
+    b = b.repeat(1, o)[:, None, :]
+    xr = x.reshape(n, -1, cb).float()
+    y = _act(xr * a + b, act, slope).to(x.dtype).reshape(x.shape)
+    return y + residual if residual is not None else y
+
+
 def fused_instance_norm_act_plain(x: torch.Tensor, fine_channels: int,
                                   eps: float = 1e-5, act: str = "none",
                                   slope: float = 0.01,
                                   residual: torch.Tensor | None = None
                                   ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (any device, any layout)."""
-    n, cb = x.shape[0], x.shape[-1]
-    o = cb // fine_channels
-    xr = x.reshape(n, -1, cb).float()
-    s = xr.sum(dim=1).reshape(n, o, fine_channels).sum(dim=1)
-    sq = xr.square().sum(dim=1).reshape(n, o, fine_channels).sum(dim=1)
-    cnt = float(xr.shape[1] * o)
-    mean = s / cnt
-    var = torch.clamp(sq / cnt - mean.square(), min=0.0)
-    a = torch.rsqrt(var + eps)
-    b = -mean * a
-    # lane o*C + c carries fine channel c
-    a = a.repeat(1, o)[:, None, :]
-    b = b.repeat(1, o)[:, None, :]
-    y = _act(xr * a + b, act, slope).to(x.dtype).reshape(x.shape)
-    return y + residual if residual is not None else y
+    return fused_norm_apply_plain(
+        x, fused_norm_stats_plain(x, fine_channels),
+        norm_count(x, fine_channels), fine_channels, eps, act, slope,
+        residual)
 
 
 def fused_instance_norm_act_amax_plain(x: torch.Tensor, fine_channels: int,
@@ -127,7 +166,7 @@ def plan_launch(n: int, s: int, c: int, itemsize: int, vec: int,
     staging memory plus FUSED_L2_BYTES and each gets a block of its own;
     its grid never exceeds ``fused_blocks`` (its blocks wait for each
     other).  Both grids fill the card in one wave."""
-    if min(fused_blocks, split_blocks) < 1 or c % vec or c // vec > THREADS:
+    if split_blocks < 1 or c % vec or c // vec > THREADS:
         raise ValueError(f"no plan for c={c}, vec={vec}, "
                          f"blocks={fused_blocks, split_blocks}")
     rows_per_iter = THREADS // (c // vec)
@@ -213,6 +252,31 @@ def fused_instance_norm_act(x: torch.Tensor, fine_channels: int,
     return library.call(_OP, x, residual, fine_channels, eps, act, slope)
 
 
+def fused_norm_stats(x: torch.Tensor, fine_channels: int) -> torch.Tensor:
+    """(N, 2, F) f32: per (sample, fine channel) the sums of x and of x^2,
+    the statistics launch of the external-statistics variant.  On CUDA,
+    ``x`` must be contiguous (channels last)."""
+    _check(x, fine_channels, "none", None)
+    return library.call(_STATS_OP, x, fine_channels)
+
+
+def fused_norm_apply(x: torch.Tensor, sums: torch.Tensor, count: float,
+                     fine_channels: int, eps: float = 1e-5,
+                     act: str = "none", slope: float = 0.01,
+                     residual: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`fused_instance_norm_act` with the statistics given: ``sums``
+    (N, 2, F) f32 from :func:`fused_norm_stats`, summed over the ranks
+    that hold the volume, and ``count``, the elements they sum."""
+    _check(x, fine_channels, act, residual)
+    if sums.shape != (x.shape[0], 2, fine_channels) or \
+            sums.dtype != torch.float32 or sums.device != x.device:
+        raise ValueError(f"sums must be f32 ({x.shape[0]}, 2, "
+                         f"{fine_channels}) on x's device; got "
+                         f"{tuple(sums.shape)} {sums.dtype}")
+    return library.call(_APPLY_OP, x, residual, sums.contiguous(),
+                        float(count), fine_channels, eps, act, slope)
+
+
 def fused_instance_norm_act_amax(x: torch.Tensor, fine_channels: int,
                                  eps: float = 1e-5, act: str = "none",
                                  slope: float = 0.01,
@@ -227,6 +291,8 @@ def fused_instance_norm_act_amax(x: torch.Tensor, fine_channels: int,
 
 fused_instance_norm_act.launches = 0   # kernel launches on CUDA tensors
 fused_instance_norm_act_amax.launches = 0   # those of the absmax variant
+fused_norm_stats.launches = 0   # the external-statistics variant's
+fused_norm_apply.launches = 0
 
 
 def vector_width(x: torch.Tensor, *others) -> int:
@@ -332,6 +398,89 @@ def _launch(x, residual, fine_channels, eps, act, slope, amax=False):
     return (out, slots) if amax else out
 
 
+def ext_plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
+                 device: int) -> LaunchPlan:
+    """The external-statistics variant's plan on CUDA device ``device``:
+    the split route's (its two launches are called apart, with the
+    all-reduce between them)."""
+    n, c = shape[0], shape[-1]
+    if c // vec > THREADS:
+        raise ValueError(f"fusednorm kernel takes C <= {THREADS * vec} "
+                         f"channels here; got C={c}")
+    split_blocks = coresident(device, dtype, vec, False, res)[0]
+    return plan_launch(n, math.prod(shape) // (n * c), c, _ITEMSIZE[dtype],
+                       vec, 0, split_blocks, 0)
+
+
+def _launch_ext(x, residual, fine_channels, eps, act, slope, sums, count,
+                phase):
+    """One launch of the external-statistics variant: phase 0 writes
+    ``sums``, phase 1 the output (returned) from them."""
+    if not x.is_contiguous() or (residual is not None
+                                 and not residual.is_contiguous()):
+        raise ValueError("the fusednorm kernel takes contiguous "
+                         "(N, *spatial, C) tensors (channels last)")
+    n, c = x.shape[0], x.shape[-1]
+    out = torch.empty_like(x) if phase else None
+    if x.numel() == 0:
+        return out if phase else sums.zero_()
+    if x.numel() >= 2 ** 31 * n or n > 65535:
+        raise ValueError("fusednorm kernel takes < 2^31 elements a sample "
+                         "and at most 65535 samples")
+    vec = vector_width(x, *(() if out is None else (out,)),
+                       *(() if residual is None else (residual,)))
+    device = x.get_device()
+    plan = ext_plan_for(tuple(x.shape), x.dtype, vec, residual is not None,
+                        device)
+    stream = _build.stream_of(x)
+    cache = _build.workspaces(_workspaces)
+    ws = cache.get((device, stream))
+    if ws is None:
+        _build.refuse_in_capture("making a fusednorm workspace")
+        ws = cache[device, stream] = _Workspace(x.device)
+    ws.reserve(n, 2 * n * c * (1 + plan.blocks))
+    args = launch_args(
+        plan, x.data_ptr(), 0 if residual is None else residual.data_ptr(),
+        0 if out is None else out.data_ptr(), ws.floats.data_ptr(),
+        ws.counters.data_ptr(), ws.counters.numel() // 2, tuple(x.shape),
+        fine_channels, act, x.dtype, vec, 0)
+    args.append(sums.data_ptr())
+    _build.check(_build.lib().dctseg_fusednorm_ext(
+        args.buffer_info()[0], eps, slope, count, phase, stream),
+        "fusednorm external statistics")
+    (fused_norm_apply if phase else fused_norm_stats).launches += 1
+    return out if phase else sums
+
+
+def _launch_stats(x, fine_channels):
+    sums = torch.empty((x.shape[0], 2, fine_channels), dtype=torch.float32,
+                       device=x.device)
+    return _launch_ext(x, None, fine_channels, 0.0, "none", 0.0, sums, 1.0,
+                       0)
+
+
+def _launch_apply(x, residual, sums, count, fine_channels, eps, act, slope):
+    return _launch_ext(x, residual, fine_channels, eps, act, slope, sums,
+                       count, 1)
+
+
+def _cpu_stats(x, fine_channels):
+    return fused_norm_stats_plain(x, fine_channels)
+
+
+def _cpu_apply(x, residual, sums, count, fine_channels, eps, act, slope):
+    return fused_norm_apply_plain(x, sums, count, fine_channels, eps, act,
+                                  slope, residual).contiguous()
+
+
+def _fake_stats(x, fine_channels):
+    return x.new_empty((x.shape[0], 2, fine_channels), dtype=torch.float32)
+
+
+def _fake_apply(x, residual, sums, count, fine_channels, eps, act, slope):
+    return x.new_empty(x.shape)
+
+
 def _cpu(x, residual, fine_channels, eps, act, slope):
     return fused_instance_norm_act_plain(x, fine_channels, eps, act, slope,
                                          residual).contiguous()
@@ -386,3 +535,11 @@ _AMAX_OP = library.define(
     "(Tensor x, Tensor? residual, int fine_channels, float eps, str act, "
     "float slope) -> (Tensor, Tensor)",
     cuda=_launch_amax, cpu=_cpu_amax, fake=_fake_amax)
+_STATS_OP = library.define(
+    "fused_norm_stats", "(Tensor x, int fine_channels) -> Tensor",
+    cuda=_launch_stats, cpu=_cpu_stats, fake=_fake_stats)
+_APPLY_OP = library.define(
+    "fused_norm_apply",
+    "(Tensor x, Tensor? residual, Tensor sums, float count, "
+    "int fine_channels, float eps, str act, float slope) -> Tensor",
+    cuda=_launch_apply, cpu=_cpu_apply, fake=_fake_apply)

@@ -26,10 +26,11 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
 
 from dctseg_torch.ops import quant
+from dctseg_torch.ops.norms import normalize
+from dctseg_torch.parallel import spatial
 
 B = 2          # block size
 B3 = B ** 3
@@ -214,32 +215,62 @@ def tile_bias(bias: torch.Tensor) -> torch.Tensor:
 def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm with statistics per fine channel: reduce over the coarse
     spatial dims and the block offsets (equals ``instance_norm`` on the
-    depth_to_space view; f32 statistics as in ``ops/norms.py``)."""
+    depth_to_space view; f32 statistics as in ``ops/norms.py``, reduced
+    over the space group on a D slab)."""
     n, d, h, w, cb = x.shape
     c = cb // B3
-    xr = x.reshape(n, d, h, w, B3, c).float()
-    axes = (1, 2, 3, 4)
-    mean = xr.mean(dim=axes, keepdim=True)
-    sq = xr.square().mean(dim=axes, keepdim=True)
-    var = torch.clamp(sq - mean.square(), min=0.0)
-    y = (xr - mean) * torch.rsqrt(var + eps)
+    y = normalize(x.reshape(n, d, h, w, B3, c).float(), (1, 2, 3, 4), eps)
     return y.to(x.dtype).reshape(n, d, h, w, cb)
 
 
 def conv_ndhwc(x: torch.Tensor, w: torch.Tensor, bias, stride: int,
                padding: Tuple[int, int]) -> torch.Tensor:
-    """conv3d of an NDHWC tensor with per-axis padding (lo, hi).  Unequal
-    padding goes through ``F.pad`` (whose pairs run from the last dim of the
-    NCDHW view), then ``padding=0``."""
-    xc = x.permute(0, 4, 1, 2, 3)
-    lo, hi = padding
-    if lo == hi:
-        y = F.conv3d(xc, w, bias, stride, lo)
-    else:
-        xc = F.pad(xc, (lo, hi) * 3).contiguous(
-            memory_format=torch.channels_last_3d)
-        y = F.conv3d(xc, w, bias, stride, 0)
-    return y.permute(0, 2, 3, 4, 1)
+    """conv3d of an NDHWC tensor with per-axis padding (lo, hi): unequal
+    padding goes through ``F.pad``, then ``padding=0``; on a D slab under
+    ``parallel.spatial.sharded`` the halo is exchanged first
+    (``parallel/spatial.py`` ``conv3d``)."""
+    return spatial.conv3d(x, w, bias, stride, padding)
+
+
+# The backward of the 3^3 stride-1 SAME conv on the s2d view (the JAX
+# package's ``CONV3_BWD``, ``dctseg/ops/s2d.py:251``): "xla" is autograd's,
+# "explicit" the VJP of :class:`Conv3Explicit`.  Module-level, so that
+# tests and benchmarks can flip it.
+CONV3_BWD = "xla"
+
+
+def _conv3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 3^3 stride-1 SAME conv of NDHWC x with the (O, I, 3, 3, 3) w
+    cast to x's dtype."""
+    return conv_ndhwc(x, w.to(x.dtype), None, 1, (1, 1))
+
+
+class Conv3Explicit(torch.autograd.Function):
+    """The 3^3 stride-1 SAME conv with the JAX package's explicit VJP
+    (``dctseg/ops/s2d.py`` ``_conv3_cv_bwd``, :270): dx is the conv of the
+    cotangent with the spatially flipped, io-transposed kernel; dW is 27
+    shifted (N*Z*Y*X, Ci)^T @ (N*Z*Y*X, Co) products over the padded input,
+    accumulated in f32 and cast to w's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _conv3(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = _conv3(g, w.flip(2, 3, 4).transpose(0, 1))
+        n, d, h, wd, ci = x.shape
+        xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        taps = [xp[:, a:a + d, b:b + h, c:c + wd, :].reshape(-1, ci).float()
+                .t() @ g2 for a in range(3) for b in range(3)
+                for c in range(3)]
+        # (27, Ci, Co) -> (Co, Ci, 3, 3, 3)
+        dw = torch.stack(taps).reshape(3, 3, 3, ci, -1).permute(4, 3, 0, 1,
+                                                                2)
+        return dx, dw.to(w.dtype)
 
 
 def conv3d_s2d(x: torch.Tensor, w8: torch.Tensor, bias=None,
@@ -248,13 +279,21 @@ def conv3d_s2d(x: torch.Tensor, w8: torch.Tensor, bias=None,
     """A conv on the s2d view with a transformed kernel, in x's dtype.
     ``quantize="int8"`` runs it s8 x s8 -> s32 (``ops/quant.py``), the
     scales taken over the transformed kernel and the bias added after the
-    cast, as the JAX package does."""
+    cast, as the JAX package does.  With ``CONV3_BWD = "explicit"`` the
+    3^3 stride-1 SAME case (outside a space group) runs
+    :class:`Conv3Explicit`."""
     if quantize == "int8":
         return quant.conv3d_int8(x, w8, stride, padding, bias)
     if quantize != "none":
         raise ValueError(f"conv3d_s2d takes quantize 'none' or 'int8', got "
                          f"{quantize!r}")
     b = None if bias is None else bias.to(x.dtype)
+    if (CONV3_BWD == "explicit" and stride == 1 and padding == (1, 1)
+            and w8.shape[2:] == (3, 3, 3) and spatial.active() is None):
+        y = Conv3Explicit.apply(x, w8)
+        return y if b is None else y + b
+    if CONV3_BWD not in ("xla", "explicit"):
+        raise ValueError(f"unknown CONV3_BWD {CONV3_BWD!r}")
     return conv_ndhwc(x, w8.to(x.dtype), b, stride, padding)
 
 

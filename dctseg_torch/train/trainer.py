@@ -1,6 +1,20 @@
 """Training loop: the train step with gradient accumulation, train-time
 metrics, checkpoints, resume and preemption (the JAX package's
-``dctseg/train/trainer.py``), on one device.
+``dctseg/train/trainer.py``), on one device or one process per GPU.
+
+Several processes (``parallel/``) form a (data, space) mesh.  The model is
+wrapped in ``DistributedDataParallel`` over all of them; each data shard
+loads its own rows (``shard = rank // space``), the space ranks of a shard
+the same rows, whose D axis they share (``parallel/spatial.py``).  The
+loss runs over the global batch, as the JAX step's does over its sharded
+batch: its batch sums are all-reduced over the data group
+(``losses.batch_group``), so every rank holds the same loss, and DDP's
+average over all ranks gives each parameter the global batch's gradient
+(the scale rule is in ``parallel/spatial.py``).  The stop is agreed: a MAX
+all-reduce of each rank's stop flag at the top of every step.  The primary
+rank saves; every rank meets it at a barrier after each save.  A rank's
+dropout generator is seeded with ``seed + data index``: the space ranks of
+a shard draw the same masks.
 
 bf16 training is the model's ``compute_dtype='bfloat16'``: parameters stay
 float32 and are cast at each call, as flax's ``dtype=bf16`` does; there is
@@ -19,13 +33,17 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from dctseg_torch import losses
 from dctseg_torch.config import Config
 from dctseg_torch.data.brats import BraTSDataset
 from dctseg_torch.data.pipeline import PrefetchLoader
 from dctseg_torch.device import resolve_device
 from dctseg_torch.losses import CRITERIA, total_loss
 from dctseg_torch.models.clswiseformer import ClsWiseFormer, build_model
+from dctseg_torch.parallel import distributed, spatial
+from dctseg_torch.parallel.mesh import Mesh, data_size, make_mesh
 from dctseg_torch.train.checkpoint import Checkpointer, should_save
 from dctseg_torch.train.optim import make_optimizer, make_schedule, set_lr
 from dctseg_torch.utils.logging_utils import LOGGER
@@ -35,67 +53,88 @@ logger = logging.getLogger(LOGGER)
 _JOIN_TIMEOUT_S = 30.0
 
 
-def _dice(o: torch.Tensor, t: torch.Tensor, eps: float = 1e-8):
+def _dice_sums(o: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     o, t = o.float(), t.float()
-    return (2 * (o * t).sum() + eps) / (o.sum() + t.sum() + eps)
+    return torch.stack([(o * t).sum(), o.sum(), t.sum()])
 
 
 def train_metrics(comp: Dict[str, torch.Tensor], pred: torch.Tensor,
-                  target: torch.Tensor, num_classes: int
-                  ) -> Dict[str, torch.Tensor]:
+                  target: torch.Tensor, num_classes: int, group=None,
+                  eps: float = 1e-8) -> Dict[str, torch.Tensor]:
     """The loss components plus the reference's train-time checks, on the
     device: predicted voxels per class and the WT/TC/ET Dice of the argmax
-    against the target."""
+    against the target, over the rows of every rank of ``group`` (the data
+    group; None: these rows)."""
     m = {k: v.detach() for k, v in comp.items()}
-    m["pred_counts"] = torch.stack([(pred == c).sum()
-                                    for c in range(num_classes)])
-    m["dice_wt"] = _dice(pred > 0, target > 0)
-    m["dice_tc"] = _dice((pred == 1) | (pred == 3),
-                         (target == 1) | (target == 3))
-    m["dice_et"] = _dice(pred == 3, target == 3)
+    counts = torch.stack([(pred == c).sum() for c in range(num_classes)])
+    sums = torch.stack([
+        _dice_sums(pred > 0, target > 0),
+        _dice_sums((pred == 1) | (pred == 3), (target == 1) | (target == 3)),
+        _dice_sums(pred == 3, target == 3)])
+    if group is not None:
+        counts = spatial.all_reduce(counts, group)
+        sums = spatial.all_reduce(sums, group)
+    m["pred_counts"] = counts
+    dice = (2 * sums[:, 0] + eps) / (sums[:, 1] + sums[:, 2] + eps)
+    m["dice_wt"], m["dice_tc"], m["dice_et"] = dice
     return m
 
 
-def train_step(model: ClsWiseFormer, optimizer: torch.optim.Optimizer,
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                lr: float, x: torch.Tensor, target: torch.Tensor,
                edge: torch.Tensor, criterion: Callable = CRITERIA[
                    "softmax_dice"], grad_accum: int = 1,
-               generator: Optional[torch.Generator] = None
-               ) -> Dict[str, torch.Tensor]:
+               generator: Optional[torch.Generator] = None,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One optimizer step at learning rate ``lr``; returns the metrics as
     device tensors (not waited for).
 
     ``grad_accum`` splits the batch into micro-batches run one after the
     other, micro-batch j taking rows r with r % grad_accum == j; their
     gradients and loss components are averaged before the one update.
-    Labels arrive as uint8 and are widened here, on the device."""
+    Labels arrive as uint8 and are widened here, on the device.
+
+    ``model`` is a ClsWiseFormer, or one wrapped in
+    ``DistributedDataParallel`` over the processes of ``mesh``: each rank
+    then passes its rows (the whole samples; the model runs its slab of D
+    on a space axis), the loss runs over the global batch, and DDP
+    averages the gradients, once per step (``no_sync`` on all micro-batches
+    but the last)."""
     ga = grad_accum
     if x.shape[0] % ga:
         raise ValueError(f"batch {x.shape[0]} not divisible by grad_accum "
                          f"{ga}")
+    module = getattr(model, "module", model)
+    shard = spatial.space_shard(mesh)
+    group = None if mesh is None else mesh.data_group
     target, edge = target.long(), edge.long()
     optimizer.zero_grad(set_to_none=True)
     comps, pred = [], torch.empty(target.shape, dtype=torch.long,
                                   device=target.device)
     for j in range(ga):
-        outs = model(x[j::ga], train=True, generator=generator)
-        comp = total_loss(outs, target[j::ga], edge[j::ga], criterion)
-        (comp["loss"] / ga if ga > 1 else comp["loss"]).backward()
+        sync = (model.no_sync() if j < ga - 1 and hasattr(model, "no_sync")
+                else contextlib.nullcontext())
+        with sync, spatial.sharded(shard), losses.batch_group(group):
+            outs = model(x[j::ga], train=True, generator=generator)
+            comp = total_loss(outs, target[j::ga], edge[j::ga], criterion)
+            (comp["loss"] / ga if ga > 1 else comp["loss"]).backward()
         comps.append({k: v.detach() for k, v in comp.items()})
         pred[j::ga] = outs[0].detach().argmax(dim=-1)
         del outs, comp
     set_lr(optimizer, lr)
     optimizer.step()
     comp = {k: sum(c[k] for c in comps) / ga for k in comps[0]}
-    return train_metrics(comp, pred, target, model.cfg.num_classes)
+    return train_metrics(comp, pred, target, module.cfg.num_classes, group)
 
 
 class Trainer:
     """The training driver (the reference's main_worker) on one device,
-    the GPU unless ``device`` says otherwise."""
+    the GPU unless ``device`` says otherwise; in a process group, on this
+    process's device and the (data, space) ``mesh`` (default: one made from
+    ``cfg.train.num_devices`` and ``spatial_shards``)."""
 
     def __init__(self, cfg: Config, dataset: Optional[BraTSDataset] = None,
-                 device=None):
+                 device=None, mesh: Optional[Mesh] = None):
         if cfg.model.fused_norms:
             raise ValueError(
                 "ModelConfig.fused_norms is an inference-only execution "
@@ -114,24 +153,33 @@ class Trainer:
             raise ValueError(f"unknown criterion {cfg.train.criterion!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            cfg.train.num_devices, cfg.train.spatial_shards)
+        # the batch scales with the data shards; the space ranks of a
+        # shard share its samples' D axis
+        self.num_devices = data_size(self.mesh)
+        self.global_batch = cfg.train.batch_size * self.num_devices
         self.dataset = dataset if dataset is not None else BraTSDataset(
             list_file=(cfg.data.root
                        and os.path.join(cfg.data.root, cfg.data.train_file)),
             root=cfg.data.root, mode="train",
             drop_modal=cfg.data.drop_modal, cfg=cfg.data)
         self.loader = PrefetchLoader(
-            self.dataset, batch_size=cfg.train.batch_size, shuffle=True,
-            num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
-            seed=cfg.train.seed)
+            self.dataset, batch_size=cfg.train.batch_size,
+            shard=self.mesh.data_index, num_shards=self.mesh.data,
+            shuffle=True, num_workers=cfg.data.num_workers,
+            prefetch=cfg.data.prefetch, seed=cfg.train.seed)
         self.steps_per_epoch = max(1, len(self.loader))
         self.schedule = make_schedule(cfg.train, self.steps_per_epoch)
         self.criterion = CRITERIA[cfg.train.criterion]
         self.ckpt = Checkpointer(cfg.train.checkpoint_dir)
         self.model: Optional[ClsWiseFormer] = None
+        # the model, or its DistributedDataParallel over the mesh
+        self.net: Optional[torch.nn.Module] = None
         self.optimizer: Optional[torch.optim.Adam] = None
         self.step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.train.seed)
+            cfg.train.seed + self.mesh.data_index)
         self._preempt = threading.Event()
         self.preempted = False  # set by fit() after an early exit
 
@@ -144,6 +192,15 @@ class Trainer:
             generator=torch.Generator().manual_seed(self.cfg.train.seed))
         self.optimizer = make_optimizer(self.model.parameters(),
                                         self.cfg.train)
+        self.net = self.model
+        if dist.is_initialized():
+            # in a process group (even of one), DDP over all of it
+            from torch.nn.parallel import DistributedDataParallel
+            self.net = DistributedDataParallel(
+                self.model, device_ids=([self.device.index]
+                                        if self.device.type == "cuda"
+                                        else None),
+                broadcast_buffers=False)
         self.step = 0
 
     def resume(self, epoch: Optional[int] = None, restore_opt: bool = False,
@@ -179,10 +236,16 @@ class Trainer:
                     "epoch %d", epoch, src.directory, start)
         return start
 
-    def save(self, epoch: int, partial: bool = False) -> str:
-        return self.ckpt.save(epoch, self.model.state_dict(),
-                              self.optimizer.state_dict(), self.step,
-                              partial=partial)
+    def save(self, epoch: int, partial: bool = False) -> Optional[str]:
+        """The primary rank writes the epoch's file (its path; None on the
+        other ranks), then every rank meets at a barrier."""
+        path = None
+        if distributed.is_primary():
+            path = self.ckpt.save(epoch, self.model.state_dict(),
+                                  self.optimizer.state_dict(), self.step,
+                                  partial=partial)
+        distributed.barrier("dctseg:checkpoint_saved")
+        return path
 
     # ---- preemption ----
 
@@ -191,6 +254,22 @@ class Trainer:
         (parameters, optimizer state, step) and returns.  Thread- and
         signal-safe."""
         self._preempt.set()
+
+    def _should_stop(self) -> bool:
+        """The stop decision at the top of each step, agreed by all ranks:
+        a MAX all-reduce of the local flags, so that every rank breaks at
+        the same step (a rank that broke alone would leave the others in
+        a gradient all-reduce).  A rank whose own request never came is
+        pulled along through request_stop, so that fit() saves on all."""
+        local = self._preempt.is_set()
+        if distributed.world_size() <= 1:
+            return local
+        flag = torch.tensor([int(local)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        anyrank = bool(flag.item())
+        if anyrank and not local:
+            self.request_stop()
+        return anyrank
 
     @contextlib.contextmanager
     def _signal_guard(self):
@@ -304,10 +383,10 @@ class Trainer:
     # ---- the loop ----
 
     def train_step(self, x, target, edge) -> Dict[str, torch.Tensor]:
-        metrics = train_step(self.model, self.optimizer,
+        metrics = train_step(self.net, self.optimizer,
                              self.schedule(self.step), x, target, edge,
                              self.criterion, self.cfg.train.grad_accum,
-                             self.generator)
+                             self.generator, self.mesh)
         self.step += 1
         return metrics
 
@@ -330,7 +409,7 @@ class Trainer:
             return m
 
         for i, (x, tgt, edg) in enumerate(self._device_batches()):
-            if self._preempt.is_set():
+            if self._should_stop():
                 break
             metrics = self.train_step(x, tgt, edg)
             # log one step late: step i+1 is queued on the device before

@@ -1,6 +1,6 @@
-"""Logging setup: file + console, as the reference's ``log_args``.
-Multi-process programs pass ``log_file=None`` on non-primary processes
-(console only)."""
+"""Logging setup: file + console, as the reference's ``log_args``.  In a
+process group only the primary rank logs everything and writes the file;
+the others log warnings and errors to the console."""
 
 from __future__ import annotations
 
@@ -13,8 +13,10 @@ LOGGER = "dctseg_torch"
 
 def setup_logging(log_file: Optional[str] = None,
                   level: int = logging.DEBUG) -> logging.Logger:
+    from dctseg_torch.parallel.distributed import is_primary
     logger = logging.getLogger(LOGGER)
-    logger.setLevel(level)
+    primary = is_primary()
+    logger.setLevel(level if primary else logging.WARNING)
     logger.propagate = False
     if logger.handlers:
         return logger
@@ -23,7 +25,7 @@ def setup_logging(log_file: Optional[str] = None,
     ch = logging.StreamHandler()
     ch.setFormatter(fmt)
     logger.addHandler(ch)
-    if log_file:
+    if log_file and primary:
         os.makedirs(os.path.dirname(os.path.abspath(log_file)),
                     exist_ok=True)
         fh = logging.FileHandler(log_file)

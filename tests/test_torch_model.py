@@ -203,8 +203,7 @@ def test_unported_settings_raise():
 
 def test_slice_defaults():
     """The serving defaults; DataConfig and TrainConfig carry the JAX
-    package's fields and defaults (TrainConfig without the multi-device
-    ones, ROADMAP A12)."""
+    package's fields and defaults (the multi-device ones too)."""
     from dctseg import config as jax_config
     from dctseg_torch import config as port_config
     cfg = ModelConfig()
@@ -213,8 +212,7 @@ def test_slice_defaults():
         True, True, False, False, "none", "bfloat16")
     assert dataclasses.asdict(cfg).keys() == {
         f.name for f in dataclasses.fields(jax_tiny_config())}
-    for name, dropped in (("DataConfig", set()),
-                          ("TrainConfig", {"num_devices", "spatial_shards"})):
+    for name in ("DataConfig", "TrainConfig"):
         want = dataclasses.asdict(getattr(jax_config, name)())
         got = dataclasses.asdict(getattr(port_config, name)())
-        assert got == {k: v for k, v in want.items() if k not in dropped}
+        assert got == want

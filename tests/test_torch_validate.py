@@ -180,12 +180,13 @@ def test_evaluate_cli_runs_on_cpu(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--strategy", "sweep", "--quantize", "int8", "--spatial-shards", "2"],
      "A12"),
-    (["--multimodel", "--spatial-shards", "2"], "A12"),
+    (["--multimodel", "--quantize", "int8", "--spatial-shards", "2"],
+     "A12"),
     (["--quantize", "int8", "--spatial-shards", "4"], "A12"),
-    (["--spatial-shards", "2"], "A12")])
+    (["--quantize", "int8_all", "--spatial-shards", "2"], "A12")])
 def test_evaluate_cli_names_what_is_not_ported(flags, item):
-    """The sweep, the ensemble and int8 are ported; the multi-GPU option is
-    refused on every strategy, with or without int8."""
+    """The sweep, the ensemble, int8 and the multi-GPU mesh are ported;
+    int8 under a mesh (ROADMAP A12.2) is refused on every strategy."""
     from dctseg_torch.cli import evaluate
     with pytest.raises(NotImplementedError, match=item):
         evaluate.main(["--device", "cpu", *flags])
