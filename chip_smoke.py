@@ -23,7 +23,9 @@ Phases (any failure raises and the script exits non-zero):
      the order-statistic kernel in its count mode and its search mode
      (exact, on the pooled distances of those volumes, against
      count_leq_plain and the binary search), the int8 activation quantizer
-     K7 (torch.equal, f32 and bf16, with exact half-way ties planted), K1's
+     K7 on its three routes (torch.equal, f32 and bf16, with exact
+     half-way ties planted; the amax route's slot, the absmax alone, then
+     from_amax on it), K1's
      fused route and K7's grid route replayed in a CUDA graph on 3 inputs
      (each replay torch.equal to an eager call) and
      the int8 conv K6 (torch.equal against its float64 oracle, f32 and bf16
@@ -33,7 +35,9 @@ Phases (any failure raises and the script exits non-zero):
      external-statistics variant (two D slabs' sums against the plain sums,
      the slabs normed with their total within K1's bounds of the whole
      tensor's plain norm, a slab's own sums torch.equal to the split
-     route);
+     route; then with absmax slots, each slab's slots torch.equal to the
+     max |out| of its output, and a slab's own sums torch.equal, output
+     and slots, to the absmax variant's split route);
   4. the main paths at full width (img_dim=128, base_channels=16, random
      seeded weights), each with the launch counters set to 0 just before
      and read just after:
@@ -94,7 +98,14 @@ Phases (any failure raises and the script exits non-zero):
          space=2), two ranks of the one card over gloo (NCCL takes no two
          ranks on one device), against the unsharded engine in bf16 and
          fp32 (K1's external-statistics launches, each rank's peak memory,
-         ms a volume, every collective timed apart); spatial_train, the s2d
+         ms a volume, every collective timed apart); spatial_int8, int8
+         tiled_probs of one volume over (data=1, space=2) and (data=2,
+         space=1) on the same two ranks (every rank's K1, K6 and K7
+         launches as the mesh's plan, K7 on its amax route where the
+         unsharded forward takes its grid route, no plain version run,
+         every K7 call's stats equal over the ranks, the drift from the
+         unsharded int8 engine within INT8_DRIFT, the scale's MAX
+         all-reduces timed apart); spatial_train, the s2d
          B=1 step over the same mesh in f32 and bf16, its gradients per
          parameter group against one rank's unsharded step on the same
          routings; then the explicit conv VJP (A10) against autograd at
@@ -127,7 +138,9 @@ Phases (any failure raises and the script exits non-zero):
      beside cuDNN's bf16 conv and torch._int_mm on the im2col) and over
      one int8 forward's calls on each path, K7 likewise, each against its
      bound; K1's external-statistics variant over a space=2 rank's slab
-     forward;
+     forward; K7's amax route and K1's external-statistics pair with
+     absmax slots at the calls of one rank's int8 slab forward, against
+     their bounds;
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
 """
@@ -165,6 +178,7 @@ from dctseg_torch.data.brats import BraTSDataset
 from dctseg_torch.infer.engine import Predictor
 from dctseg_torch.infer.server import BundleServer
 from dctseg_torch.infer.serving import ServingBundle, export_bundle
+from dctseg_torch.models import attention as attn_model
 from dctseg_torch.models import clswiseformer as cwf
 from dctseg_torch.models import unet
 from dctseg_torch.ops import _build
@@ -479,16 +493,19 @@ def attention_inputs(dev, g, shp, dt, strided):
               for _ in range(2)))
 
 
-def check_attention(dev, shape=ATTN_SHAPE):
+ATTN_SMALL = ((2, 4, 33, 16), (1, 2, 50, 128), (2, 4, 33, 50, 16))
+
+
+def check_attention(dev, shape=ATTN_SHAPE, others=ATTN_SMALL):
     """Kernel vs plain version: f32 within 1e-5 (TF32 off), bf16 and f16
     within 1e-2, on contiguous inputs and on strided views of one (B, N, 3,
-    H, D) tensor (the model's layout), at the main path's shape, two small
-    ones and one with N2 != N.  bf16 and f16 must go to the tensor-core
-    kernel, f32 to the SIMT kernel.  Returns the bf16 error at the main
-    path's shape."""
+    H, D) tensor (the model's layout), at the main path's shape and
+    ``others`` (two small ones and one with N2 != N).  bf16 and f16 must
+    go to the tensor-core kernel, f32 to the SIMT kernel.  Returns the
+    bf16 error at the main path's shape."""
     g = gen(dev, SEED + 1)
     worst_bf16 = 0.0
-    for shp in (shape, (2, 4, 33, 16), (1, 2, 50, 128), (2, 4, 33, 50, 16)):
+    for shp in (shape, *others):
         scale = shp[-1] ** -0.5
         for dt, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2),
                          (torch.float16, 1e-2)):
@@ -892,13 +909,20 @@ KERNEL_COUNTERS = {"fusednorm": fusednorm.fused_instance_norm_act,
                    "quantize_absmax": quant.quantize_absmax,
                    "quantize_from_amax": quant.quantize_from_amax,
                    "fusednorm_stats": fusednorm.fused_norm_stats,
-                   "fusednorm_apply": fusednorm.fused_norm_apply}
-# K1's external-statistics variant: it runs only on a space axis
-EXT_COUNTERS = ("fusednorm_stats", "fusednorm_apply")
+                   "fusednorm_apply": fusednorm.fused_norm_apply,
+                   "fusednorm_stats_amax": fusednorm.fused_norm_stats_amax,
+                   "fusednorm_apply_amax": fusednorm.fused_norm_apply_amax,
+                   "quantize_amax": quant.quantize_amax}
+# K1's external-statistics variant (with absmax slots under int8): it runs
+# only on a space axis
+EXT_COUNTERS = ("fusednorm_stats", "fusednorm_apply", "fusednorm_stats_amax",
+                "fusednorm_apply_amax")
 INT8_COUNTERS = ("fusednorm_amax", "int8_conv3d", "quantize_absmax",
-                 "quantize_from_amax")
-# K7's counter of each route: one operator a route
-K7_COUNTERS = {"grid": "quantize_absmax", "from_amax": "quantize_from_amax"}
+                 "quantize_from_amax", "quantize_amax")
+# K7's counter of each route: one operator a route (amax runs only over a
+# mesh, its slots MAX-reduced over the ranks before from_amax)
+K7_COUNTERS = {"grid": "quantize_absmax", "from_amax": "quantize_from_amax",
+               "amax": "quantize_amax"}
 
 
 def reset_launches():
@@ -1355,7 +1379,8 @@ def int8_expected(calls, path, spec):
             "relayout": RELAYOUT_PER_FORWARD if s2d else 0,
             "int8_conv3d": INT8_CONVS[path, spec],
             "quantize_absmax": K7_CALLS[path, spec]["grid"],
-            "quantize_from_amax": K7_CALLS[path, spec]["from_amax"]}
+            "quantize_from_amax": K7_CALLS[path, spec]["from_amax"],
+            "quantize_amax": 0}
 
 
 def int8_model(dev, cfg_kw, weights, path, spec):
@@ -1454,35 +1479,49 @@ def check_int8_conv(dev, calls):
          "mma_sync"),
         (((3, 5, 6, 7, 36), (24, 3, 3, 3, 36), (2, 1, 2),
           ((1, 0), (1, 1), (0, 1))), "mma_sync")]
-    worst = 0.0
-    for (x_shape, w_shape, stride, pads), route in cases:
-        if math.prod(x_shape[1:4]) >= INT8_ORACLE_VOXELS:
-            x_shape = (1, *x_shape[1:])
-        xq, wq, sw, stats = int8_operands(dev, g, x_shape, w_shape)
-        for dt, with_bias in ((torch.float32, True), (torch.bfloat16, True),
-                              (torch.float32, False)):
-            bias = (torch.randn(w_shape[0], device=dev, generator=g).to(dt)
-                    if with_bias else None)
-            before = dict(quant.int8_conv3d.routes)
-            got = quant.int8_conv3d(xq, stats, wq, sw, bias, stride, pads, dt)
-            launched = {k: n - before[k]
-                        for k, n in quant.int8_conv3d.routes.items()
-                        if n != before[k]}
-            want = quant.int8_conv3d_plain(xq, stats, wq, sw, bias, stride,
-                                           pads, dt)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.equal(got, want) and launched == {route: 1}
-            worst = max(worst, err)
-            log(check="int8_conv3d", x=list(x_shape), w=list(w_shape),
-                stride=list(stride), padding=[list(p) for p in pads],
-                dtype=str(dt), bias=with_bias, route=route,
-                launched=launched, max_abs_err=err, tol="torch.equal", ok=ok)
-            if not ok:
-                raise AssertionError(f"K6 disagrees or took another route "
-                                     f"than {route} at {x_shape} {w_shape} "
-                                     f"{stride} {pads} {dt}: {launched}")
-            del got, want
+    worst = max(check_k6(dev, g, sig, route, K6_VARIANTS)
+                for sig, route in cases)
     torch.cuda.synchronize()
+    return worst
+
+
+# K6's output dtype and bias in check_int8_conv
+K6_VARIANTS = ((torch.float32, True), (torch.bfloat16, True),
+               (torch.float32, False))
+
+
+def check_k6(dev, g, sig, route, variants, what="int8_conv3d"):
+    """K6 at one (x shape, w shape, stride, padding) against its plain
+    version, torch.equal, for each (output dtype, bias) of ``variants``,
+    launched once on ``route`` (B cut to 1 where a sample has
+    INT8_ORACLE_VOXELS or more).  Returns the largest difference (0)."""
+    x_shape, w_shape, stride, pads = sig
+    if math.prod(x_shape[1:4]) >= INT8_ORACLE_VOXELS:
+        x_shape = (1, *x_shape[1:])
+    xq, wq, sw, stats = int8_operands(dev, g, x_shape, w_shape)
+    worst = 0.0
+    for dt, with_bias in variants:
+        bias = (torch.randn(w_shape[0], device=dev, generator=g).to(dt)
+                if with_bias else None)
+        before = dict(quant.int8_conv3d.routes)
+        got = quant.int8_conv3d(xq, stats, wq, sw, bias, stride, pads, dt)
+        launched = {k: n - before[k]
+                    for k, n in quant.int8_conv3d.routes.items()
+                    if n != before[k]}
+        want = quant.int8_conv3d_plain(xq, stats, wq, sw, bias, stride,
+                                       pads, dt)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.equal(got, want) and launched == {route: 1}
+        worst = max(worst, err)
+        log(check=what, x=list(x_shape), w=list(w_shape),
+            stride=list(stride), padding=[list(p) for p in pads],
+            dtype=str(dt), bias=with_bias, route=route,
+            launched=launched, max_abs_err=err, tol="torch.equal", ok=ok)
+        if not ok:
+            raise AssertionError(f"K6 disagrees or took another route "
+                                 f"than {route} at {x_shape} {w_shape} "
+                                 f"{stride} {pads} {dt}: {launched}")
+        del got, want
     return worst
 
 
@@ -1508,8 +1547,10 @@ def check_quantize(dev):
     """K7 against its plain version (xq and both stats torch.equal), f32
     and bf16, at the main path's activation shapes (B=8 at 32^3 x 64, the
     s2d view at 64^3 x 128 B=8 bf16 only), on each route, one launch a
-    call on its own counter: grid, and from_amax with the per-sample
-    absmax as the fused norm reports it: randn activations, then the same with
+    call on its own counter: grid, from_amax with the per-sample absmax as
+    the fused norm reports it, and amax (the absmax alone, torch.equal to
+    quantize_amax_plain, then from_amax on it equal to the plain
+    quantizer): randn activations, then the same with
     exact half-way ties planted: amax 127 s and a third of the values
     (k + 0.5) s for s = 2^-3, so that sx = s and x / sx = k + 0.5 exactly,
     which round half to even.  Returns the largest difference (0)."""
@@ -1535,16 +1576,25 @@ def check_quantize(dev):
                 for route, call in (
                         ("grid", lambda: quant.quantize_absmax(x)),
                         ("from_amax", lambda: quant.quantize_from_amax(
-                            x, slots))):
+                            x, slots)),
+                        ("amax", lambda: (None, quant.quantize_amax(x)))):
                     before = {k: KERNEL_COUNTERS[k].launches
                               for k in K7_COUNTERS.values()}
                     xq, stats = call()
                     launched = {r: KERNEL_COUNTERS[k].launches - before[k]
                                 for r, k in K7_COUNTERS.items()
                                 if KERNEL_COUNTERS[k].launches != before[k]}
-                    ok = (torch.equal(xq, pq) and torch.equal(stats, pstats)
-                          and launched == {route: 1}
-                          and (not ties or stats[1].item() == 2.0 ** -3))
+                    if route == "amax":
+                        slot_equal = torch.equal(
+                            stats, quant.quantize_amax_plain(x))
+                        xq, stats = quant.quantize_from_amax(x, stats)
+                        ok = slot_equal and (not ties
+                                             or stats[0].item() == 127 / 8)
+                    else:
+                        ok = not ties or stats[1].item() == 2.0 ** -3
+                    ok = (ok and torch.equal(xq, pq)
+                          and torch.equal(stats, pstats)
+                          and launched == {route: 1})
                     err = (xq.int() - pq.int()).abs().max().item()
                     worst = max(worst, float(err))
                     log(check="quantize", route=route, shape=list(shape),
@@ -1980,15 +2030,17 @@ def time_k6(dev, g, x_shape, w_shape, stride, pads, iters=10, plain=True,
 
 
 def time_k7(dev, g, shape, iters=10):
-    """K7 on a bf16 activation, on each route (grid, and from_amax with the
-    per-sample absmax a fused norm reports): call time (CUDA events, back
-    to back) and the card's time (queued_ms); the plain version's time;
-    the bound (x read once, xq written once) and the two-pass floor (x
-    read twice, by the absmax and by the quantize)."""
+    """K7 on a bf16 activation, on each route (grid, from_amax with the
+    per-sample absmax a fused norm reports, and amax, the absmax alone):
+    call time (CUDA events, back to back) and the card's time (queued_ms);
+    the plain version's time; the bound (x read once, xq written once;
+    amax: x read once) and the two-pass floor (x read twice, by the absmax
+    and by the quantize)."""
     x = torch.randn(shape, device=dev, generator=g).bfloat16()
     slots = x.reshape(shape[0], -1).float().abs().amax(dim=1)
     calls = {"grid": lambda: quant.quantize_absmax(x),
-             "from_amax": lambda: quant.quantize_from_amax(x, slots)}
+             "from_amax": lambda: quant.quantize_from_amax(x, slots),
+             "amax": lambda: quant.quantize_amax(x)}
     row = dict(shape=list(shape))
     for route in K7_COUNTERS:
         row[f"{route}_ms"] = time_ms(calls[route], iters)
@@ -1997,8 +2049,69 @@ def time_k7(dev, g, shape, iters=10):
     xb, qb = x.numel() * x.element_size(), x.numel()
     row["bound_ms"] = (xb + qb) / HBM_BYTES_PER_S * 1e3
     row["two_pass_floor_ms"] = (2 * xb + qb) / HBM_BYTES_PER_S * 1e3
+    row["amax_bound_ms"] = xb / HBM_BYTES_PER_S * 1e3
     del x, slots
     return row
+
+
+def time_mesh_int8(dev, row, iters=10):
+    """Phase 5 for int8 over a mesh, at the calls one rank's forward on
+    (data=1, space=2) made (``row``: run_spatial_int8's): K7's amax route
+    at each amax call (call and card time, the plain version, one library
+    call of the same function, torch.linalg.vector_norm(x, inf), and the
+    bound: x read once); K1's external-statistics pair with absmax slots at
+    each call that reported slots, bf16 (call and card time of the
+    statistics and the apply launch, the plain versions, and the bound: x
+    and the residual read once, the output written once, 4 bytes a slot).
+    Sums per forward."""
+    g = gen(dev, SEED + 24)
+    amax, ext = collections.defaultdict(float), collections.defaultdict(float)
+    for shape, route in row["k7_calls"]:
+        if route != "amax":
+            continue
+        x = torch.randn(shape, device=dev, generator=g).bfloat16()
+        amax["calls"] += 1
+        amax["ms"] += time_ms(lambda: quant.quantize_amax(x), iters)
+        amax["device_ms"] += queued_ms(lambda: quant.quantize_amax(x), iters)
+        amax["plain_ms"] += time_ms(lambda: quant.quantize_amax_plain(x),
+                                    max(2, iters // 4))
+        amax["library_ms"] += time_ms(
+            lambda: torch.linalg.vector_norm(x, float("inf")), iters)
+        amax["bound_ms"] += x.numel() * x.element_size() / HBM_BYTES_PER_S \
+            * 1e3
+        amax["bytes"] += x.numel() * x.element_size()
+        del x
+    for shape, fine, res in row["amax_norm_calls"]:
+        x = torch.randn(shape, device=dev, generator=g).bfloat16()
+        r = (torch.randn(shape, device=dev, generator=g).bfloat16() if res
+             else None)
+        act = "lrelu" if res else "relu"
+        count = fusednorm.norm_count(x, fine) * SPACE_RANKS
+        sums = fusednorm.fused_norm_stats(x, fine) * SPACE_RANKS
+
+        def call():
+            _, slots = fusednorm.fused_norm_stats_amax(x, fine)
+            return fusednorm.fused_norm_apply_amax(x, sums, slots, count,
+                                                   fine, act=act, residual=r)
+
+        def plain():
+            fusednorm.fused_norm_stats_plain(x, fine)
+            return fusednorm.fused_norm_apply_amax_plain(
+                x, sums, count, fine, act=act, residual=r)
+        ext["calls"] += 1
+        ext["ms"] += time_ms(call, iters)
+        ext["device_ms"] += queued_ms(call, iters)
+        ext["plain_ms"] += time_ms(plain, max(2, iters // 4))
+        nbytes = (x.numel() * x.element_size() * (3 if res else 2)
+                  + 4 * shape[0])
+        ext["bound_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        ext["bytes"] += nbytes
+        del x, r
+    rows = {"quantize_amax": dict(amax), "fusednorm_ext_amax": dict(ext)}
+    log(timing="int8_mesh_kernels", mesh="data1_space2", dtype="bfloat16",
+        unit="per B=8 int8 forward of one rank (sums over its calls)",
+        **rows)
+    return rows
 
 
 def time_k1_amax(dev, g, shape, fine, res, iters=5):
@@ -2905,8 +3018,14 @@ def check_fusednorm_ext(dev, widths, batch=8):
     concatenated, within check_fusednorm's bounds of the plain fused norm
     of the whole tensor; a slab with its own sums and count torch.equal to
     the split route of fused_instance_norm_act where its plan is split;
-    one launch per call on each counter.  Returns the largest bf16 error
-    at the main path's widths."""
+    one launch per call on each counter.  Then the same with absmax slots
+    (the int8 forward on a slab: fused_norm_stats_amax, then
+    fused_norm_apply_amax): its output within the same bounds, each slab's
+    slots torch.equal to the per-sample max |out| of its own output, and a
+    slab with its own sums torch.equal, output and slots, to
+    fused_instance_norm_act_amax where that variant's plan is split.
+    Returns the largest bf16 error at the main path's widths, of the
+    plain pair and of the pair with slots."""
     g = gen(dev, SEED + 11)
     cases = []
     for edge, c in widths:
@@ -2914,7 +3033,7 @@ def check_fusednorm_ext(dev, widths, batch=8):
         cases += [(shape, c, "relu", False), (shape, c, "lrelu", True)]
     cases += [((batch, 64, 64, 64, 128), 16, "relu", False),
               ((batch, 32, 32, 32, 256), 32, "lrelu", True)]
-    worst, split_seen = 0.0, False
+    worst, worst_amax, split_seen, amax_split_seen = 0.0, 0.0, False, False
     for shape, fine, act, with_res in cases:
         x32 = torch.randn(shape, device=dev, generator=g) * 3 + 1
         r32 = torch.randn(shape, device=dev, generator=g)
@@ -2961,20 +3080,60 @@ def check_fusednorm_ext(dev, widths, batch=8):
                 worst = max(worst, err.max().item())
             ok = (within and sum_err <= 1e-4 and launched == (2, 2)
                   and own_bits is not False)
+            # with absmax slots
+            before = (fusednorm.fused_norm_stats_amax.launches,
+                      fusednorm.fused_norm_apply_amax.launches)
+            st = [fusednorm.fused_norm_stats_amax(h, fine) for h in halves]
+            total_a = st[0][0] + st[1][0]
+            outs = [fusednorm.fused_norm_apply_amax(
+                h, total_a, slots, count, fine, act=act, residual=rr)
+                for h, (_, slots), rr in zip(halves, st, rh)]
+            launched_a = (fusednorm.fused_norm_stats_amax.launches
+                          - before[0],
+                          fusednorm.fused_norm_apply_amax.launches
+                          - before[1])
+            slots_equal = all(torch.equal(
+                a, o.reshape(shape[0], -1).float().abs().amax(dim=1))
+                for o, a in outs)
+            within_a, err_a, _, over_a = norm_within_bounds(
+                torch.cat([o for o, _ in outs], dim=1), want, x, fine, act,
+                r)
+            route_a = fusednorm.plan_for(
+                tuple(halves[0].shape), dt, fusednorm.vector_width(halves[0]),
+                with_res, 0, True).route
+            own_a = None
+            if route_a == "split":
+                amax_split_seen = True
+                o1, a1 = fusednorm.fused_norm_apply_amax(
+                    halves[0], *fusednorm.fused_norm_stats_amax(halves[0],
+                                                                fine),
+                    count / 2, fine, act=act, residual=rh[0])
+                o2, a2 = fusednorm.fused_instance_norm_act_amax(
+                    halves[0], fine, act=act, residual=rh[0])
+                own_a = torch.equal(o1, o2) and torch.equal(a1, a2)
+            if dt == torch.bfloat16 and shape[-1] == fine:
+                worst_amax = max(worst_amax, err_a.max().item())
+            ok = (ok and within_a and slots_equal and launched_a == (2, 2)
+                  and own_a is not False)
             log(check="fusednorm_ext", shape=list(shape), slabs=2,
                 fine=fine, act=act, residual=with_res, dtype=str(dt),
                 launches=launched, sums_rel_err=sum_err,
                 max_abs_err=err.max().item(), tol=tol, over_ulps=over_ulps,
                 slab_route=route, own_sums_equal_split_route=own_bits,
+                amax=dict(launches=launched_a, max_abs_err=err_a.max().item(),
+                          over_ulps=over_a, within_bounds=within_a,
+                          slots_equal_max_abs_out=slots_equal,
+                          slab_route=route_a,
+                          own_sums_equal_amax_variant=own_a),
                 ok=ok)
             if not ok:
                 raise AssertionError(f"fusednorm external statistics at "
                                      f"{shape} {fine} {act} {dt}")
-            del got, want, err, halves, rh, sums
-    if not split_seen:
+            del got, want, err, halves, rh, sums, st, outs, err_a
+    if not (split_seen and amax_split_seen):
         raise AssertionError("no slab ran the split route's arithmetic")
     torch.cuda.synchronize()
-    return worst
+    return worst, worst_amax
 
 
 def time_fusednorm_ext(dev, widths, batch=8, iters=10):
@@ -3162,7 +3321,8 @@ def comm_timed(rows):
     """Time every collective of parallel/spatial.py, the card synchronised
     before and after each: rows[kind] = {calls, ms, bytes}, kind the
     function of the forward that called it (halo_exchange, reduce_stats,
-    gather) or 'backward' (the autograd functions' backward)."""
+    gather, reduce_amax: the int8 scale's MAX, all_gather_cat: the data
+    axis' rows) or 'backward' (the autograd functions' backward)."""
     from dctseg_torch.parallel import spatial
     kind, origs = ["backward"], {}
 
@@ -3188,7 +3348,8 @@ def comm_timed(rows):
             return out
         return call
     for name, wrap in (("halo_exchange", labelled), ("reduce_stats", labelled),
-                       ("gather", labelled), ("all_gather", timed),
+                       ("gather", labelled), ("reduce_amax", labelled),
+                       ("all_gather_cat", labelled), ("all_gather", timed),
                        ("all_reduce", timed)):
         origs[name] = getattr(spatial, name)
         setattr(spatial, name, wrap(name))
@@ -3227,8 +3388,8 @@ def _space_entry(rank, job, store, out):
                                  device="cuda", backend="gloo")
     m = mesh.make_mesh(spatial=SPACE_RANKS)
     try:
-        res = {"forward": _space_forward, "train": _space_train}[job](
-            rank, m, dev)
+        res = {"forward": _space_forward, "train": _space_train,
+               "int8": _space_int8}[job](rank, m, dev)
         if rank == 0:
             torch.save(res, out)
     finally:
@@ -3335,6 +3496,291 @@ def _space_forward(rank, m, dev):
             argmax_agreement=(p.argmax(-1) == ref.argmax(-1)).float().mean()
             .item())
     return row
+
+
+# the plain versions of K1, K6 and K7: none may run on the card's paths
+PLAIN_FUNCS = ((quant, "quantize_absmax_plain"),
+               (quant, "quantize_from_amax_plain"),
+               (quant, "quantize_amax_plain"), (quant, "int8_conv3d_plain"),
+               (fusednorm, "fused_norm_stats_plain"),
+               (fusednorm, "fused_norm_apply_plain"),
+               (fusednorm, "fused_norm_apply_amax_plain"),
+               (fusednorm, "fused_instance_norm_act_plain"),
+               (fusednorm, "fused_instance_norm_act_amax_plain"))
+# the int8 meshes on two ranks of the card: (data, space)
+INT8_MESHES = {"data1_space2": (1, 2), "data2_space1": (2, 1)}
+INT8_MESH_TIMED = 2               # timed volumes a mesh, after the counted
+# fp32 int8 seg_probs of a volume's 8 crops on a mesh against unsharded.
+# The mesh sums the norms' statistics in another order: the first int8
+# conv's absmax moves by ulps, every x / sx with it, values near a .5
+# boundary round to the neighbouring int8 value, and 25 int8 convs in a
+# row carry that on (the K7 stats of the two forwards drift apart call by
+# call, and the couplers route other tokens), where the float forward
+# stays within 1e-6.  The witness is that sensitivity itself: the
+# unsharded fp32 int8 forward on its input nudged one ulp toward zero,
+# against itself; the mesh's fp32 drift (mean |dp|) is held to at most
+# INT8_MESH_WITNESS times the witness's.
+INT8_MESH_WITNESS = 2.0
+
+
+@contextlib.contextmanager
+def recording_int8(k7, norms, plain, sigs=None):
+    """Record every K7 call of the model (x's shape, its route over the
+    mesh, its stats) into ``k7``, every K1 external-statistics call with
+    absmax slots (shape, fine channels, residual) into ``norms``, and
+    count calls of the plain versions into ``plain``.  With ``sigs`` (a
+    dict of sets), also the arguments every other kernel of the forward
+    took: sigs["k6"] K6's (xq shape, wq shape, stride, padding, bias,
+    output dtype), sigs["k1"] K1's (variant, shape, dtype, fine channels,
+    eps, act, residual), the variant one of "fused", "amax" (its absmax
+    variant), "ext", "ext_amax" (the external-statistics pair without and
+    with slots), and sigs["k2"] K2's (q shape, N2, dtype).  K6's wrapper
+    counts its launches on the function the module holds under its name:
+    the recording one takes them and hands them on at the end."""
+    sigs = collections.defaultdict(set) if sigs is None else sigs
+    orig_k7, orig_k6 = quant.quantize_input, quant.int8_conv3d
+    norm_names = {"fused": "fused_instance_norm_act",
+                  "amax": "fused_instance_norm_act_amax",
+                  "ext": "fused_norm_apply",
+                  "ext_amax": "fused_norm_apply_amax"}
+    orig_norms = {kind: getattr(unet, name)
+                  for kind, name in norm_names.items()}
+    orig_attn = attn_model.fused_attention
+    origs = [(mod, name, getattr(mod, name)) for mod, name in PLAIN_FUNCS]
+
+    def k7_recording(x, amax=None):
+        xq, stats = orig_k7(x, amax)
+        k7.append((tuple(x.shape), "amax" if amax is None else "from_amax",
+                   stats))
+        return xq, stats
+
+    def k6_recording(xq, stats, wq, sw, bias, stride, padding, out_dtype):
+        sigs["k6"].add((tuple(xq.shape), tuple(wq.shape),
+                        quant._triple(stride), quant._pairs(padding),
+                        bias is not None, out_dtype))
+        return orig_k6(xq, stats, wq, sw, bias, stride, padding, out_dtype)
+    k6_recording.launches, k6_recording.routes = 0, orig_k6.routes
+
+    def norm_recording(kind):
+        fn = orig_norms[kind]
+
+        def one_call(x, fine, eps, act, residual):
+            sigs["k1"].add((kind, tuple(x.shape), x.dtype, fine, eps, act,
+                            residual is not None))
+            return fn(x, fine, eps, act=act, residual=residual)
+
+        def ext(x, sums, *slots, **kw):
+            sigs["k1"].add((kind, tuple(x.shape), x.dtype,
+                            kw["fine_channels"], kw["eps"], kw["act"],
+                            kw["residual"] is not None))
+            if slots:
+                norms.append((tuple(x.shape), kw["fine_channels"],
+                              kw["residual"] is not None))
+            return fn(x, sums, *slots, **kw)
+        return ext if kind.startswith("ext") else one_call
+
+    def attn_recording(q, k, v, scale):
+        sigs["k2"].add((tuple(q.shape), k.shape[2], q.dtype))
+        return orig_attn(q, k, v, scale)
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            plain[name] += 1
+            return fn(*a, **kw)
+        return call
+    quant.quantize_input, quant.int8_conv3d = k7_recording, k6_recording
+    for kind, name in norm_names.items():
+        setattr(unet, name, norm_recording(kind))
+    attn_model.fused_attention = attn_recording
+    for mod, name, fn in origs:
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield
+    finally:
+        quant.quantize_input, quant.int8_conv3d = orig_k7, orig_k6
+        orig_k6.launches += k6_recording.launches
+        for kind, name in norm_names.items():
+            setattr(unet, name, orig_norms[kind])
+        attn_model.fused_attention = orig_attn
+        for mod, name, fn in origs:
+            setattr(mod, name, fn)
+
+
+def drift(got, want) -> dict:
+    d = (got - want).abs()
+    return dict(max_abs_dprob=d.max().item(), mean_abs_dprob=d.mean().item(),
+                argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float()
+                .mean().item())
+
+
+def fp32_int8(predictor, crops):
+    """(seg_probs, every K7 call's amax, every top-k routing) of one fp32
+    int8 forward on ``crops``."""
+    k7, routes = [], []
+    orig_topk = record_topk(routes)
+    try:
+        with recording_int8(k7, [], collections.Counter()):
+            p = predictor.seg_probs(crops)
+    finally:
+        cwf.topk_select = orig_topk
+    return p, torch.stack([stats[0] for _, _, stats in k7]), routes
+
+
+# the exact int8 halo check on a space axis: the direct path's first int8
+# conv input (B=8, 32^3 x 64) through a 3^3 conv of stride 1 and of stride
+# 2 and a 1x1 conv, as (out channels, kernel, stride)
+HALO_X = (8, 32, 32, 32, 64)
+HALO_CONVS = {"conv3_s1": (64, 3, 1), "conv3_s2": (128, 3, 2),
+              "pw": (32, 1, 1)}
+
+
+def halo_int8_convs(m, dev):
+    """On each rank of a space mesh ``m``: one seeded bf16 tensor
+    quantized whole (K7's grid route), this rank's D slab of it and of its
+    xq through quant.conv3d_int8_prepared under the space group (the int8
+    halo exchanged, K6 with D padding (0, 0)) for each of HALO_CONVS, the
+    slabs' outputs gathered; torch.equal to int8_conv3d_plain of the whole
+    xq.  Returns {conv: (equal, max |difference|, K6's slab shape)}."""
+    from dctseg_torch.parallel import spatial
+    g = gen(dev, SEED + 25)
+    x = torch.randn(HALO_X, device=dev, generator=g).bfloat16()
+    xq, stats = quant.quantize_absmax(x)
+    shard = spatial.space_shard(m)
+    d = x.shape[1] // shard.size
+    part = slice(shard.index * d, (shard.index + 1) * d)
+    rows = {}
+    for name, (co, k, stride) in HALO_CONVS.items():
+        w = torch.randn((co, x.shape[-1], k, k, k), device=dev,
+                        generator=g) * 0.05
+        bias = torch.randn(co, device=dev, generator=g)
+        wq, sw = quant.prepare_weight(w)
+        sigs = collections.defaultdict(set)
+        with recording_int8([], [], collections.Counter(), sigs), \
+                spatial.sharded(shard):
+            y = spatial.gather(quant.conv3d_int8_prepared(
+                x[:, part].contiguous(), wq, sw, stride, k // 2, bias,
+                quantized=(xq[:, part].contiguous(), stats)), shard)
+        want = quant.int8_conv3d_plain(xq, stats, wq, sw, bias.bfloat16(),
+                                       stride, k // 2, torch.bfloat16)
+        (sig,) = sigs["k6"]
+        rows[name] = dict(equal=torch.equal(y, want),
+                          max_abs_err=(y.float() - want.float()).abs().max()
+                          .item(), k6_x=list(sig[0]),
+                          k6_padding=[list(p) for p in sig[3]])
+    return rows
+
+
+def _space_int8(rank, m, dev):
+    """spatial_int8 on one rank: bf16 int8 tiled_probs (direct path) of
+    one seeded 240x240x160 volume over each mesh of INT8_MESHES, two
+    ranks of the card: one counted volume (launches, every K7 call's shape,
+    route and stats, the K1 calls with absmax slots, the arguments of
+    every K6, K1 and K2 call, the plain versions' calls; every rank's
+    launches and stats gathered to rank 0), then INT8_MESH_TIMED timed
+    volumes and one with every collective timed apart; on a space axis the
+    exact halo'd int8 convs (halo_int8_convs).  Rank 0 then runs the
+    unsharded int8 engine on the same volume and compares; then fp32 int8
+    seg_probs of the volume's 8 crops on each mesh against unsharded
+    (every K7 call's amax and every routing compared), and the unsharded
+    fp32 int8 forward on the crops nudged one ulp toward zero (the
+    witness, INT8_MESH_WITNESS)."""
+    from dctseg_torch.parallel import distributed, mesh, spatial
+    model = _full_model(dev, quantize="int8")
+    model32 = _full_model(dev, quantize="int8", compute_dtype="float32")
+    vol = torch.randn(VOLUME, device=dev, generator=gen(dev, SEED + 21))
+    crops = Predictor.crops(vol)
+    rows, probs, probs32 = {}, {}, {}
+    for name, (data, space) in INT8_MESHES.items():
+        mm = m if (data, space) == (m.data, m.space) else mesh.make_mesh(
+            spatial=space)
+        sharded = Predictor(model, device=dev, mesh=mm)
+        k7, norms, plain = [], [], collections.Counter()
+        sigs = collections.defaultdict(set)
+        torch.cuda.synchronize()
+        reset_launches()
+        with recording_int8(k7, norms, plain, sigs):
+            probs[name] = sharded.tiled_probs(vol)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        keys = sorted(launches)
+        every = spatial.all_gather(
+            torch.tensor([launches[k] for k in keys] + [sum(plain.values())],
+                         device=dev), mm.group)
+        stats = spatial.all_gather(torch.stack([st for _, _, st in k7]),
+                                   mm.group)
+        row = dict(mesh=mm.shape, launches=launches,
+                   rank_launches=[dict(zip(keys, t.tolist()[:-1]))
+                                  for t in every],
+                   rank_plain_calls=[int(t[-1]) for t in every],
+                   plain_calls=dict(plain),
+                   k7_calls=[(list(sh), route) for sh, route, _ in k7],
+                   k7_stats_equal_over_ranks=all(
+                       torch.equal(t.view(torch.int32),
+                                   stats[0].view(torch.int32))
+                       for t in stats[1:]),
+                   k7_stats=stats[0].tolist(),
+                   amax_norm_calls=[(list(sh), f, r) for sh, f, r in norms],
+                   kernel_calls={k: sorted(v, key=str)
+                                 for k, v in sigs.items()})
+        times = []
+        for _ in range(INT8_MESH_TIMED):
+            distributed.barrier("chip_smoke:int8_timed")
+            t0 = time.perf_counter()
+            sharded.tiled_probs(vol)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        distributed.barrier("chip_smoke:int8_comm")
+        with comm_timed({}) as comm:
+            t0 = time.perf_counter()
+            sharded.tiled_probs(vol)
+            torch.cuda.synchronize()
+        row.update(volume_ms=statistics.median(times), volume_ms_all=times,
+                   comm_per_volume=comm,
+                   comm_timed_volume_ms=(time.perf_counter() - t0) * 1e3)
+        if space > 1:
+            row["halo_convs"] = halo_int8_convs(mm, dev)
+        probs32[name] = fp32_int8(Predictor(model32, device=dev, mesh=mm),
+                                  crops)
+        rows[name] = row
+        del sharded
+    if rank != 0:
+        return None
+    whole = Predictor(model, device=dev)
+    want = whole.tiled_probs(vol)
+    times = []
+    for _ in range(INT8_MESH_TIMED):
+        t0 = time.perf_counter()
+        whole.tiled_probs(vol)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rows["unsharded_volume_ms"] = statistics.median(times)
+    whole32 = Predictor(model32, device=dev)
+    want32, amax32, routes32 = fp32_int8(whole32, crops)
+    nudged = fp32_int8(whole32, torch.nextafter(crops,
+                                                torch.zeros_like(crops)))[0]
+    rows["fp32_witness"] = drift(nudged, want32)
+    for name, (p, amax, routes) in probs32.items():
+        rows_of = mesh.batch_rows(mesh.Mesh(*INT8_MESHES[name], 0),
+                                  crops.shape[0])
+        rel = ((amax - amax32) / amax32).abs()
+        rows[name]["fp32_seg_probs"] = dict(
+            drift(p, want32), k7_calls=len(amax),
+            k7_amax_rel_diff_max=rel.max().item(),
+            k7_first_differing_call=int(rel.nonzero()[0]) if rel.any()
+            else None,
+            routings=len(routes), routings_differing=sum(
+                not torch.equal(a.sort(1).values,
+                                b[rows_of].sort(1).values)
+                for a, b in zip(routes, routes32)))
+    for name, p in probs.items():
+        d = (p - want).abs()
+        rows[name].update(
+            shape=list(p.shape), finite=bool(torch.isfinite(p).all()),
+            sum_err=(p.sum(-1) - 1).abs().max().item(),
+            max_abs_dprob=d.max().item(), mean_abs_dprob=d.mean().item(),
+            argmax_agreement=(p.argmax(-1) == want.argmax(-1)).float()
+            .mean().item())
+    return rows
 
 
 @contextlib.contextmanager
@@ -3503,6 +3949,176 @@ def run_spatial_forward():
     return row
 
 
+def int8_mesh_expected(calls, data, space):
+    """Every counter's launches for one B=8 bf16 int8 forward (direct) on
+    one rank of a (data, space) mesh: K6 as unsharded; every K7 call on
+    from_amax, those the grid route takes unsharded first on the amax
+    route; on a space axis every K1 call on the external-statistics pair,
+    with absmax slots where the unsharded forward reports an absmax; on a
+    data axis K1 as unsharded at B = 8 / data."""
+    base = int8_expected(calls, "direct", "int8")
+    k7 = K7_CALLS["direct", "int8"]
+    want = dict(base, quantize_absmax=0, quantize_amax=k7["grid"],
+                quantize_from_amax=k7["grid"] + k7["from_amax"],
+                **dict.fromkeys(EXT_COUNTERS, 0), minplus=0, orderstats=0,
+                orderstats_count=0)
+    batch = 8 // data
+    if space > 1:
+        n = sum(NORM_CALLS.values()) * len(NORM_WIDTHS)
+        amax = len(calls.norms["direct", "int8"])
+        want.update(fusednorm=0, fusednorm_amax=0, fusednorm_stats=n - amax,
+                    fusednorm_apply=n - amax, fusednorm_stats_amax=amax,
+                    fusednorm_apply_amax=amax)
+    else:
+        amax = sum(fusednorm.plan_for((batch,) + shape[1:], torch.bfloat16,
+                                      8, res, 0, True).launches
+                   for shape, _, res in calls.norms["direct", "int8"])
+        want.update(fusednorm=norm_launches(torch.bfloat16, False, batch)
+                    - amax, fusednorm_amax=amax)
+    return want
+
+
+def run_spatial_int8(calls):
+    """spatial_int8: int8 tiled_probs over (data=1, space=2) and (data=2,
+    space=1), two gloo ranks of the card.  Fails unless, on each mesh:
+    every rank's launches are int8_mesh_expected's and no plain version
+    ran; every K7 call's stats are equal over the ranks; the
+    probabilities are finite, sum to one, and stay within INT8_DRIFT of
+    the unsharded int8 engine's (mean |dp|, argmax agreement); in fp32
+    the 8 crops' seg_probs within INT8_MESH_WITNESS times the one-ulp
+    witness's drift of unsharded; on a space axis the halo'd int8 convs
+    equal the whole tensor's (halo_int8_convs)."""
+    rows = run_space_phase("int8")
+    ok, bound = True, INT8_DRIFT["direct"]
+    for name, (data, space) in INT8_MESHES.items():
+        row = rows[name]
+        want = int8_mesh_expected(calls, data, space)
+        row["expected_launches"] = want
+        row["launches_ok"] = all({k: r[k] for k in want} == want
+                                 for r in row["rank_launches"])
+        row["ok"] = (row["launches_ok"] and row["plain_calls"] == {}
+                     and row["rank_plain_calls"] == [0] * SPACE_RANKS
+                     and row["k7_stats_equal_over_ranks"]
+                     and len(row["k7_calls"]) == sum(
+                         K7_CALLS["direct", "int8"].values())
+                     and row["shape"] == [1, 240, 240, 155, 4]
+                     and row["finite"] and row["sum_err"] <= 1e-3
+                     and row["mean_abs_dprob"] < bound["mean"]
+                     and row["argmax_agreement"] > bound["agree"]
+                     and row["fp32_seg_probs"]["mean_abs_dprob"]
+                     <= INT8_MESH_WITNESS
+                     * rows["fp32_witness"]["mean_abs_dprob"]
+                     and all(c["equal"] for c in
+                             row.get("halo_convs", {}).values())
+                     and (space == 1 or len(row.get("halo_convs", {}))
+                          == len(HALO_CONVS)))
+        ok = ok and row["ok"]
+        log(phase="spatial_int8", engine="tiled_probs", quantize="int8",
+            dtype="bfloat16", path="direct", data=data, space=space,
+            ranks_on_one_card=SPACE_RANKS, drift_bound=bound,
+            fp32_witness=rows["fp32_witness"],
+            fp32_witness_factor=INT8_MESH_WITNESS,
+            unsharded_volume_ms=rows["unsharded_volume_ms"],
+            kernel_call_signatures={k: len(v) for k, v in
+                                    row["kernel_calls"].items()},
+            **{k: v for k, v in row.items() if k != "kernel_calls"})
+    if not ok:
+        raise AssertionError("spatial_int8 failed")
+    return rows
+
+
+def k1_case(dev, g, kind, shape, dt, fine, eps, act, res):
+    """K1 at one call of a mesh forward, on seeded input: ``kind`` "fused"
+    or "amax" (fused_instance_norm_act, its absmax variant), "ext" or
+    "ext_amax" (the external-statistics pair without and with slots, on
+    the slab's own sums and count).  Its output within norm_within_bounds
+    of the plain norm of the input, an absmax torch.equal to the max |out|
+    per sample of its own output, its launches the plan's on its own
+    counters.  Returns (ok, max |difference|, launches)."""
+    x = (torch.randn(shape, device=dev, generator=g) * 3 + 1).to(dt)
+    r = torch.randn(shape, device=dev, generator=g).to(dt) if res else None
+    vec = fusednorm.vector_width(x)
+    names = {"fused": ("fusednorm",), "amax": ("fusednorm_amax",),
+             "ext": ("fusednorm_stats", "fusednorm_apply"),
+             "ext_amax": ("fusednorm_stats_amax", "fusednorm_apply_amax")}
+    before = [KERNEL_COUNTERS[n].launches for n in names[kind]]
+    if kind.startswith("ext"):
+        count = fusednorm.norm_count(x, fine)
+        if kind == "ext":
+            out, amax = fusednorm.fused_norm_apply(
+                x, fusednorm.fused_norm_stats(x, fine), count, fine, eps,
+                act=act, residual=r), None
+        else:
+            out, amax = fusednorm.fused_norm_apply_amax(
+                x, *fusednorm.fused_norm_stats_amax(x, fine), count, fine,
+                eps, act=act, residual=r)
+        want_launches = [1, 1]
+    else:
+        fn = (fusednorm.fused_instance_norm_act if kind == "fused"
+              else fusednorm.fused_instance_norm_act_amax)
+        out = fn(x, fine, eps, act=act, residual=r)
+        out, amax = out if kind == "amax" else (out, None)
+        want_launches = [fusednorm.plan_for(shape, dt, vec, res, 0,
+                                            kind == "amax").launches]
+    launched = [KERNEL_COUNTERS[n].launches - b
+                for n, b in zip(names[kind], before)]
+    want = fusednorm.fused_instance_norm_act_plain(x, fine, eps, act=act,
+                                                   residual=r)
+    within, err, _, _ = norm_within_bounds(out, want, x, fine, act, r)
+    ok = (within and launched == want_launches
+          and (amax is None or torch.equal(
+              amax, out.reshape(shape[0], -1).float().abs().amax(dim=1))))
+    return ok, err.max().item(), launched
+
+
+def check_mesh_int8_calls(dev, rows, calls):
+    """Every kernel at every call the int8 mesh forwards made (``rows``:
+    run_spatial_int8's, rank 0's calls on each mesh; ``calls``:
+    record_int8_calls', whose K6 calls check_int8_conv held): K6 at each
+    call the unsharded forwards did not make (the halo'd slabs of a space
+    axis, D padded (0, 0); B=4 on a data axis) through check_k6 in the
+    call's output dtype and bias; K1 at each (variant, shape, dtype, fine
+    channels, act, residual) through k1_case; K2 at each shape other than
+    ATTN_SHAPE through check_attention.  Returns the largest K6, K1 and
+    K2 (bf16) differences."""
+    g = gen(dev, SEED + 26)
+    checked = {sig for sigs in calls.k6.values() for sig in sigs}
+    k6 = sorted({tuple(c) for name in INT8_MESHES
+                 for c in rows[name]["kernel_calls"]["k6"]}, key=str)
+    new = [c for c in k6 if c[:4] not in checked]
+    worst = dict(k6=0.0, k1=0.0, k2=0.0)
+    for x_shape, w_shape, stride, pads, bias, dt in new:
+        worst["k6"] = max(worst["k6"], check_k6(
+            dev, g, (x_shape, w_shape, stride, pads), "tma",
+            ((dt, bias),), what="int8_conv3d_mesh"))
+    k1 = sorted({tuple(c) for name in INT8_MESHES
+                 for c in rows[name]["kernel_calls"]["k1"]}, key=str)
+    for kind, shape, dt, fine, eps, act, res in k1:
+        ok, err, launched = k1_case(dev, g, kind, shape, dt, fine, eps, act,
+                                    res)
+        if dt == torch.bfloat16:
+            worst["k1"] = max(worst["k1"], err)
+        log(check="fusednorm_mesh", variant=kind, shape=list(shape),
+            dtype=str(dt), fine=fine, act=act, residual=res,
+            launches=launched, max_abs_err=err,
+            tol="check_fusednorm's bounds", ok=ok)
+        if not ok:
+            raise AssertionError(f"K1 ({kind}) at a mesh call {shape} {dt} "
+                                 f"{fine} {act} {res}")
+    k2 = sorted({tuple(c) for name in INT8_MESHES
+                 for c in rows[name]["kernel_calls"]["k2"]}, key=str)
+    for q_shape, n2, dt in k2:
+        shp = q_shape if n2 == q_shape[2] else (*q_shape[:3], n2,
+                                                q_shape[3])
+        if shp != ATTN_SHAPE:
+            worst["k2"] = max(worst["k2"], check_attention(dev, shp, ()))
+    log(check="int8_mesh_kernel_calls", k6_calls=len(k6),
+        k6_checked_here=len(new), k1_calls=len(k1), k2_calls=len(k2),
+        worst=worst, ok=True)
+    torch.cuda.synchronize()
+    return worst
+
+
 def run_spatial_train():
     rows = run_space_phase("train")
     f32, b16 = rows["float32"], rows["bfloat16"]
@@ -3557,7 +4173,7 @@ def main() -> int:
     check_norm_plan()
     norm_err = check_fusednorm(dev, NORM_WIDTHS)
     norm_amax_err = check_fusednorm_amax(dev, NORM_WIDTHS)
-    norm_ext_err = check_fusednorm_ext(dev, NORM_WIDTHS)
+    norm_ext_err, norm_ext_amax_err = check_fusednorm_ext(dev, NORM_WIDTHS)
     attn_err = check_attention(dev)
     check_attention_backward(dev)
     relayout_err = check_relayout(dev)
@@ -3677,6 +4293,8 @@ def main() -> int:
     # ranks of the one card; the explicit conv VJP (A10)
     parallel_rows = run_parallel_train(dev)
     space_fwd = run_spatial_forward()
+    space_int8 = run_spatial_int8(int8_calls)
+    mesh_call_errs = check_mesh_int8_calls(dev, space_int8, int8_calls)
     space_train = run_spatial_train()
     vjp_row = run_conv3_vjp(dev)
 
@@ -3715,6 +4333,7 @@ def main() -> int:
         request_ms=int8_bundle_row["request"]["latency_ms"],
         request_client_ms=int8_bundle_row["request"]["client_ms"])
     int8_timing = time_int8(dev, int8_calls)
+    mesh_int8 = time_mesh_int8(dev, space_int8["data1_space2"])
     norm_rows = time_fusednorm(dev, NORM_WIDTHS)
     ext_row = time_fusednorm_ext(dev, NORM_WIDTHS)
     attn_row = time_attention(dev)
@@ -3774,6 +4393,7 @@ def main() -> int:
              source="dctseg_torch/csrc/attention.cu",
              replaces="dctseg/ops/pallas/attention.py:59",
              launches=eval_launches["attention"], max_abs_err=attn_err,
+             mesh_calls_max_abs_err=mesh_call_errs["k2"],
              ms=ATTN_CALLS * attn_row["ms"],
              plain_ms=ATTN_CALLS * attn_row["plain_ms"],
              bound_ms=ATTN_CALLS * max(attn_row["bytes_bound_ms"],
@@ -3823,6 +4443,7 @@ def main() -> int:
              source="dctseg_torch/csrc/int8conv.cu",
              replaces="dctseg/ops/quant.py:118",
              launches=eval_int8_launches["int8_conv3d"], max_abs_err=int8_err,
+             mesh_calls_max_abs_err=mesh_call_errs["k6"],
              ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
              bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
              device_ms=fwd["device_ms"],
@@ -3883,12 +4504,49 @@ def main() -> int:
              "statistics and an apply launch each; the all-reduce of the "
              "sums between them not counted); launches: one rank's "
              "tiled_probs in spatial_forward"))
+    sp2 = space_int8["data1_space2"]
+    am, ea = mesh_int8["quantize_amax"], mesh_int8["fusednorm_ext_amax"]
+    kernels += [
+        dict(name="quantize_amax", route="cuda",
+             source="dctseg_torch/csrc/quantize.cu",
+             replaces="dctseg/ops/quant.py:130",
+             launches=sp2["launches"]["quantize_amax"],
+             max_abs_err=quantize_err, ms=am["ms"], plain_ms=am["plain_ms"],
+             bound_ms=am["bound_ms"], bound_by="bytes",
+             library_ms=am["library_ms"], device_ms=am["device_ms"],
+             reduce_amax=sp2["comm_per_volume"].get("reduce_amax"),
+             unit=f"per B=8 bf16 int8 slab forward of a space=2 rank "
+                  f"({int(am['calls'])} calls, one launch each; the MAX "
+                  f"all-reduce of the slots not counted: reduce_amax, "
+                  f"every K7 call's, gloo on one card); library: "
+                  f"torch.linalg.vector_norm(x, inf); launches: one rank's "
+                  f"int8 tiled_probs in spatial_int8"),
+        dict(name="fusednorm_ext_amax", route="cuda",
+             source="dctseg_torch/csrc/fusednorm.cu",
+             replaces="dctseg/ops/pallas/fusednorm.py:127",
+             launches=(sp2["launches"]["fusednorm_stats_amax"]
+                       + sp2["launches"]["fusednorm_apply_amax"]),
+             max_abs_err=norm_ext_amax_err, ms=ea["ms"],
+             mesh_calls_max_abs_err=mesh_call_errs["k1"],
+             plain_ms=ea["plain_ms"], bound_ms=ea["bound_ms"],
+             bound_by="bytes", library_ms=None, device_ms=ea["device_ms"],
+             unit=f"per B=8 bf16 int8 slab forward of a space=2 rank "
+                  f"({int(ea['calls'])} calls with absmax slots, a "
+                  f"statistics and an apply launch each; the all-reduce of "
+                  f"the sums between them not counted); launches: one "
+                  f"rank's int8 tiled_probs in spatial_int8"),
+    ]
     log(timing="multi_gpu", unit="ms", parallel_train={
         k: {m: r[m] for m in ("steady_step_ms", "all_reduce_calls",
                               "nccl_device_ms")}
         for k, r in parallel_rows.items()},
         spatial_forward_volume_ms=space_fwd["volume_ms"],
         unsharded_volume_ms=space_fwd["unsharded_volume_ms"],
+        spatial_int8_volume_ms={k: space_int8[k]["volume_ms"]
+                                for k in INT8_MESHES},
+        spatial_int8_comm={k: space_int8[k]["comm_per_volume"]
+                           for k in INT8_MESHES},
+        unsharded_int8_volume_ms=space_int8["unsharded_volume_ms"],
         spatial_train_step_ms={k: r["step_ms"]
                                for k, r in space_train.items()},
         conv3_vjp_ms={k: vjp_row[f"{k}_ms"] for k in ("xla", "explicit")})

@@ -23,9 +23,11 @@ Several GPUs: one process per GPU, each started with the same flags plus
 torchrun).  The JAX driver needs none of these, being one process over
 many chips; the port runs one process per GPU.  Every process loads every
 volume; each forward's crops or flips split over the data axis and each
-volume's D axis over --spatial-shards consecutive processes.  Only the
-primary process scores (K4, K5) and writes the CSV, PNG and NIfTI output
-and the JSON line.
+volume's D axis over --spatial-shards consecutive processes; --quantize
+runs there too, each int8 conv's activation scale taken over every
+process, as the JAX driver's mesh takes it over the whole tensor.  Only
+the primary process scores (K4, K5) and writes the CSV, PNG and NIfTI
+output and the JSON line.
 """
 
 from __future__ import annotations
@@ -93,7 +95,9 @@ def parse_args(argv=None):
     p.add_argument("--quantize", default="none",
                    help="int8 post-training quantization spec: 'int8', "
                         "'int8+pw+deconv+down' or 'int8_all' (inference "
-                        "only; dctseg_torch/ops/quant.py)")
+                        "only; dctseg_torch/ops/quant.py); with the "
+                        "process flags each conv's scale is taken over "
+                        "every process")
     p.add_argument("--spatial-shards", type=int, default=1,
                    help="shard each volume's D axis over this many "
                         "consecutive processes; the crops or flips of a "
@@ -143,10 +147,6 @@ def main(argv=None) -> dict:
                                      a.process_id, device=a.device)
               or resolve_device(a.device))
     multi_gpu = distributed.world_size() > 1 or a.spatial_shards > 1
-    if multi_gpu and a.quantize != "none":
-        raise NotImplementedError(
-            "--quantize over several GPUs is not ported yet (ROADMAP A12.2: "
-            "K7's per-tensor absmax reduced over the group)")
     set_process_title("dctseg:test")  # reference test*.py:146 'Testing!'
     log = setup_logging(os.path.join(a.output_dir, "eval.txt"))
     mcfg = ModelConfig(

@@ -70,7 +70,10 @@
 //     all-reduces them over the GPUs; the apply launch takes the reduced
 //     sums and the whole volume's count and computes a and b per lane by
 //     the same formula.  With the local count it gives the split route's
-//     bits.
+//     bits.  With absmax slots (the int8 forward on a slab) it reports
+//     them as the absmax variant does: the statistics launch zeroes them,
+//     the apply launch fills them; the caller reduces them over the GPUs
+//     with its own collective (ops/quant.py quantize_input).
 
 #include <stdint.h>
 
@@ -565,7 +568,10 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
 // its statistics launch, writing the raw sums (sums: [n][2][f] f32), phase
 // 1 its apply launch, reading the sums reduced over the GPUs and `count`,
 // the elements they summed per sample and fine channel.  args: those of
-// dctseg_fusednorm (fused 0, staged 0, amax 0), then the sums' address.
+// dctseg_fusednorm (fused 0, staged 0; amax: the [n] absmax slots, or 0),
+// then the sums' address.  With slots, both phases take them: phase 0
+// zeroes them, phase 1 fills them with max |out| per sample; the plan
+// (bps, rows_per_block) is the absmax variant's split plan.
 extern "C" int dctseg_fusednorm_ext(const int64_t* a, float eps, float slope,
                                     float count, int phase, void* stream) {
   Params p;
@@ -585,18 +591,18 @@ extern "C" int dctseg_fusednorm_ext(const int64_t* a, float eps, float slope,
   p.act = (int)a[13];
   const int dtype = (int)a[14], vec = (int)a[15];
   p.staged = (int)a[17];
-  p.amax = nullptr;
+  p.amax = reinterpret_cast<unsigned*>(a[18]);
   p.sums = reinterpret_cast<float*>(a[19]);
   p.eps = eps;
   p.slope = slope;
   p.count = count;
-  if (a[16] || a[18] || !p.sums || p.staged || !(count > 0.f) ||
+  if (a[16] || a[18] % 4 || !p.sums || p.staged || !(count > 0.f) ||
       p.c % vec || p.c / vec > kThreads || p.f < 1 || p.c % p.f ||
       p.bps < 1 || p.n < 1 || p.n > 65535 || (phase != 0 && phase != 1))
     return cudaErrorInvalidValue;
   const void* k = phase == 0 ? pick<kStats>(dtype, vec, false, false)
                              : pick<kApply>(dtype, vec, p.res != nullptr,
-                                            false);
+                                            p.amax != nullptr);
   if (!k) return cudaErrorInvalidValue;
   void* args[] = {&p};
   return cudaLaunchKernel(k, dim3(p.bps, p.n), dim3(kThreads), args, 0,

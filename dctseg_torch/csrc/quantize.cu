@@ -32,9 +32,18 @@
 //     the other blocks wait for.  Then every block quantizes its share,
 //     walking it backwards, so that it starts on what the absmax read
 //     last, the part most likely still in L2.
+//   amax -- the absmax alone, into a one-float slot: over a mesh of GPUs
+//     the slots of every rank's part of the tensor are MAX-reduced between
+//     the absmax and the quantize (ops/quant.py quantize_input), and a
+//     cooperative launch cannot hold that collective.  Any grid: each block
+//     reduces its grid-stride share, then one atomicMax on the workspace's
+//     word and a ticket, as on the grid route; the last ticket's block
+//     writes the slot and leaves the word and the ticket at zero.  Nobody
+//     waits, so the blocks need not be co-resident.  One read of x.
 // No argument changes from call to call but the pointers, so a CUDA graph
 // may capture a launch and replay it: the grid route's barrier takes its
-// new value from the card.  Every block reads the generation word before
+// new value from the card (the amax route shares its workspace and leaves
+// the generation as it found it).  Every block reads the generation word before
 // it takes its ticket, and the last ticket's block bumps it after every
 // other block's read, so all blocks of a call read the same g and wait
 // for g + 1.
@@ -121,6 +130,33 @@ __device__ __forceinline__ unsigned block_max(unsigned m) {
   return m;
 }
 
+// The max bits of |x| over this thread's grid-stride vectors of x.
+template <typename T, int VEC>
+__device__ __forceinline__ unsigned share_max(const T* __restrict__ x,
+                                              long long vectors) {
+  using P = Pack<T, VEC>;
+  const P* xv = reinterpret_cast<const P*>(x);
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
+  unsigned m = 0;
+  for (; v + (kUnroll - 1) * stride < vectors; v += kUnroll * stride) {
+    P p[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) p[u] = xv[v + u * stride];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        m = max(m, abs_bits(to_f32(p[u].v[j])));
+  }
+  for (; v < vectors; v += stride) {
+    const P p = xv[v];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) m = max(m, abs_bits(to_f32(p.v[j])));
+  }
+  return m;
+}
+
 // Quantizes this thread's grid-stride vectors of x with scale sx, from
 // the first (forward) or from the last.
 template <typename T, int VEC>
@@ -181,28 +217,8 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 grid_kernel(const T* __restrict__ x, long long vectors, Workspace ws,
             float* __restrict__ stats, int8_t* __restrict__ q) {
-  using P = Pack<T, VEC>;
   __shared__ float block_sx;
-  const P* xv = reinterpret_cast<const P*>(x);
-  const long long stride = (long long)gridDim.x * kThreads;
-  long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
-  unsigned m = 0;
-  for (; v + (kUnroll - 1) * stride < vectors; v += kUnroll * stride) {
-    P p[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) p[u] = xv[v + u * stride];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        m = max(m, abs_bits(to_f32(p[u].v[j])));
-  }
-  for (; v < vectors; v += stride) {
-    const P p = xv[v];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) m = max(m, abs_bits(to_f32(p.v[j])));
-  }
-  m = block_max(m);
+  const unsigned m = block_max(share_max<T, VEC>(x, vectors));
   if (threadIdx.x == 0) {
     // this call's generation, read before the ticket is taken
     const unsigned generation =
@@ -233,6 +249,24 @@ grid_kernel(const T* __restrict__ x, long long vectors, Workspace ws,
   }
   __syncthreads();
   quantize_share<T, VEC>(x, vectors, block_sx, q, true);
+}
+
+// Route amax: max |x| into slot[0], any grid, no barrier.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+amax_kernel(const T* __restrict__ x, long long vectors, Workspace ws,
+            float* __restrict__ slot) {
+  const unsigned m = block_max(share_max<T, VEC>(x, vectors));
+  if (threadIdx.x == 0) {
+    atomicMax(ws.amax, m);
+    __threadfence();
+    if (atomicAdd(ws.ticket, 1u) == gridDim.x - 1) {
+      // every block's max is in: hand it out, leave the words at zero
+      __threadfence();
+      *slot = __uint_as_float(atomicExch(ws.amax, 0u));
+      *ws.ticket = 0u;
+    }
+  }
 }
 
 int itemsize(int dtype) { return dtype == kF32 ? 4 : 2; }
@@ -283,6 +317,28 @@ int launch_from_amax(const void* x, long long vectors, int vec, int grid,
   }
 }
 
+template <typename T>
+int launch_amax(const void* x, long long vectors, int vec, int grid,
+                Workspace ws, float* slot, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  switch (vec) {
+#define DCTSEG_AMAX_CASE(V)                                                  \
+    case V:                                                                  \
+      if constexpr (V * sizeof(T) <= 16) {                                   \
+        amax_kernel<T, V><<<grid, kThreads, 0, stream>>>(xt, vectors, ws,    \
+                                                         slot);              \
+        return cudaGetLastError();                                           \
+      }                                                                      \
+      return cudaErrorInvalidValue;
+    DCTSEG_AMAX_CASE(8)
+    DCTSEG_AMAX_CASE(4)
+    DCTSEG_AMAX_CASE(2)
+    DCTSEG_AMAX_CASE(1)
+#undef DCTSEG_AMAX_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace dctseg
 
@@ -308,7 +364,8 @@ extern "C" int dctseg_quantize_coresident(int dtype, int vec, int* blocks) {
 // elements of dtype; q: n int8; stats: float32 [2].  Route 0 (from_amax):
 // the float32 slots, whose max is max |x|.  Route 1 (grid: a grid of
 // co-resident blocks): the workspace, three uint32 words, zero but for the
-// last (the generation).  A vector width that does not divide n or fit the
+// last (the generation).  Route 2 (amax): no q; stats is the one-float
+// slot; the grid route's workspace.  A vector width that does not divide n or fit the
 // pointers is refused.  Neither route takes host state that changes per
 // call (the pointers aside): a captured launch replays as it ran.
 extern "C" int dctseg_quantize(const int64_t* a, void* stream) {
@@ -337,10 +394,23 @@ extern "C" int dctseg_quantize(const int64_t* a, void* stream) {
       default: return cudaErrorInvalidValue;
     }
   }
-  const void* k = pick_grid(dtype, vec);
-  if (!k || route != 1 || a[10] % 4) return cudaErrorInvalidValue;
+  if ((route != 1 && route != 2) || !a[10] || a[10] % 4)
+    return cudaErrorInvalidValue;
   unsigned* words = reinterpret_cast<unsigned*>(a[10]);
   Workspace ws{words, words + 1, words + 2};
+  if (route == 2) {
+    switch (dtype) {
+      case kF32: return launch_amax<float>(x, vectors, vec, grid, ws, stats,
+                                           s);
+      case kBF16: return launch_amax<__nv_bfloat16>(x, vectors, vec, grid,
+                                                    ws, stats, s);
+      case kF16: return launch_amax<__half>(x, vectors, vec, grid, ws, stats,
+                                            s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  const void* k = pick_grid(dtype, vec);
+  if (!k) return cudaErrorInvalidValue;
   void* args[] = {&x, &vectors, &ws, &stats, &q};
   return cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kThreads), args, 0,
                                      s);

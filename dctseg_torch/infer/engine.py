@@ -32,8 +32,12 @@ of a ``parallel.mesh`` holds the same input; a forward's batch (the 8
 crops or flips) splits over the ``data`` axis where it divides, each
 sample's D axis over ``space`` (``parallel/spatial.py``), and the
 probabilities are gathered back, so every rank returns the whole result.
-``fuse_dispatch`` and ``fold_params`` are off under a mesh, as in the JAX
-engine.
+Under ``quantize`` each int8 conv takes one activation scale over the
+whole batch and volume, as GSPMD gives the JAX engine: the absmax slots
+are MAX-reduced over every rank of the mesh (``parallel/spatial.py``
+``scaled``); under ``microbatch`` each chunk takes its own, as JAX's
+per-chunk forward does.  ``fuse_dispatch`` and ``fold_params`` are off
+under a mesh, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -100,7 +104,7 @@ class Predictor:
 
     ``mesh`` (a ``parallel.mesh.Mesh``) runs each forward over the ranks of
     a process group (module docstring); every rank calls the same engines
-    on the same input.  int8 under a mesh is not ported (ROADMAP A12.2)."""
+    on the same input, float or int8."""
 
     def __init__(self, model: torch.nn.Module, device=None,
                  microbatch: Optional[int] = None,
@@ -110,12 +114,6 @@ class Predictor:
         self.model = model.to(self.device).eval()
         self.microbatch = microbatch
         self.mesh = mesh
-        if mesh is not None and mesh.size > 1 and getattr(
-                getattr(model, "cfg", None), "quantize", "none") != "none":
-            raise NotImplementedError(
-                "int8 under a multi-GPU mesh is not ported yet (ROADMAP "
-                "A12.2: K7's per-tensor absmax must be reduced over the "
-                "group)")
         self.fold_params = fold_params and mesh is None
         self._folded = layers.fold(self.model) if self.fold_params else None
         self.fuse_dispatch = (fuse_dispatch and microbatch is None
@@ -131,12 +129,13 @@ class Predictor:
     def model_probs(self, xs: torch.Tensor) -> torch.Tensor:
         """The model's decoder softmax on one batch, on the folded weights
         where ``fold_params`` is on; under a mesh this rank's rows and slab,
-        gathered back."""
+        gathered back, the int8 scales taken over the mesh."""
         if self.mesh is None:
             with layers.folded(self._folded):
                 return self.model(xs)[0]
         rows = batch_rows(self.mesh, xs.shape[0])
-        with spatial.sharded(spatial.space_shard(self.mesh)):
+        with spatial.sharded(spatial.space_shard(self.mesh)), \
+                spatial.scaled(self.mesh.group):
             y = self.model(xs[rows])[0]
         if rows.stop - rows.start == xs.shape[0]:
             return y

@@ -48,8 +48,10 @@ from dctseg_torch.ops import relayout
 from dctseg_torch.ops import s2d as s2dops
 from dctseg_torch.ops.fusednorm import (fused_instance_norm_act,
                                         fused_instance_norm_act_amax,
-                                        fused_norm_apply, fused_norm_stats,
-                                        norm_count)
+                                        fused_norm_apply,
+                                        fused_norm_apply_amax,
+                                        fused_norm_stats,
+                                        fused_norm_stats_amax, norm_count)
 from dctseg_torch.ops.norms import instance_norm, leaky_relu
 from dctseg_torch.parallel import spatial
 
@@ -93,20 +95,22 @@ def _norm_act(x: torch.Tensor, eps: float, act: str, fused: bool,
     else None.  On a D slab under ``parallel.spatial.sharded`` the fused
     kernel runs its external-statistics variant, the sums all-reduced over
     the space group between its two launches (the plain norms reduce
-    theirs in ``ops/norms.py``)."""
+    theirs in ``ops/norms.py``); with ``amax`` it reports the slab's
+    per-sample absmax, which the int8 conv reduces over the mesh."""
     shard = spatial.active()
     if fused and shard is not None:
-        if amax:
-            raise NotImplementedError(
-                "int8 under a space group is not ported yet (ROADMAP "
-                "A12.2: K7's absmax reduced over the group)")
         fine = x.shape[-1] // (s2dops.B3 if s2d_view else 1)
         x = x.contiguous()
-        sums = spatial.reduce_stats(fused_norm_stats(x, fine), shard)
-        return fused_norm_apply(
-            x, sums, norm_count(x, fine) * shard.size, fine, eps, act=act,
-            residual=None if residual is None else residual.contiguous()
-        ), None
+        sums, slots = (fused_norm_stats_amax(x, fine) if amax
+                       else (fused_norm_stats(x, fine), None))
+        kw = dict(count=norm_count(x, fine) * shard.size,
+                  fine_channels=fine, eps=eps, act=act,
+                  residual=None if residual is None
+                  else residual.contiguous())
+        sums = spatial.reduce_stats(sums, shard)
+        if amax:
+            return fused_norm_apply_amax(x, sums, slots, **kw)
+        return fused_norm_apply(x, sums, **kw), None
     if fused:
         fine = x.shape[-1] // (s2dops.B3 if s2d_view else 1)
         kw = dict(act=act, residual=None if residual is None

@@ -43,7 +43,13 @@ launch, writing each sample's raw f32 sums of x and x^2 per fine channel,
 :func:`fused_norm_apply` (``torch.ops.dctseg.fused_norm_apply``) is the
 split route's apply launch on the reduced sums and the whole volume's
 count.  With the local sums and count the pair gives the split route's
-output bit for bit.  Inference only (their backward raises).
+output bit for bit.  Where the output feeds an int8 conv on the slab, the
+pair also reports its absmax slots: :func:`fused_norm_stats_amax`
+(``torch.ops.dctseg.fused_norm_stats_amax``) returns (sums, slots), the
+slots zeroed by the statistics launch, and :func:`fused_norm_apply_amax`
+(``torch.ops.dctseg.fused_norm_apply_amax``) fills them with max |out| per
+sample, bit for bit :func:`fused_instance_norm_act_amax`'s on the same
+output.  Inference only (their backward raises).
 """
 
 from __future__ import annotations
@@ -113,6 +119,18 @@ def fused_norm_apply_plain(x: torch.Tensor, sums: torch.Tensor,
     xr = x.reshape(n, -1, cb).float()
     y = _act(xr * a + b, act, slope).to(x.dtype).reshape(x.shape)
     return y + residual if residual is not None else y
+
+
+def fused_norm_apply_amax_plain(x: torch.Tensor, sums: torch.Tensor,
+                                count: float, fine_channels: int,
+                                eps: float = 1e-5, act: str = "none",
+                                slope: float = 0.01,
+                                residual: torch.Tensor | None = None):
+    """(out, amax): :func:`fused_norm_apply_plain` and, per sample, the
+    float32 max of |out| (a NaN propagates)."""
+    out = fused_norm_apply_plain(x, sums, count, fine_channels, eps, act,
+                                 slope, residual)
+    return out, out.reshape(out.shape[0], -1).float().abs().amax(dim=1)
 
 
 def fused_instance_norm_act_plain(x: torch.Tensor, fine_channels: int,
@@ -260,6 +278,22 @@ def fused_norm_stats(x: torch.Tensor, fine_channels: int) -> torch.Tensor:
     return library.call(_STATS_OP, x, fine_channels)
 
 
+def fused_norm_stats_amax(x: torch.Tensor, fine_channels: int):
+    """(sums, slots): :func:`fused_norm_stats` and the (N,) float32 absmax
+    slots that :func:`fused_norm_apply_amax` fills, zeroed by this launch
+    on CUDA."""
+    _check(x, fine_channels, "none", None)
+    return library.call(_STATS_AMAX_OP, x, fine_channels)
+
+
+def _check_sums(x, sums, fine_channels):
+    if sums.shape != (x.shape[0], 2, fine_channels) or \
+            sums.dtype != torch.float32 or sums.device != x.device:
+        raise ValueError(f"sums must be f32 ({x.shape[0]}, 2, "
+                         f"{fine_channels}) on x's device; got "
+                         f"{tuple(sums.shape)} {sums.dtype}")
+
+
 def fused_norm_apply(x: torch.Tensor, sums: torch.Tensor, count: float,
                      fine_channels: int, eps: float = 1e-5,
                      act: str = "none", slope: float = 0.01,
@@ -268,13 +302,29 @@ def fused_norm_apply(x: torch.Tensor, sums: torch.Tensor, count: float,
     (N, 2, F) f32 from :func:`fused_norm_stats`, summed over the ranks
     that hold the volume, and ``count``, the elements they sum."""
     _check(x, fine_channels, act, residual)
-    if sums.shape != (x.shape[0], 2, fine_channels) or \
-            sums.dtype != torch.float32 or sums.device != x.device:
-        raise ValueError(f"sums must be f32 ({x.shape[0]}, 2, "
-                         f"{fine_channels}) on x's device; got "
-                         f"{tuple(sums.shape)} {sums.dtype}")
+    _check_sums(x, sums, fine_channels)
     return library.call(_APPLY_OP, x, residual, sums.contiguous(),
                         float(count), fine_channels, eps, act, slope)
+
+
+def fused_norm_apply_amax(x: torch.Tensor, sums: torch.Tensor,
+                          slots: torch.Tensor, count: float,
+                          fine_channels: int, eps: float = 1e-5,
+                          act: str = "none", slope: float = 0.01,
+                          residual: torch.Tensor | None = None):
+    """(out, slots): :func:`fused_norm_apply` and, in ``slots`` (the
+    (N,) float32 slots :func:`fused_norm_stats_amax` returned with
+    the sums, filled in place), per sample the max of |out| over the
+    elements written.  Inference only."""
+    _check(x, fine_channels, act, residual)
+    _check_sums(x, sums, fine_channels)
+    if slots.shape != (x.shape[0],) or slots.dtype != torch.float32 or \
+            slots.device != x.device or not slots.is_contiguous():
+        raise ValueError(f"slots must be contiguous f32 ({x.shape[0]},) on "
+                         f"x's device")
+    out = library.call(_APPLY_AMAX_OP, x, residual, sums.contiguous(), slots,
+                       float(count), fine_channels, eps, act, slope)
+    return out, slots
 
 
 def fused_instance_norm_act_amax(x: torch.Tensor, fine_channels: int,
@@ -293,6 +343,8 @@ fused_instance_norm_act.launches = 0   # kernel launches on CUDA tensors
 fused_instance_norm_act_amax.launches = 0   # those of the absmax variant
 fused_norm_stats.launches = 0   # the external-statistics variant's
 fused_norm_apply.launches = 0
+fused_norm_stats_amax.launches = 0   # its pair with absmax slots
+fused_norm_apply_amax.launches = 0
 
 
 def vector_width(x: torch.Tensor, *others) -> int:
@@ -399,23 +451,24 @@ def _launch(x, residual, fine_channels, eps, act, slope, amax=False):
 
 
 def ext_plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
-                 device: int) -> LaunchPlan:
+                 device: int, amax: bool = False) -> LaunchPlan:
     """The external-statistics variant's plan on CUDA device ``device``:
-    the split route's (its two launches are called apart, with the
-    all-reduce between them)."""
+    the split route's of the plain or the absmax variant (its two launches
+    are called apart, with the all-reduce between them)."""
     n, c = shape[0], shape[-1]
     if c // vec > THREADS:
         raise ValueError(f"fusednorm kernel takes C <= {THREADS * vec} "
                          f"channels here; got C={c}")
-    split_blocks = coresident(device, dtype, vec, False, res)[0]
+    split_blocks = coresident(device, dtype, vec, False, res, amax)[0]
     return plan_launch(n, math.prod(shape) // (n * c), c, _ITEMSIZE[dtype],
                        vec, 0, split_blocks, 0)
 
 
 def _launch_ext(x, residual, fine_channels, eps, act, slope, sums, count,
-                phase):
+                phase, slots=None):
     """One launch of the external-statistics variant: phase 0 writes
-    ``sums``, phase 1 the output (returned) from them."""
+    ``sums``, phase 1 the output (returned) from them; with ``slots``
+    (the absmax slots), phase 0 zeroes them and phase 1 fills them."""
     if not x.is_contiguous() or (residual is not None
                                  and not residual.is_contiguous()):
         raise ValueError("the fusednorm kernel takes contiguous "
@@ -423,6 +476,8 @@ def _launch_ext(x, residual, fine_channels, eps, act, slope, sums, count,
     n, c = x.shape[0], x.shape[-1]
     out = torch.empty_like(x) if phase else None
     if x.numel() == 0:
+        if slots is not None:
+            slots.zero_()
         return out if phase else sums.zero_()
     if x.numel() >= 2 ** 31 * n or n > 65535:
         raise ValueError("fusednorm kernel takes < 2^31 elements a sample "
@@ -431,7 +486,7 @@ def _launch_ext(x, residual, fine_channels, eps, act, slope, sums, count,
                        *(() if residual is None else (residual,)))
     device = x.get_device()
     plan = ext_plan_for(tuple(x.shape), x.dtype, vec, residual is not None,
-                        device)
+                        device, slots is not None)
     stream = _build.stream_of(x)
     cache = _build.workspaces(_workspaces)
     ws = cache.get((device, stream))
@@ -443,20 +498,27 @@ def _launch_ext(x, residual, fine_channels, eps, act, slope, sums, count,
         plan, x.data_ptr(), 0 if residual is None else residual.data_ptr(),
         0 if out is None else out.data_ptr(), ws.floats.data_ptr(),
         ws.counters.data_ptr(), ws.counters.numel() // 2, tuple(x.shape),
-        fine_channels, act, x.dtype, vec, 0)
+        fine_channels, act, x.dtype, vec,
+        0 if slots is None else slots.data_ptr())
     args.append(sums.data_ptr())
     _build.check(_build.lib().dctseg_fusednorm_ext(
         args.buffer_info()[0], eps, slope, count, phase, stream),
         "fusednorm external statistics")
-    (fused_norm_apply if phase else fused_norm_stats).launches += 1
+    ((fused_norm_stats, fused_norm_apply) if slots is None
+     else (fused_norm_stats_amax, fused_norm_apply_amax))[phase].launches += 1
     return out if phase else sums
 
 
-def _launch_stats(x, fine_channels):
+def _launch_stats(x, fine_channels, slots=None):
     sums = torch.empty((x.shape[0], 2, fine_channels), dtype=torch.float32,
                        device=x.device)
     return _launch_ext(x, None, fine_channels, 0.0, "none", 0.0, sums, 1.0,
-                       0)
+                       0, slots)
+
+
+def _launch_stats_amax(x, fine_channels):
+    slots = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    return _launch_stats(x, fine_channels, slots), slots
 
 
 def _launch_apply(x, residual, sums, count, fine_channels, eps, act, slope):
@@ -464,8 +526,27 @@ def _launch_apply(x, residual, sums, count, fine_channels, eps, act, slope):
                        count, 1)
 
 
+def _launch_apply_amax(x, residual, sums, slots, count, fine_channels, eps,
+                       act, slope):
+    return _launch_ext(x, residual, fine_channels, eps, act, slope, sums,
+                       count, 1, slots)
+
+
 def _cpu_stats(x, fine_channels):
     return fused_norm_stats_plain(x, fine_channels)
+
+
+def _cpu_stats_amax(x, fine_channels):
+    return (fused_norm_stats_plain(x, fine_channels),
+            x.new_zeros(x.shape[0], dtype=torch.float32))
+
+
+def _cpu_apply_amax(x, residual, sums, slots, count, fine_channels, eps, act,
+                    slope):
+    out, amax = fused_norm_apply_amax_plain(x, sums, count, fine_channels,
+                                            eps, act, slope, residual)
+    slots.copy_(amax)
+    return out.contiguous()
 
 
 def _cpu_apply(x, residual, sums, count, fine_channels, eps, act, slope):
@@ -478,6 +559,16 @@ def _fake_stats(x, fine_channels):
 
 
 def _fake_apply(x, residual, sums, count, fine_channels, eps, act, slope):
+    return x.new_empty(x.shape)
+
+
+def _fake_stats_amax(x, fine_channels):
+    return (_fake_stats(x, fine_channels),
+            x.new_empty((x.shape[0],), dtype=torch.float32))
+
+
+def _fake_apply_amax(x, residual, sums, slots, count, fine_channels, eps,
+                     act, slope):
     return x.new_empty(x.shape)
 
 
@@ -543,3 +634,14 @@ _APPLY_OP = library.define(
     "(Tensor x, Tensor? residual, Tensor sums, float count, "
     "int fine_channels, float eps, str act, float slope) -> Tensor",
     cuda=_launch_apply, cpu=_cpu_apply, fake=_fake_apply)
+_STATS_AMAX_OP = library.define(
+    "fused_norm_stats_amax",
+    "(Tensor x, int fine_channels) -> (Tensor, Tensor)",
+    cuda=_launch_stats_amax, cpu=_cpu_stats_amax, fake=_fake_stats_amax)
+# the slots are the statistics launch's, filled in place: a mutable input
+_APPLY_AMAX_OP = library.define(
+    "fused_norm_apply_amax",
+    "(Tensor x, Tensor? residual, Tensor sums, Tensor(a!) slots, "
+    "float count, int fine_channels, float eps, str act, float slope) "
+    "-> Tensor",
+    cuda=_launch_apply_amax, cpu=_cpu_apply_amax, fake=_fake_apply_amax)

@@ -14,7 +14,9 @@ Each kernel module defines its operator here when it is imported:
     without running anything, for ``torch.export`` and FakeTensors;
   * the backward, through ``torch.library.register_autograd``; an operator
     defined without one (the int8 pair, inference only) gets a backward
-    that raises.
+    that raises, and one that writes an input in place (a ``Tensor(a!)``
+    argument, which ``register_autograd`` refuses) an autograd kernel that
+    raises where a gradient is asked for and otherwise hands the call on.
 
 Each operator whose kernel does matrix work also has a flop formula for
 ``torch.utils.flop_counter.FlopCounterMode`` (``utils/profiling.py``
@@ -74,16 +76,30 @@ def define(name: str, schema: str, *, cuda: Callable, cpu: Callable,
     LIB.impl(name, cpu, "CPU")
     qualname = f"{NAMESPACE}::{name}"
     torch.library.register_fake(qualname, fake, lib=LIB)
-    if backward is None:
-        def backward(ctx, *grads):
-            raise RuntimeError(f"{qualname} is inference only: it has no "
-                               "gradient")
-    torch.library.register_autograd(qualname, backward,
-                                    setup_context=setup_context, lib=LIB)
+    if backward is None and "(a!)" in schema:
+        def refuse(*args):
+            if _asks_gradient(args):
+                raise RuntimeError(f"{qualname} is inference only: it has "
+                                   "no gradient")
+            with torch._C._AutoDispatchBelowAutograd():
+                return packet.default(*args)
+        LIB.impl(name, refuse, "Autograd")
+    else:
+        if backward is None:
+            def backward(ctx, *grads):
+                raise RuntimeError(f"{qualname} is inference only: it has "
+                                   "no gradient")
+        torch.library.register_autograd(qualname, backward,
+                                        setup_context=setup_context, lib=LIB)
     packet = getattr(getattr(torch.ops, NAMESPACE), name)
     if name in FLOP_FORMULAS:
         register_flop_formula(packet)(FLOP_FORMULAS[name])
     return packet.default
+
+
+def _asks_gradient(args) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in args)
 
 
 def call(op: torch._ops.OpOverload, *args):
@@ -91,8 +107,7 @@ def call(op: torch._ops.OpOverload, *args):
     is asked for: that kernel, a Python function, would only hand the call
     on, at ~10 us of host time (PERF.md).  Under ``torch.inference_mode()``
     the dispatcher skips it itself."""
-    if torch.is_inference_mode_enabled() or (torch.is_grad_enabled() and any(
-            isinstance(a, torch.Tensor) and a.requires_grad for a in args)):
+    if torch.is_inference_mode_enabled() or _asks_gradient(args):
         return op(*args)
     with torch._C._AutoDispatchBelowAutograd():
         return op(*args)

@@ -9,7 +9,11 @@
     the card at each call (K7, ``csrc/quantize.cu``): in one read of x
     where the fused norm that wrote x reported its absmax
     (``fusednorm.fused_instance_norm_act_amax``), else in one launch that
-    reads x twice;
+    reads x twice.  Over a mesh (``parallel.spatial.scaled``) the absmax
+    slots, the fused norm's or K7's ``amax`` route's, are MAX-reduced over
+    the ranks before the quantize, so the scale is the whole logical
+    tensor's, as under the JAX package's GSPMD; on a D slab the conv then
+    exchanges the int8 halo (:func:`conv3d_int8_prepared`);
   * the conv: s8 x s8 -> s32, exact, dequantized as ``acc * (sx * sw[c])``
     and cast to the activation's dtype, the bias added after the cast (K6,
     ``csrc/int8conv.cu``, an implicit GEMM on the tensor cores).
@@ -19,8 +23,9 @@ The arithmetic follows JAX's op order exactly, so on the CPU the port equals
 only: rounding has a zero gradient, the Trainer rejects quantized configs,
 and the two operators' backward raises.
 
-Each kernel is an operator, ``torch.ops.dctseg.quantize_absmax`` and
-``torch.ops.dctseg.quantize_from_amax`` (K7's two routes) and
+Each kernel is an operator, ``torch.ops.dctseg.quantize_absmax``,
+``torch.ops.dctseg.quantize_from_amax`` and ``torch.ops.dctseg.quantize_amax``
+(K7's three routes) and
 ``torch.ops.dctseg.int8_conv3d`` (``ops/library.py``): on a CUDA tensor it
 launches the kernel or raises, on a CPU tensor it runs the plain PyTorch
 version beside it.  K7 hands the scale back in a two-float ``stats``
@@ -40,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from dctseg_torch.ops import _build, library
+from dctseg_torch.parallel import spatial
 
 _QMAX = 127.0
 
@@ -169,6 +175,11 @@ def quantize_from_amax_plain(x: torch.Tensor, amax: torch.Tensor
     return _quantize_with(x.float(), amax.float().abs().amax())
 
 
+def quantize_amax_plain(x: torch.Tensor) -> torch.Tensor:
+    """max |x| as a one-element float32 tensor (a NaN propagates)."""
+    return x.float().abs().amax().reshape(1)
+
+
 def int8_conv3d_plain(xq: torch.Tensor, stats: torch.Tensor,
                       wq: torch.Tensor, sw: torch.Tensor, bias, stride,
                       padding, out_dtype: torch.dtype) -> torch.Tensor:
@@ -194,8 +205,10 @@ QUANT_BLOCKS_PER_SM = 8     # 2,048 resident threads per SM
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 # K7's routes (csrc/quantize.cu), one launch a call each: "from_amax", one
 # read of x whose absmax the fused norm that wrote it reported; "grid", one
-# cooperative launch that finds the absmax itself (x read twice)
-QUANT_ROUTES = ("from_amax", "grid")
+# cooperative launch that finds the absmax itself (x read twice); "amax",
+# the absmax alone, for a collective to reduce over a mesh before
+# from_amax (the grid route's launch cannot hold one)
+QUANT_ROUTES = ("from_amax", "grid", "amax")
 
 
 class QuantPlan(NamedTuple):
@@ -255,18 +268,21 @@ def quantize_args(plan: QuantPlan, x: int, xq: int, stats: int, numel: int,
                   dtype: torch.dtype, amax: int, slots: int,
                   workspace: int) -> array.array:
     """K7's int64 arguments (:data:`QUANT_ARGS`) for a call of ``plan``:
-    the addresses of x, xq and stats, x's size and dtype, the plan, the
-    absmax slots (route from_amax) and the workspace (route grid; 0
-    elsewhere).  Nothing in them changes between two calls on the same
-    tensors, so a CUDA graph may capture a call."""
+    the addresses of x, xq and stats (route amax: 0, and its one-slot
+    output), x's size and dtype, the plan, the absmax slots (route
+    from_amax) and the workspace (routes grid and amax; 0 elsewhere).
+    Nothing in them changes between two calls on the same tensors, so a
+    CUDA graph may capture a call."""
     return array.array("q", (
         x, xq, stats, numel, _build.dtype_code(dtype), plan.vec, plan.grid,
         QUANT_ROUTES.index(plan.route), amax, slots, workspace))
 
 
-def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None):
+def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None,
+                     route: str | None = None):
     """K7 on a CUDA tensor: the from_amax route where ``amax`` is given,
-    else the grid route."""
+    else the grid route, or the amax route where ``route`` says so (then
+    only x's absmax, a float32 (1,) tensor, is returned)."""
     if not x.is_contiguous() or x.numel() == 0:
         raise ValueError("the quantize kernel takes a non-empty contiguous "
                          "tensor")
@@ -277,14 +293,15 @@ def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None):
         raise ValueError("amax must be a non-empty contiguous float32 "
                          "vector on x's device")
     _build.dtype_code(x.dtype)   # refuses a dtype K7 does not take
-    route = "from_amax" if amax is not None else "grid"
+    route = route or ("from_amax" if amax is not None else "grid")
     aligned = _build.alignment(x.data_ptr())
     device, stream = x.get_device(), _build.stream_of(x)
     max_blocks = H100_SMS * QUANT_BLOCKS_PER_SM
     ws = 0
     if route != "from_amax":
-        max_blocks = quant_coresident(
-            device, x.dtype, quant_width(x.numel(), x.dtype, aligned))
+        if route == "grid":
+            max_blocks = quant_coresident(
+                device, x.dtype, quant_width(x.numel(), x.dtype, aligned))
         cache = _build.workspaces(_quant_workspaces)
         found = cache.get((device, stream))
         if found is None:
@@ -295,22 +312,33 @@ def _quantize_launch(x: torch.Tensor, amax: torch.Tensor | None = None):
                 3, dtype=torch.int32, device=x.device)
         ws = found.data_ptr()
     plan = plan_quantize(x.numel(), x.dtype, aligned, route, max_blocks)
-    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    stats = torch.empty(2, dtype=torch.float32, device=x.device)
-    args = quantize_args(plan, x.data_ptr(), xq.data_ptr(), stats.data_ptr(),
+    xq = (None if route == "amax"
+          else torch.empty(x.shape, dtype=torch.int8, device=x.device))
+    stats = torch.empty(1 if route == "amax" else 2, dtype=torch.float32,
+                        device=x.device)
+    args = quantize_args(plan, x.data_ptr(), 0 if xq is None
+                         else xq.data_ptr(), stats.data_ptr(),
                          x.numel(), x.dtype,
                          0 if amax is None else amax.data_ptr(),
                          0 if amax is None else amax.numel(), ws)
     _build.check(_build.lib().dctseg_quantize(args.buffer_info()[0], stream),
                  "quantize")
-    (quantize_from_amax if amax is not None
-     else quantize_absmax).launches += 1
-    return xq, stats
+    {"from_amax": quantize_from_amax, "grid": quantize_absmax,
+     "amax": quantize_amax}[route].launches += 1
+    return stats if xq is None else (xq, stats)
+
+
+def _amax_launch(x: torch.Tensor) -> torch.Tensor:
+    return _quantize_launch(x, route="amax")
 
 
 def _quantize_fake(x, amax=None):
     return (x.new_empty(x.shape, dtype=torch.int8),
             x.new_empty((2,), dtype=torch.float32))
+
+
+def _amax_fake(x):
+    return x.new_empty((1,), dtype=torch.float32)
 
 
 _QUANTIZE_OP = library.define(
@@ -320,6 +348,9 @@ _FROM_AMAX_OP = library.define(
     "quantize_from_amax", "(Tensor x, Tensor amax) -> (Tensor, Tensor)",
     cuda=_quantize_launch, cpu=quantize_from_amax_plain,
     fake=_quantize_fake)
+_AMAX_OP = library.define(
+    "quantize_amax", "(Tensor x) -> Tensor", cuda=_amax_launch,
+    cpu=quantize_amax_plain, fake=_amax_fake)
 
 
 def _check_device(x: torch.Tensor) -> None:
@@ -344,8 +375,18 @@ def quantize_from_amax(x: torch.Tensor, amax: torch.Tensor
     return library.call(_FROM_AMAX_OP, x, amax)
 
 
+def quantize_amax(x: torch.Tensor) -> torch.Tensor:
+    """max |x| as a float32 (1,) tensor on x's device, the slot a mesh
+    reduces before :func:`quantize_from_amax`: K7's amax route on a CUDA
+    tensor (one read of x, one launch), the plain version on a CPU
+    tensor."""
+    _check_device(x)
+    return library.call(_AMAX_OP, x)
+
+
 quantize_absmax.launches = 0    # grid-route launches on CUDA tensors
 quantize_from_amax.launches = 0   # from_amax-route launches
+quantize_amax.launches = 0      # amax-route launches
 
 
 # ---- K6: the int8 implicit-GEMM conv ----
@@ -581,10 +622,22 @@ def quantize_input(x: torch.Tensor, amax: torch.Tensor | None = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(xq, stats) of an int8 conv's float input: K7's from_amax route
     where ``amax`` (x's per-sample absmax, as the fused norm that wrote x
-    reports it) is given, else its grid route."""
+    reports it) is given, else its grid route.  Under a scale group
+    (``parallel.spatial.scaled``) x is this rank's part of the tensor:
+    its slots (``amax``, or K7's amax route) are MAX-reduced over the
+    group, then the from_amax route quantizes x with the whole tensor's
+    scale."""
     x = x.contiguous()
-    return (quantize_absmax(x) if amax is None
-            else quantize_from_amax(x, amax))
+    group = spatial.scale_group()
+    if group is None:
+        if spatial.active() is not None:
+            raise RuntimeError("an int8 conv on a D slab takes its scale "
+                               "over the mesh: run it under "
+                               "parallel.spatial.scaled(mesh.group)")
+        return (quantize_absmax(x) if amax is None
+                else quantize_from_amax(x, amax))
+    slots = quantize_amax(x) if amax is None else amax
+    return quantize_from_amax(x, spatial.reduce_amax(slots, group))
 
 
 def conv3d_int8_prepared(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
@@ -595,10 +648,18 @@ def conv3d_int8_prepared(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     already quantized by :func:`prepare_weight`: K7 (:func:`quantize_input`
     with ``amax``), then K6, the result in x's dtype, ``bias`` added after
     the cast.  ``quantized``: x's (xq, stats) where another conv on the same
-    x already computed them (no K7 then)."""
+    x already computed them (no K7 then).  On a D slab (under
+    ``parallel.spatial.sharded``) the int8 xq exchanges the halo the conv
+    needs, and K6 pads D by it alone."""
     xq, stats = (quantize_input(x, amax) if quantized is None
                  else quantized)
     b = None if bias is None else bias.to(x.dtype)
+    shard = spatial.active()
+    if shard is not None:
+        (dlo, _), hp, wp = _pairs(padding)
+        xq = spatial.conv_halo(xq, shard, wq.shape[1], _triple(stride)[0],
+                               dlo)
+        padding = ((0, 0), hp, wp)
     return int8_conv3d(xq, stats, wq, sw, b, stride, padding, x.dtype)
 
 

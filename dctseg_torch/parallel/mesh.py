@@ -7,8 +7,10 @@ GSPMD inserting the halo exchanges.  The port runs one process per GPU, so
 the mesh is a set of ``torch.distributed`` groups: rank r sits at
 (data index r // space, space index r % space); ``space`` consecutive ranks
 form one space group (the ones nearest each other), and the ranks with the
-same space index form one data group.  Groups of one rank are None: every
-collective of ``parallel/`` is then skipped.
+same space index form one data group; ``group`` holds every rank (the int8
+activation scale's MAX runs over it: one scale per conv call over the
+whole logical tensor).  Groups of one rank are None: every collective of
+``parallel/`` is then skipped.
 """
 
 from __future__ import annotations
@@ -26,12 +28,13 @@ SPACE_AXIS = "space"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place on a (data, space) mesh and its two groups."""
+    """This process's place on a (data, space) mesh and its groups."""
     data: int
     space: int
     rank: int
     data_group: Optional[object] = None    # same space index, all data
     space_group: Optional[object] = None   # same data index, all space
+    group: Optional[object] = None         # every rank of the mesh
 
     @property
     def size(self) -> int:
@@ -64,7 +67,7 @@ def make_mesh(num_devices: Optional[int] = None, spatial: int = 1) -> Mesh:
         raise ValueError(f"{world} processes not divisible by "
                          f"spatial={spatial}")
     data, rank = world // spatial, distributed.rank()
-    data_group = space_group = None
+    data_group = space_group = group = None
     if world > 1:
         # every rank constructs every group, in one order
         for s in range(spatial):
@@ -75,7 +78,8 @@ def make_mesh(num_devices: Optional[int] = None, spatial: int = 1) -> Mesh:
             g = dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
             if d == rank // spatial and spatial > 1:
                 space_group = g
-    return Mesh(data, spatial, rank, data_group, space_group)
+        group = dist.new_group(list(range(world)))
+    return Mesh(data, spatial, rank, data_group, space_group, group)
 
 
 def data_size(mesh: Mesh) -> int:

@@ -12,7 +12,20 @@ Under :func:`sharded` the model runs on this rank's slab of D (the
   * an InstanceNorm all-reduces its f32 sums of x and x^2 per (sample,
     channel) over the group before it applies them (:func:`reduce_stats`);
   * where the model needs the whole grid it gathers the slabs
-    (:func:`gather`), and splits the result again (:func:`split`).
+    (:func:`gather`), and splits the result again (:func:`split`);
+  * an int8 conv quantizes its slab with the tensor's scale and exchanges
+    the halo of the int8 tensor (``ops/quant.py`` ``conv3d_int8_prepared``):
+    the quantize is elementwise, so the halo planes hold the bits the
+    neighbour computed, at half of bf16's bytes.
+
+The int8 scale.  The JAX package takes one activation scale per conv
+call, over the whole logical tensor: every batch row on ``data`` and every
+D plane on ``space``.  Under :func:`scaled` the absmax slots of a conv's
+input are MAX-reduced over the given group (:func:`reduce_amax`), which
+the Predictor sets to every rank of its mesh.  The scale group is apart
+from the space context: the couplers run on the whole grid
+(``sharded(None)``) while their int8 convs still see only this rank's
+batch rows.
 
 Gradient scale.  Everything downstream of a gather runs replicated on
 every space rank, and the loss is the same number on each.  The gather's
@@ -28,8 +41,10 @@ this module uses, all-gather and all-reduce, as they are: NCCL, and gloo
 too (found on an H100 with PyTorch 2.11, where gloo also takes them for
 broadcast, reduce-scatter and barrier, while send and recv abort the
 process in gloo's TCP transport, which is why the halo exchange is an
-all-gather).  So no tensor is staged through host memory here;
-``chip_smoke.py`` checks both operations on CUDA tensors over gloo.
+all-gather; it takes the int8 halos' all-gather and the int32 MAX
+all-reduce of the int8 scale's slots too).  So no tensor is staged through
+host memory here; ``chip_smoke.py`` checks both operations on CUDA tensors
+over gloo, and runs the int8 forward over them.
 """
 
 from __future__ import annotations
@@ -76,6 +91,26 @@ def active() -> Optional[Shard]:
     return _ACTIVE.get()
 
 
+_SCALE: contextvars.ContextVar = contextvars.ContextVar("dctseg_scale",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def scaled(group):
+    """Take every int8 activation scale of the enclosed code over
+    ``group`` (a process group over which the logical tensor is spread;
+    None: this rank's tensor is the whole tensor)."""
+    token = _SCALE.set(group)
+    try:
+        yield
+    finally:
+        _SCALE.reset(token)
+
+
+def scale_group():
+    return _SCALE.get()
+
+
 # ---- collectives ----
 
 def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
@@ -98,6 +133,18 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
 def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The ranks' ``t`` concatenated along ``dim`` (no autograd)."""
     return torch.cat(all_gather(t, group), dim=dim)
+
+
+def reduce_amax(slots: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise MAX over ``group`` of every rank's float32 absmax
+    slots (as many on every rank), reduced on their int32 view: the slots
+    are non-negative, so the ints order like the floats, and a NaN's bits
+    sort above inf's, so a NaN on one rank reaches every rank (a float MAX
+    of the backends need not keep it)."""
+    if group is None:
+        return slots
+    return all_reduce(slots.view(torch.int32), group,
+                      dist.ReduceOp.MAX).view(torch.float32)
 
 
 # ---- autograd functions ----
@@ -221,6 +268,16 @@ def halo_of(kernel: int, stride: int, pad_lo: int) -> Tuple[int, int]:
     return pad_lo, hi
 
 
+def conv_halo(x: torch.Tensor, shard: Shard, kernel: int, stride: int,
+              pad_lo: int) -> torch.Tensor:
+    """x's slab with the halo that a conv of ``kernel`` and ``stride``
+    along D, padded by ``pad_lo`` below, needs (:func:`halo_of`)."""
+    if x.shape[1] % stride:
+        raise ValueError(f"a slab of {x.shape[1]} planes is not a "
+                         f"multiple of the conv's stride {stride}")
+    return halo_exchange(x, shard, *halo_of(kernel, stride, pad_lo))
+
+
 def conv3d(x: torch.Tensor, w: torch.Tensor, bias, stride: int,
            padding: Tuple[int, int]) -> torch.Tensor:
     """conv3d of an NDHWC tensor with per-axis padding (lo, hi) (the
@@ -229,10 +286,7 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, bias, stride: int,
     lo, hi = padding
     shard = active()
     if shard is not None:
-        if x.shape[1] % stride:
-            raise ValueError(f"a slab of {x.shape[1]} planes is not a "
-                             f"multiple of the conv's stride {stride}")
-        x = halo_exchange(x, shard, *halo_of(w.shape[2], stride, lo))
+        x = conv_halo(x, shard, w.shape[2], stride, lo)
         xc = x.permute(0, 4, 1, 2, 3)
         if lo == hi:
             y = F.conv3d(xc, w, bias, stride, (0, lo, lo))

@@ -4,7 +4,9 @@ a persistent grid) rehearsed on the CPU.
 The kernel runs only on the card; what surrounds it is Python that runs
 here.  The launch plan (``ops/quant.py`` ``plan_int8_conv``) at every conv
 signature of the full-width forwards and at ragged ones: its route, tile,
-ring and grid.  The persistent schedule: every tile exactly once, for
+ring and grid; and at the calls of one rank's D slab under a mesh, whose
+D is the slab's plus its int8 halo, padded by none.  The persistent
+schedule: every tile exactly once, for
 grids of 1 to 132 blocks.  The accumulator fragments of each wgmma width:
 every element of a tile exactly once.  And the whole walk in torch --
 the persistent schedule, the stages of (tap, chunk) units, each tap's A
@@ -25,6 +27,7 @@ import chip_smoke
 import dctseg_torch.models.clswiseformer as cwf
 from dctseg_torch.config import ModelConfig
 from dctseg_torch.ops import _build, quant
+from dctseg_torch.parallel import spatial
 from dctseg_torch.tools import k6_probe
 
 torch.set_num_threads(1)
@@ -143,6 +146,48 @@ def test_every_full_width_call_takes_the_tma_route(monkeypatch, path, spec):
     assert set(calls) <= set(FORWARD_CALLS)
     for call in set(calls):
         _check_tma_plan(_plan(*call), *call)
+
+
+@pytest.mark.parametrize("space", [2, 4])
+def test_every_slab_call_takes_the_tma_route(monkeypatch, space):
+    """The direct int8 forward at full width on one rank's D slab of a
+    (data=1, space) mesh, traced on fake tensors (the collectives stand in
+    with this rank's own tensor): as many K6 calls as unsharded; a 3^3
+    conv's input holds the slab's D planes plus its halo, (1, 1) at stride
+    1 and (1, 0) at stride 2, so D is no power of two, and K6 pads D by
+    none; every call plans onto the tma route."""
+    calls = []
+
+    def recording(xq, stats, wq, sw, bias, stride, padding, out_dtype):
+        calls.append((tuple(xq.shape), tuple(wq.shape),
+                      quant._triple(stride), quant._pairs(padding)))
+        return quant._conv_fake(xq, stats, wq, sw, bias,
+                                list(quant._triple(stride)),
+                                [p for pair in quant._pairs(padding)
+                                 for p in pair], out_dtype)
+    monkeypatch.setattr(quant, "int8_conv3d", recording)
+    monkeypatch.setattr(spatial, "all_gather",
+                        lambda t, group: [t.contiguous()] * space)
+    monkeypatch.setattr(spatial, "all_reduce",
+                        lambda t, group, op=None: t.clone())
+    model = cwf.ClsWiseFormer(ModelConfig(quantize="int8"))
+    with FakeTensorMode(allow_non_fake_inputs=True), \
+            torch.inference_mode(), \
+            spatial.sharded(spatial.Shard(None, space, 0)), \
+            spatial.scaled(object()):
+        model(torch.empty(8, 128, 128, 128, 4))
+    assert len(calls) == chip_smoke.INT8_CONVS["direct", "int8"]
+    halos = set()
+    for x_shape, w_shape, stride, pads in set(calls):
+        k, full_d = w_shape[1], x_shape[2]   # the grid is a cube
+        slab = full_d // space if x_shape[1] != full_d else full_d
+        assert pads[0] == (0, 0) or x_shape[1] == full_d
+        if pads[0] == (0, 0) and k == 3:
+            halos.add(x_shape[1] - slab)
+            assert x_shape[1] - slab == (2 if stride[0] == 1 else 1)
+        _check_tma_plan(_plan(x_shape, w_shape, stride, pads), x_shape,
+                        w_shape, stride, pads)
+    assert halos == {1, 2}
 
 
 # ---- the persistent schedule and the fragments ----
@@ -318,6 +363,10 @@ def _conv_f64(xq, wq, stride, padding):
     (3, (1, 1, 1), PAD1, 48, 300, (1, 3, 4, 5), None),     # 2 Co tiles
     (3, (1, 1, 1), PAD1, 32, 16, (2, 8, 9, 17), 3),        # schedule wraps
     (3, (1, 1, 1), PAD1, 128, 256, (1, 3, 8, 8), None),    # BN 256
+    # a D slab of 4 with its int8 halo: D padded by none
+    (3, (1, 1, 1), ((0, 0), (1, 1), (1, 1)), 64, 64, (2, 6, 8, 8), None),
+    (3, (2, 2, 2), ((0, 0), (1, 1), (1, 1)), 64, 32, (1, 5, 8, 8), None),
+    (2, (1, 1, 1), ((0, 0), (1, 0), (1, 0)), 32, 40, (1, 5, 6, 6), None),
 ])
 def test_tma_walk_rehearsal_equals_conv(k, stride, padding, ci, co, shape,
                                         grid):

@@ -120,6 +120,28 @@ def test_amax_variant_fake_and_no_gradient():
         out.sum().backward()
 
 
+@pytest.mark.parametrize("grad_mode", [False, True], ids=["no_grad", "grad"])
+def test_apply_amax_operator_called_directly(grad_mode):
+    """The external-statistics apply with slots, a ``Tensor(a!)`` operator,
+    called directly where no gradient is asked for (under no_grad, or in
+    grad mode with no input asking for one) runs like every dctseg
+    operator: the plain variant's output and slots.  An input that asks
+    for a gradient raises."""
+    x = _t(_normal(3, 4, 4, 4, 8, seed=2), torch.float32)
+    want, want_amax = fusednorm.fused_instance_norm_act_amax_plain(
+        x, 8, act="relu")
+    count = fusednorm.norm_count(x, 8)
+    sums, slots = torch.ops.dctseg.fused_norm_stats_amax(x, 8)
+    with torch.set_grad_enabled(grad_mode):
+        out = torch.ops.dctseg.fused_norm_apply_amax(
+            x, None, sums, slots, count, 8, 1e-5, "relu", 0.01)
+    assert torch.equal(out, want) and torch.equal(slots, want_amax)
+    with pytest.raises(RuntimeError, match="inference only"):
+        torch.ops.dctseg.fused_norm_apply_amax(
+            x.clone().requires_grad_(), None, sums, slots, count, 8, 1e-5,
+            "relu", 0.01)
+
+
 # ---- K7's one-pass route ----
 
 def _tie_input(shape, seed):
@@ -191,6 +213,72 @@ def test_quantize_from_amax_operator_fake_and_no_gradient():
     with pytest.raises(RuntimeError, match="inference only"):
         quant.quantize_from_amax(x.float().requires_grad_(),
                                  amax)[1].sum().backward()
+
+
+# ---- K7's amax route (the absmax alone, for a mesh's reduction) ----
+
+@pytest.mark.parametrize("plant", PLANTS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quantize_amax_is_the_two_pass_absmax(dtype, plant):
+    """quantize_amax (its plain version, through the operator) gives the
+    amax of quantize_absmax_plain's stats bit for bit as a float32 (1,)
+    tensor, NaN, inf and zeros included; from_amax on it gives that
+    quantizer's xq and stats."""
+    x = _normal(3, 4, 5, 6, 16, seed=9) * 3
+    if plant == "zeros":
+        x[...] = 0.0
+    elif plant != "randn":
+        x[1, 2, 0, 3, 4] = np.nan if plant == "nan" else -np.inf
+    x = _t(x, DTYPES[dtype])
+    quant.quantize_amax.launches = 0
+    slot = quant.quantize_amax(x)
+    pq, pstats = quant.quantize_absmax_plain(x)
+    assert slot.shape == (1,) and slot.dtype == torch.float32
+    assert _same_bits(slot[0], pstats[0])
+    xq, stats = quant.quantize_from_amax(x, slot)
+    assert torch.equal(xq, pq) and _same_bits(stats, pstats)
+    assert quant.quantize_amax.launches == 0   # the CPU
+
+
+def test_quantize_amax_operator_fake_and_no_gradient():
+    x = _t(_normal(2, 3, 3, 3, 8, seed=10), torch.bfloat16)
+    with FakeTensorMode() as mode:
+        slot = torch.ops.dctseg.quantize_amax(mode.from_tensor(x))
+    assert slot.shape == (1,) and slot.dtype == torch.float32
+    torch.library.opcheck(torch.ops.dctseg.quantize_amax.default, (x,))
+    with pytest.raises(RuntimeError, match="inference only"):
+        quant.quantize_amax(x.float().requires_grad_()).sum().backward()
+
+
+def test_quantize_input_reduces_the_slots_under_a_scale_group(monkeypatch):
+    """Under ``spatial.scaled`` quantize_input takes its slots (K7's amax
+    route, or the fused norm's) through the group's MAX reduction, then the
+    from_amax route; outside it, the one-GPU routes as before.  On a D slab
+    without a scale group it refuses."""
+    from dctseg_torch.parallel import spatial
+    seen = []
+
+    def reduce(slots, group):
+        seen.append((slots.clone(), group))
+        return slots * 2
+    monkeypatch.setattr(spatial, "reduce_amax", reduce)
+    routes = _count_routes(monkeypatch)
+    x = _t(_normal(2, 3, 3, 3, 8, seed=11))
+    amax = x.reshape(2, -1).abs().amax(dim=1)
+    group = object()
+    with spatial.scaled(group):
+        _, by_route = quant.quantize_input(x)
+        _, by_slots = quant.quantize_input(x, amax)
+    assert [g is group for _, g in seen] == [True, True]
+    assert torch.equal(seen[0][0], x.abs().amax().reshape(1))
+    assert torch.equal(seen[1][0], amax)
+    assert by_route[0] == by_slots[0] == 2 * x.abs().amax()
+    assert dict(routes) == {"from_amax": 2}
+    quant.quantize_input(x)
+    assert dict(routes) == {"from_amax": 2, "grid": 1}
+    with spatial.sharded(spatial.Shard(None, 2, 0)), \
+            pytest.raises(RuntimeError, match="scaled"):
+        quant.quantize_input(x)
 
 
 # csrc/quantize.cu quantize_one's constants
@@ -425,6 +513,65 @@ def test_k7_launch_arguments(recorder, monkeypatch):
     assert xq.dtype == torch.int8 and stats.shape == (2,)
     with pytest.raises(ValueError, match="amax"):
         quant._quantize_launch(x, amax.double())
+
+
+def test_k7_amax_route_arguments(recorder, monkeypatch):
+    """Route amax: x, no xq (0), its (1,) float32 slot in the stats'
+    place, route 2, a grid of at most one wave's blocks, and the grid
+    route's workspace, which both routes share; counted on
+    quantize_amax."""
+    for counter in (quant.quantize_absmax, quant.quantize_amax):
+        monkeypatch.setattr(counter, "launches", 0)
+    x = torch.zeros(2, 8, 8, 8, 16, dtype=torch.bfloat16)
+    slot = quant._amax_launch(x)
+    quant._quantize_launch(x)
+    (_, a), (_, g) = recorder.calls
+    ws = quant._quant_workspaces[-1, 0]
+    assert slot.shape == (1,) and slot.dtype == torch.float32
+    grid = -(-x.numel() // 8 // quant.THREADS)
+    assert a == [x.data_ptr(), 0, slot.data_ptr(), x.numel(), 1, 8, grid, 2,
+                 0, 0, ws.data_ptr()]
+    assert g[10] == ws.data_ptr() and g[7] == 1
+    assert quant.quantize_amax.launches == quant.quantize_absmax.launches == 1
+
+
+@pytest.mark.parametrize("amax", [False, True], ids=["plain", "amax"])
+def test_fusednorm_ext_launch_arguments(recorder, monkeypatch, amax):
+    """The external-statistics pair hands both launches the same plan (its
+    variant's split plan) and, with absmax slots, their address as the
+    19th argument in both phases (0 without); the sums' address last.
+    Each launch counts on its own wrapper: fused_norm_stats and
+    fused_norm_apply, or with slots fused_norm_stats_amax and
+    fused_norm_apply_amax."""
+    for fn in (fusednorm.fused_norm_stats, fusednorm.fused_norm_apply,
+               fusednorm.fused_norm_stats_amax,
+               fusednorm.fused_norm_apply_amax):
+        monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(recorder, "sizes", {
+        "dctseg_fusednorm_ext": len(fusednorm.LAUNCH_ARGS) + 1})
+    x = torch.zeros(2, 8, 8, 8, 16, dtype=torch.bfloat16)
+    if amax:
+        sums, slots = fusednorm._launch_stats_amax(x, 16)
+        out = fusednorm._launch_apply_amax(x, None, sums, slots, 1024.0, 16,
+                                           1e-5, "relu", 0.01)
+    else:
+        sums, slots = fusednorm._launch_stats(x, 16), None
+        out = fusednorm._launch_apply(x, None, sums, 1024.0, 16, 1e-5,
+                                      "relu", 0.01)
+    (_, st), (_, ap) = recorder.calls
+    plan = fusednorm.ext_plan_for(tuple(x.shape), x.dtype, 8, False, -1,
+                                  amax)
+    assert {key[-1] for key in fusednorm._coresident} == {amax}
+    for args in (st, ap):
+        assert args[11:13] == [plan.blocks, plan.rows_per_block]
+        assert args[18] == (slots.data_ptr() if amax else 0)
+        assert args[19] == sums.data_ptr()
+    assert st[2] == 0 and ap[2] == out.data_ptr()
+    assert (fusednorm.fused_norm_stats_amax.launches,
+            fusednorm.fused_norm_apply_amax.launches,
+            fusednorm.fused_norm_stats.launches,
+            fusednorm.fused_norm_apply.launches) == ((1, 1, 0, 0) if amax
+                                                     else (0, 0, 1, 1))
 
 
 @pytest.mark.parametrize("amax", [False, True], ids=["plain", "amax"])

@@ -75,12 +75,13 @@ def results(inputs, tmp_path_factory):
 
 def test_data_mesh_shape_and_groups(results):
     """Two processes, no space axis: a data group of both, no space
-    group."""
+    group, the mesh's group of both."""
     assert CASES["train_data2"][:2] == (2, 1)
     for r, res in enumerate(results["train_data2"]):
         assert res["mesh"] == {"shape": {"data": 2, "space": 1},
                                "data_index": r, "space_index": 0,
-                               "data_group": [0, 1], "space_group": None}
+                               "data_group": [0, 1], "space_group": None,
+                               "group": [0, 1]}
 
 
 # ---- training ----

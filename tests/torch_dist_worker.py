@@ -25,6 +25,7 @@ from dctseg_torch.config import (Config, DataConfig,  # noqa: E402
                                  TrainConfig, tiny_model_config)
 from dctseg_torch.infer.engine import Predictor  # noqa: E402
 from dctseg_torch.models.clswiseformer import build_model  # noqa: E402
+from dctseg_torch.ops import quant  # noqa: E402
 from dctseg_torch.parallel import distributed, mesh, spatial  # noqa: E402
 from dctseg_torch.train import optim  # noqa: E402
 from dctseg_torch.train.trainer import Trainer, train_step  # noqa: E402
@@ -55,7 +56,7 @@ def job_mesh(m, inp):
         return None if g is None else dist.get_process_group_ranks(g)
     return {"shape": m.shape, "data_index": m.data_index,
             "space_index": m.space_index, "data_group": members(m.data_group),
-            "space_group": members(m.space_group)}
+            "space_group": members(m.space_group), "group": members(m.group)}
 
 
 def job_halo(m, inp):
@@ -78,17 +79,113 @@ def job_halo(m, inp):
     return out
 
 
-def job_forward(m, inp):
-    """Predictor(mesh) seg_probs on a B=8 batch and tta_probs on one
-    volume, the tiny model (fused norms and the attention kernel's plain
-    versions)."""
+def part_of(m, rank: int, shape) -> tuple:
+    """The (rows, planes) of a (B, D, ...) tensor that ``rank`` of ``m``'s
+    shape holds."""
+    r = mesh.Mesh(m.data, m.space, rank)
+    d = shape[1] // m.space
+    return (mesh.batch_rows(r, shape[0]),
+            slice(r.space_index * d, (r.space_index + 1) * d))
+
+
+def job_scale(m, inp):
+    """Each rank quantizes its rows and slab of one seeded tensor with the
+    mesh's scale: by K7's amax route, and by per-sample slots as a fused
+    norm reports them, each MAX-reduced over every rank, then from_amax
+    (the plain versions here); f32 and bf16, and with a NaN planted in
+    rank 1's part."""
+    x = inp["scale_x"]
+    rows, planes = part_of(m, m.rank, x.shape)
+    nan_rows, nan_planes = part_of(m, 1, x.shape)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for plant in ("randn", "nan"):
+            whole = x.to(dt, copy=True)
+            if plant == "nan":
+                whole[nan_rows.start, nan_planes.start, 1, 2, 3] = float("nan")
+            part = whole[rows, planes].contiguous()
+            slots = part.reshape(part.shape[0], -1).float().abs().amax(dim=1)
+            with spatial.sharded(spatial.space_shard(m)), \
+                    spatial.scaled(m.group):
+                out[str(dt), plant] = {
+                    "amax_route": quant.quantize_input(part),
+                    "slots": quant.quantize_input(part, slots)}
+    return out
+
+
+# the int8 convs of a D slab: (kernel, stride, padding), as the model
+# runs them (the s2d down route: a 2^3 kernel, padding (1, 0))
+INT8_CONVS = {"conv3_s1": (3, 1, 1), "conv3_s2": (3, 2, 1), "pw": (1, 1, 0),
+              "s2d_down": (2, 1, (1, 0))}
+
+
+def job_int8_conv(m, inp):
+    """The int8 convs of INT8_CONVS on this rank's D slab of one tensor,
+    quantized with the whole tensor's scale: the int8 halo exchanged, then
+    K6's plain version; the slabs' outputs gathered."""
+    shard = spatial.space_shard(m)
+    x = inp["conv_x"]
+    xq, stats = quant.quantize_absmax_plain(x)
+    _, planes = part_of(m, m.rank, x.shape)
+    out = {}
+    for name, (k, stride, padding) in INT8_CONVS.items():
+        wq, sw = quant.prepare_weight(inp[f"conv_w{k}"])
+        with spatial.sharded(shard), spatial.scaled(m.group):
+            y = quant.conv3d_int8_prepared(
+                x[:, planes].contiguous(), wq, sw, stride, padding,
+                inp["conv_b"], quantized=(xq[:, planes].contiguous(), stats))
+            out[name] = spatial.gather(y, shard)
+    return out
+
+
+def _forward(m, inp, x_key, engines, **cfg):
+    """The tiny model (fused norms, the attention kernel's plain version)
+    under ``cfg`` through Predictor(mesh): each of ``engines`` on
+    ``inp[x_key]``; and under int8 the K6 calls and every K7 call's stats
+    of the first engine."""
     model = build_model(tiny_model_config(fused_norms=True,
-                                          use_pallas_attention=True),
+                                          use_pallas_attention=True, **cfg),
                         device="cpu")
     model.load_state_dict(inp["fwd_weights"], strict=True)
     p = Predictor(model, device="cpu", mesh=m)
-    return {"seg": p.seg_probs(inp["fwd_x8"]),
-            "tta": p.tta_probs(inp["fwd_x1"])}
+    stats, convs = [], []
+    conv_orig, input_orig = quant.int8_conv3d, quant.quantize_input
+
+    def conv(*a, **kw):
+        convs.append(1)
+        return conv_orig(*a, **kw)
+
+    def quantize(*a, **kw):
+        xq, s = input_orig(*a, **kw)
+        stats.append(s)
+        return xq, s
+    quant.int8_conv3d, quant.quantize_input = conv, quantize
+    try:
+        res = {engines[0]: getattr(p, engines[0])(inp[x_key])}
+    finally:
+        quant.int8_conv3d, quant.quantize_input = conv_orig, input_orig
+    for e in engines[1:]:
+        res[e] = getattr(p, e)(inp["fwd_x1"])
+    if convs:
+        res.update(convs=len(convs), stats=torch.stack(stats))
+    return res
+
+
+def job_forward(m, inp):
+    """Predictor(mesh) seg_probs on a B=8 batch and tta_probs on one
+    volume, the tiny direct model, float and under the int8 and int8_all
+    specs (the int8 K6 calls and every K7 call's stats recorded)."""
+    engines = ("seg_probs", "tta_probs")
+    res = {"float": _forward(m, inp, "fwd_x8", engines)}
+    for spec in ("int8", "int8_all"):
+        res[spec] = _forward(m, inp, "fwd_x8", engines, quantize=spec)
+    return res
+
+
+def job_forward_s2d(m, inp):
+    """Predictor(mesh) seg_probs of the tiny s2d model under int8."""
+    return _forward(m, inp, "s2d_x", ("seg_probs",), quantize="int8",
+                    s2d_fullres=True, s2d_halfres=True)
 
 
 def job_grads(m, inp):
@@ -148,10 +245,14 @@ def job_stop(m, inp):
 
 
 JOBS = {"mesh": job_mesh, "halo": job_halo, "forward": job_forward,
-        "grads": job_grads, "epoch": job_epoch, "stop": job_stop}
+        "scale": job_scale, "int8_conv": job_int8_conv,
+        "forward_s2d": job_forward_s2d, "grads": job_grads,
+        "epoch": job_epoch, "stop": job_stop}
 # case: (world, spatial, jobs)
-CASES = {"fwd_data2_space2": (4, 2, ("mesh", "halo", "forward")),
-         "fwd_space4": (4, 4, ("mesh", "halo", "forward")),
+CASES = {"fwd_data2_space2": (4, 2, ("mesh", "halo", "scale", "int8_conv",
+                                     "forward", "forward_s2d")),
+         "fwd_space4": (4, 4, ("mesh", "halo", "scale", "int8_conv",
+                               "forward")),
          "train_data2_space2": (4, 2, ("grads", "epoch")),
          "train_data2": (2, 1, ("mesh", "grads", "stop"))}
 
