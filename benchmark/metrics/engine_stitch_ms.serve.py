@@ -1,0 +1,10 @@
+"""engine_stitch_ms.serve: host time of the engine's stitch of the crops'
+outputs (``stitch_volume``), mean a volume of the profiled stretch: the
+summed inclusive duration of the program's span ``dctseg.engine.stitch``
+over the stretch's volumes.  Read only where the stretch holds one root span
+``dctseg.engine.tiled_probs`` a volume."""
+
+from benchmark.metrics._spans import SERVE_ROOT, span_reader
+
+read = span_reader("engine_stitch_ms.serve", SERVE_ROOT,
+                   "dctseg.engine.stitch")

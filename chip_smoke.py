@@ -898,27 +898,14 @@ def check_device_metrics(dev, pairs):
                 raise AssertionError("DeviceMetrics disagrees with the host")
 
 
-KERNEL_COUNTERS = {"fusednorm": fusednorm.fused_instance_norm_act,
-                   "fusednorm_amax": fusednorm.fused_instance_norm_act_amax,
-                   "attention": attn.fused_attention,
-                   "relayout": relayout.space_to_depth,
-                   "minplus": minplus.minplus_pass,
-                   "orderstats": orderstats.masked_order_stats,
-                   "orderstats_count": orderstats.count_leq,
-                   "int8_conv3d": quant.int8_conv3d,
-                   "quantize_absmax": quant.quantize_absmax,
-                   "quantize_from_amax": quant.quantize_from_amax,
-                   "fusednorm_stats": fusednorm.fused_norm_stats,
-                   "fusednorm_apply": fusednorm.fused_norm_apply,
-                   "fusednorm_stats_amax": fusednorm.fused_norm_stats_amax,
-                   "fusednorm_apply_amax": fusednorm.fused_norm_apply_amax,
-                   "quantize_amax": quant.quantize_amax}
+# every launch counter (ops/_build.py COUNTED), by its function's name
+KERNEL_COUNTERS = {fn.__name__: fn for fn in _build.counted_ops()}
 # K1's external-statistics variant (with absmax slots under int8): it runs
 # only on a space axis
-EXT_COUNTERS = ("fusednorm_stats", "fusednorm_apply", "fusednorm_stats_amax",
-                "fusednorm_apply_amax")
-INT8_COUNTERS = ("fusednorm_amax", "int8_conv3d", "quantize_absmax",
-                 "quantize_from_amax", "quantize_amax")
+EXT_COUNTERS = ("fused_norm_stats", "fused_norm_apply",
+                "fused_norm_stats_amax", "fused_norm_apply_amax")
+INT8_COUNTERS = ("fused_instance_norm_act_amax", "int8_conv3d",
+                 "quantize_absmax", "quantize_from_amax", "quantize_amax")
 # K7's counter of each route: one operator a route (amax runs only over a
 # mesh, its slots MAX-reduced over the ranks before from_amax)
 K7_COUNTERS = {"grid": "quantize_absmax", "from_amax": "quantize_from_amax",
@@ -926,10 +913,8 @@ K7_COUNTERS = {"grid": "quantize_absmax", "from_amax": "quantize_from_amax",
 
 
 def reset_launches():
-    for fn in KERNEL_COUNTERS.values():
-        fn.launches = 0
-    for name in attn.fused_attention.kernel_launches:
-        attn.fused_attention.kernel_launches[name] = 0
+    """Every launch counter, and its counts by kernel or route, to 0."""
+    _build.add_launches(_build.launch_counts(), -1)
 
 
 def read_launches():
@@ -956,17 +941,18 @@ def run_eval_path(quantize="none", calls=None):
     launches = read_launches()
     # the search runs in the orderstats kernel's search mode, one launch a
     # pass; its count mode (count_leq) not at all
-    expected = {"fusednorm": norm_launches(torch.bfloat16) * EVAL_VOLUMES,
-                "attention": 13 * EVAL_VOLUMES,
+    expected = {"fused_instance_norm_act": (norm_launches(torch.bfloat16)
+                                            * EVAL_VOLUMES),
+                "fused_attention": 13 * EVAL_VOLUMES,
                 "attention_mma": 13 * EVAL_VOLUMES,
-                "relayout": 0,
-                "minplus": EDT_LAUNCHES * EVAL_VOLUMES,
-                "orderstats": SEARCH_LAUNCHES * EVAL_VOLUMES,
-                "orderstats_count": 0,
+                "space_to_depth": 0,
+                "minplus_pass": EDT_LAUNCHES * EVAL_VOLUMES,
+                "masked_order_stats": SEARCH_LAUNCHES * EVAL_VOLUMES,
+                "count_leq": 0,
                 **dict.fromkeys(INT8_COUNTERS + EXT_COUNTERS, 0)}
     if quantize != "none":
         forward = int8_expected(calls, "direct", quantize)
-        for k in ("fusednorm",) + INT8_COUNTERS:
+        for k in ("fused_instance_norm_act",) + INT8_COUNTERS:
             expected[k] = forward[k] * EVAL_VOLUMES
     finite = all(math.isfinite(v) for v in res.values())
     in_unit = all(0.0 <= res[k] <= 1.0 for k in
@@ -1077,7 +1063,7 @@ def run_train_path(dev, extra, check, profile=False):
                 reloaded = all(torch.equal(v.cpu(), trained[k]) for k, v in
                                fresh.state_dict().items())
                 expected = {k: 0 for k in launches}
-                expected["relayout"] = RELAYOUT_PER_FORWARD * steps
+                expected["space_to_depth"] = RELAYOUT_PER_FORWARD * steps
                 finite = all(bool(torch.isfinite(v).all())
                              for v in trained.values())
                 ok = (ok and moved > 0 and finite and reloaded
@@ -1163,9 +1149,9 @@ def run_serving_bundles(dev, cfg_kw, weights):
     model = cwf.build_model(ModelConfig(**cfg_kw), device=dev)
     model.load_state_dict(weights, strict=True)
     predictor = Predictor(model, device=dev)
-    forward = {"fusednorm": norm_launches(torch.bfloat16),
-               "attention": ATTN_CALLS, "attention_mma": ATTN_CALLS,
-               "relayout": 0}
+    forward = {"fused_instance_norm_act": norm_launches(torch.bfloat16),
+               "fused_attention": ATTN_CALLS, "attention_mma": ATTN_CALLS,
+               "space_to_depth": 0}
     row = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1271,9 +1257,10 @@ def run_serving_bundles(dev, cfg_kw, weights):
         torch.cuda.synchronize()
         row["s2d_launches"] = expect_launches(
             "s2d single bundle", read_launches(),
-            {"fusednorm": norm_launches(torch.bfloat16, True, batch=1),
+            {"fused_instance_norm_act": norm_launches(torch.bfloat16, True,
+                                                      batch=1),
              "attention_mma": ATTN_CALLS,
-             "relayout": RELAYOUT_PER_FORWARD})
+             "space_to_depth": RELAYOUT_PER_FORWARD})
         s2d_model = cwf.build_model(s2d_cfg, device=dev)
         s2d_model.load_state_dict(weights, strict=True)
         live = Predictor(s2d_model, device=dev).seg_probs(x)
@@ -1315,9 +1302,9 @@ def run_serving_bundles(dev, cfg_kw, weights):
         batch = predictor.tiled_probs_batch(both)
         batch_labels = batch.argmax(-1).to(torch.uint8).cpu().numpy()
         single = [predictor.tiled_probs(both[i:i + 1]) for i in range(2)]
-        paired_forward = {"fusednorm": norm_launches(torch.bfloat16,
-                                                     batch=16),
-                          "attention": ATTN_CALLS,
+        paired_forward = {"fused_instance_norm_act": norm_launches(
+                              torch.bfloat16, batch=16),
+                          "fused_attention": ATTN_CALLS,
                           "attention_mma": ATTN_CALLS}
         row["paired"] = dict(
             last_group_size=group,
@@ -1373,10 +1360,11 @@ def int8_expected(calls, path, spec):
     routes."""
     s2d = path == "s2d"
     amax = amax_norm_launches(calls, path, spec)
-    return {"fusednorm": norm_launches(torch.bfloat16, s2d) - amax,
-            "fusednorm_amax": amax,
-            "attention": ATTN_CALLS, "attention_mma": ATTN_CALLS,
-            "relayout": RELAYOUT_PER_FORWARD if s2d else 0,
+    return {"fused_instance_norm_act": (norm_launches(torch.bfloat16, s2d)
+                                        - amax),
+            "fused_instance_norm_act_amax": amax,
+            "fused_attention": ATTN_CALLS, "attention_mma": ATTN_CALLS,
+            "space_to_depth": RELAYOUT_PER_FORWARD if s2d else 0,
             "int8_conv3d": INT8_CONVS[path, spec],
             "quantize_absmax": K7_CALLS[path, spec]["grid"],
             "quantize_from_amax": K7_CALLS[path, spec]["from_amax"],
@@ -2584,10 +2572,10 @@ _PORT_KERNEL = re.compile(r"(?:^|[\s:])(" + "|".join(PORT_KERNELS)
 NORM_MODES = {"0": "stats", "1": "apply", "2": "fused"}
 # each launch counter and the kernels its launches run
 COUNTER_KERNELS = {
-    "fusednorm+fusednorm_amax": ("norm_kernel/stats", "norm_kernel/apply",
-                                 "norm_kernel/fused"),
-    "attention": ("attention_mma_kernel", "attention_simt_kernel"),
-    "relayout": ("s2d_kernel",),
+    "fused_instance_norm_act+fused_instance_norm_act_amax": (
+        "norm_kernel/stats", "norm_kernel/apply", "norm_kernel/fused"),
+    "fused_attention": ("attention_mma_kernel", "attention_simt_kernel"),
+    "space_to_depth": ("s2d_kernel",),
     "int8_conv3d": ("tma_conv_kernel", "mma_sync_conv_kernel"),
     "quantize_absmax": ("grid_kernel",),
     "quantize_from_amax": ("from_amax_kernel",)}
@@ -2637,14 +2625,16 @@ def event_ms(fn) -> float:
 
 
 def check_replays(name, staged, fused, volumes):
-    """The fused engine's first call captures; then every volume is
-    replayed (the first again at the end) and held torch.equal to the
-    staged engine's eager tiled_probs, the replays launching nothing from
-    Python; one replay and one eager call under torch.profiler launch the
-    same port kernels, the eager call as many as its launch counters say,
-    K1's fused route among them (and K7's grid route under int8); the pair
-    is profiled again, up to PROFILE_ATTEMPTS times, while the counts
-    disagree, and every attempt's counts are logged."""
+    """The fused engine's first call warms up, captures and replays (its
+    launch counters twice an eager call's: the capture's count is taken
+    back); then every volume is replayed (the first again at the end) and
+    held torch.equal to the staged engine's eager tiled_probs, each replay
+    counting an eager call's launches; one replay and one eager call
+    under torch.profiler launch the same port kernels, the eager call as
+    many as its launch counters say, K1's fused route among them (and K7's
+    grid route under int8); the pair is profiled again, up to
+    PROFILE_ATTEMPTS times, while the counts disagree, and every attempt's
+    counts are logged."""
     reset_launches()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
@@ -2689,7 +2679,8 @@ def check_replays(name, staged, fused, volumes):
                fused_busy_ms=device_busy_ms(prof_f),
                staged_busy_ms=device_busy_ms(prof_s))
     ok = (all(equal) and replayed == eager and by_counter == counted
-          and not any(replay_launches.values())
+          and all(replay_launches[k] == len(volumes) * eager_launches[k]
+                  for k in replay_launches)
           and all(capture_launches[k] == 2 * eager_launches[k]
                   for k in capture_launches)
           and replayed["norm_kernel/fused"] > 0
@@ -3438,8 +3429,8 @@ def _space_forward(rank, m, dev):
     torch.cuda.synchronize()
     launches = read_launches()
     row["launches"] = {k: launches[k] for k in (
-        "fusednorm", "fusednorm_stats", "fusednorm_apply", "attention",
-        "attention_mma")}
+        "fused_instance_norm_act", "fused_norm_stats", "fused_norm_apply",
+        "fused_attention", "attention_mma")}
     times = []
     for _ in range(3):
         distributed.barrier("chip_smoke:timed")
@@ -3935,9 +3926,9 @@ def run_spatial_forward():
           and sh["argmax_agreement"] >= (un["argmax_agreement"]
                                          - SPACE_AGREE_LOSS)
           and row["fp32_seg_probs_max_abs_dprob"] <= 1e-3
-          and l["fusednorm"] == 0
-          and l["fusednorm_stats"] == l["fusednorm_apply"] == expected_ext
-          and l["attention"] == l["attention_mma"] == ATTN_CALLS)
+          and l["fused_instance_norm_act"] == 0
+          and l["fused_norm_stats"] == l["fused_norm_apply"] == expected_ext
+          and l["fused_attention"] == l["attention_mma"] == ATTN_CALLS)
     log(phase="spatial_forward", engine="tiled_probs", dtype="bfloat16",
         ranks_on_one_card=SPACE_RANKS,
         drift_bound=dict(mean_times=SPACE_DRIFT,
@@ -3960,21 +3951,23 @@ def int8_mesh_expected(calls, data, space):
     k7 = K7_CALLS["direct", "int8"]
     want = dict(base, quantize_absmax=0, quantize_amax=k7["grid"],
                 quantize_from_amax=k7["grid"] + k7["from_amax"],
-                **dict.fromkeys(EXT_COUNTERS, 0), minplus=0, orderstats=0,
-                orderstats_count=0)
+                **dict.fromkeys(EXT_COUNTERS, 0), minplus_pass=0,
+                masked_order_stats=0, count_leq=0)
     batch = 8 // data
     if space > 1:
         n = sum(NORM_CALLS.values()) * len(NORM_WIDTHS)
         amax = len(calls.norms["direct", "int8"])
-        want.update(fusednorm=0, fusednorm_amax=0, fusednorm_stats=n - amax,
-                    fusednorm_apply=n - amax, fusednorm_stats_amax=amax,
-                    fusednorm_apply_amax=amax)
+        want.update(fused_instance_norm_act=0,
+                    fused_instance_norm_act_amax=0, fused_norm_stats=n - amax,
+                    fused_norm_apply=n - amax, fused_norm_stats_amax=amax,
+                    fused_norm_apply_amax=amax)
     else:
         amax = sum(fusednorm.plan_for((batch,) + shape[1:], torch.bfloat16,
                                       8, res, 0, True).launches
                    for shape, _, res in calls.norms["direct", "int8"])
-        want.update(fusednorm=norm_launches(torch.bfloat16, False, batch)
-                    - amax, fusednorm_amax=amax)
+        want.update(fused_instance_norm_act=norm_launches(
+                        torch.bfloat16, False, batch) - amax,
+                    fused_instance_norm_act_amax=amax)
     return want
 
 
@@ -4038,9 +4031,10 @@ def k1_case(dev, g, kind, shape, dt, fine, eps, act, res):
     x = (torch.randn(shape, device=dev, generator=g) * 3 + 1).to(dt)
     r = torch.randn(shape, device=dev, generator=g).to(dt) if res else None
     vec = fusednorm.vector_width(x)
-    names = {"fused": ("fusednorm",), "amax": ("fusednorm_amax",),
-             "ext": ("fusednorm_stats", "fusednorm_apply"),
-             "ext_amax": ("fusednorm_stats_amax", "fusednorm_apply_amax")}
+    names = {"fused": ("fused_instance_norm_act",),
+             "amax": ("fused_instance_norm_act_amax",),
+             "ext": ("fused_norm_stats", "fused_norm_apply"),
+             "ext_amax": ("fused_norm_stats_amax", "fused_norm_apply_amax")}
     before = [KERNEL_COUNTERS[n].launches for n in names[kind]]
     if kind.startswith("ext"):
         count = fusednorm.norm_count(x, fine)
@@ -4231,17 +4225,18 @@ def main() -> int:
         vol_ms = run_main_path(predictor, volumes)
         wall = time.perf_counter() - t0
         launches = {k: n for k, n in read_launches().items()
-                    if k in ("fusednorm", "attention", "attention_mma",
-                             "relayout")}
+                    if k in ("fused_instance_norm_act", "fused_attention",
+                             "attention_mma", "space_to_depth")}
         peak = torch.cuda.max_memory_allocated()
         log(phase="main_path", engine="tiled_probs", path=name,
             dtype="bfloat16", volumes=N_VOLUMES, per_volume_ms=vol_ms,
             wall_s=wall, launches=launches, peak_memory_bytes=peak)
-        expected = {"fusednorm": norm_launches(torch.bfloat16, s2d_on)
-                    * N_VOLUMES, "attention": 13 * N_VOLUMES,
+        expected = {"fused_instance_norm_act": norm_launches(
+                        torch.bfloat16, s2d_on) * N_VOLUMES,
+                    "fused_attention": 13 * N_VOLUMES,
                     "attention_mma": 13 * N_VOLUMES,
-                    "relayout": (RELAYOUT_PER_FORWARD * N_VOLUMES if s2d_on
-                                 else 0)}
+                    "space_to_depth": (RELAYOUT_PER_FORWARD * N_VOLUMES
+                                       if s2d_on else 0)}
         if launches != expected:
             raise AssertionError(f"{name} launch counts {launches}, "
                                  f"expected {expected}")
@@ -4376,7 +4371,8 @@ def main() -> int:
         dict(name="fusednorm", route="cuda",
              source="dctseg_torch/csrc/fusednorm.cu",
              replaces="dctseg/ops/pallas/fusednorm.py:127",
-             launches=eval_launches["fusednorm"], max_abs_err=norm_err,
+             launches=eval_launches["fused_instance_norm_act"],
+             max_abs_err=norm_err,
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
              bound_ms=per_forward("bound_ms"), bound_by="bytes",
              library_ms=per_forward("library_ms"),
@@ -4392,7 +4388,7 @@ def main() -> int:
         dict(name="attention", route="cuda",
              source="dctseg_torch/csrc/attention.cu",
              replaces="dctseg/ops/pallas/attention.py:59",
-             launches=eval_launches["attention"], max_abs_err=attn_err,
+             launches=eval_launches["fused_attention"], max_abs_err=attn_err,
              mesh_calls_max_abs_err=mesh_call_errs["k2"],
              ms=ATTN_CALLS * attn_row["ms"],
              plain_ms=ATTN_CALLS * attn_row["plain_ms"],
@@ -4410,7 +4406,8 @@ def main() -> int:
         dict(name="relayout", route="cuda",
              source="dctseg_torch/csrc/relayout.cu",
              replaces="dctseg/ops/pallas/relayout.py:90",
-             launches=train_rows["s2d_remat_none"]["launches"]["relayout"],
+             launches=train_rows["s2d_remat_none"]["launches"][
+                 "space_to_depth"],
              max_abs_err=relayout_err, bound_by="bytes",
              **relayout_rows["train"], serve_b8=relayout_rows["serve"],
              dispatch_us=dispatch["relayout"]["dispatch_us"],
@@ -4419,7 +4416,7 @@ def main() -> int:
         dict(name="minplus", route="cuda",
              source="dctseg_torch/csrc/minplus.cu",
              replaces="dctseg/ops/pallas/minplus.py:80",
-             launches=eval_launches["minplus"], max_abs_err=minplus_err,
+             launches=eval_launches["minplus_pass"], max_abs_err=minplus_err,
              ms=met["edt_ms"], plain_ms=met["edt_plain_ms"], **bound("edt"),
              library_ms=None, kernel_device_ms=met["edt_kernel_device_ms"],
              device_ms=met["edt_device_ms"],
@@ -4428,7 +4425,8 @@ def main() -> int:
         dict(name="orderstats", route="cuda",
              source="dctseg_torch/csrc/orderstats.cu",
              replaces="dctseg/ops/pallas/orderstats.py:57",
-             launches=eval_launches["orderstats"], max_abs_err=search_err,
+             launches=eval_launches["masked_order_stats"],
+             max_abs_err=search_err,
              ms=met["search_ms"], plain_ms=met["search_plain_ms"],
              **bound("search"), library_ms=met["kthvalue_ms"],
              device_ms=met["search_device_ms"],
@@ -4459,7 +4457,7 @@ def main() -> int:
         dict(name="fusednorm_amax", route="cuda",
              source="dctseg_torch/csrc/fusednorm.cu",
              replaces="dctseg/ops/pallas/fusednorm.py:127",
-             launches=eval_int8_launches["fusednorm_amax"],
+             launches=eval_int8_launches["fused_instance_norm_act_amax"],
              max_abs_err=norm_amax_err, ms=k7d["k1_amax_ms"],
              plain_ms=k7d["k1_amax_plain_ms"],
              bound_ms=k7d["k1_amax_bound_ms"], bound_by="bytes",
@@ -4495,8 +4493,8 @@ def main() -> int:
         name="fusednorm_ext", route="cuda",
         source="dctseg_torch/csrc/fusednorm.cu",
         replaces="dctseg/ops/pallas/fusednorm.py:127",
-        launches=(ext_launches["fusednorm_stats"]
-                  + ext_launches["fusednorm_apply"]),
+        launches=(ext_launches["fused_norm_stats"]
+                  + ext_launches["fused_norm_apply"]),
         max_abs_err=norm_ext_err, ms=ext_row["ms"],
         plain_ms=ext_row["plain_ms"], bound_ms=ext_row["bound_ms"],
         bound_by="bytes", library_ms=None, device_ms=ext_row["device_ms"],
@@ -4524,8 +4522,8 @@ def main() -> int:
         dict(name="fusednorm_ext_amax", route="cuda",
              source="dctseg_torch/csrc/fusednorm.cu",
              replaces="dctseg/ops/pallas/fusednorm.py:127",
-             launches=(sp2["launches"]["fusednorm_stats_amax"]
-                       + sp2["launches"]["fusednorm_apply_amax"]),
+             launches=(sp2["launches"]["fused_norm_stats_amax"]
+                       + sp2["launches"]["fused_norm_apply_amax"]),
              max_abs_err=norm_ext_amax_err, ms=ea["ms"],
              mesh_calls_max_abs_err=mesh_call_errs["k1"],
              plain_ms=ea["plain_ms"], bound_ms=ea["bound_ms"],

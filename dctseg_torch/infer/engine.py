@@ -23,9 +23,18 @@ warms up on a side stream and captures there; later calls copy the volume
 into the graph's static input and replay.  Every graph owns its kernels'
 workspaces (``ops/_build.py`` ``owned_workspaces``), and the engine's
 graphs share one memory pool.  A failed capture raises.  On the CPU the
-same stage runs eagerly.  The kernels' launch counters count in Python,
-so a graph's launches count once, at its capture (and once more in its
-warm-up), and not at its replays: count replayed kernels from a profile.
+same stage runs eagerly.  The kernels' launch counters count in Python
+(``ops/_build.py`` ``COUNTED``), and count what reaches the card: a graph's
+warm-up counts as the eager call it is; its capture, which launches
+nothing, keeps what it counted in ``_Captured.launches`` and takes it back;
+every replay adds it again.
+
+Spans (``utils/profiling.py`` ``span``, recorded only while a profiler
+runs): each ``tiled_probs`` call is a root ``dctseg.engine.tiled_probs``
+whose children are ``engine.input`` (the volume to the device),
+``engine.forward`` (one ``_stage``: the crops and the B=8 forward, staged,
+or the graph's copy-in and replay) and ``engine.stitch``
+(``stitch_volume``).
 
 Several GPUs (``Predictor(mesh=...)``, the JAX engine's mesh): every rank
 of a ``parallel.mesh`` holds the same input; a forward's batch (the 8
@@ -52,6 +61,7 @@ from dctseg_torch.models import layers
 from dctseg_torch.ops import _build
 from dctseg_torch.parallel import spatial
 from dctseg_torch.parallel.mesh import batch_rows
+from dctseg_torch.utils.profiling import span
 
 FLIP_COMBOS: List[tuple] = [
     (), (1,), (2,), (3,), (1, 2), (1, 3), (2, 3), (1, 2, 3),
@@ -72,11 +82,13 @@ CROPS = [
 
 class _Captured(NamedTuple):
     """One fused stage captured as a CUDA graph: its static input and
-    output, and the kernel workspaces it owns."""
+    output, the kernel workspaces it owns, and the launches a replay runs
+    (``ops/_build.py`` ``launches_since`` over the capture)."""
     graph: torch.cuda.CUDAGraph
     static_in: torch.Tensor
     static_out: torch.Tensor
     workspaces: dict
+    launches: dict
 
 
 class Predictor:
@@ -171,12 +183,14 @@ class Predictor:
         else:
             captured.static_in.copy_(x)
         captured.graph.replay()
+        _build.add_launches(captured.launches)
         return captured.static_out
 
     def _capture(self, build: Callable, x: torch.Tensor) -> _Captured:
         """Warm ``model_probs(build(.))`` up on a side stream, then capture
         it there on a static input that holds a copy of ``x`` (a capture
-        runs nothing: the caller replays)."""
+        runs nothing: the caller replays, and the launch counters give back
+        what the capture counted, which each replay adds)."""
         static_in = torch.empty_like(x, memory_format=torch.contiguous_format)
         static_in.copy_(x)
         if self._pool is None:
@@ -190,10 +204,13 @@ class Predictor:
             # workspaces, none of which a capture may allocate
             with torch.cuda.stream(side):
                 self.model_probs(build(static_in))
+            before = _build.launch_counts()
             with torch.cuda.graph(graph, pool=self._pool, stream=side):
                 static_out = self.model_probs(build(static_in))
+            launches = _build.launches_since(before)
+            _build.add_launches(launches, -1)
         current.wait_stream(side)
-        return _Captured(graph, static_in, static_out, owned)
+        return _Captured(graph, static_in, static_out, owned, launches)
 
     # ---- flip TTA ----
 
@@ -252,11 +269,16 @@ class Predictor:
         """(1, 240, 240, >=155, M) -> (1, 240, 240, 155, C).  Under
         ``fuse_dispatch`` the crops and the forward are one graph."""
         _check_stitch(stitch_mode)
-        x = self._input(x)
-        if x.shape[0] != 1:
-            raise ValueError("tiling operates per volume: x must be (1, ...)")
-        t = self._stage(self.crops, x)
-        return self.stitch_volume(t, stitch_mode == "reference")[None]
+        with span("engine.tiled_probs"):
+            with span("engine.input"):
+                x = self._input(x)
+            if x.shape[0] != 1:
+                raise ValueError(
+                    "tiling operates per volume: x must be (1, ...)")
+            with span("engine.forward"):
+                t = self._stage(self.crops, x)
+            with span("engine.stitch"):
+                return self.stitch_volume(t, stitch_mode == "reference")[None]
 
     # ---- V volumes per forward ----
 

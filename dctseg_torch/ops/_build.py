@@ -14,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -222,6 +223,61 @@ def refuse_in_capture(what: str) -> None:
             and torch.cuda.is_current_stream_capturing()):
         raise RuntimeError(f"{what} during CUDA graph capture: warm up on "
                            "the capture stream first")
+
+
+# The kernel wrappers that count their launches on CUDA tensors in a
+# ``.launches`` attribute, by module of ``dctseg_torch.ops``; two also count
+# them by kernel or route in a dict (BY_KIND).  The modules import this one,
+# so the functions are looked up when first read.
+COUNTED = {
+    "attention": ("fused_attention",),
+    "fusednorm": ("fused_instance_norm_act", "fused_instance_norm_act_amax",
+                  "fused_norm_stats", "fused_norm_apply",
+                  "fused_norm_stats_amax", "fused_norm_apply_amax"),
+    "minplus": ("minplus_pass",),
+    "orderstats": ("count_leq", "masked_order_stats"),
+    "quant": ("quantize_absmax", "quantize_from_amax", "quantize_amax",
+              "int8_conv3d"),
+    "relayout": ("space_to_depth",),
+}
+BY_KIND = ("kernel_launches", "routes")
+
+
+def counted_ops() -> list:
+    """The functions of :data:`COUNTED`."""
+    return [getattr(importlib.import_module(f"dctseg_torch.ops.{module}"),
+                    name)
+            for module, names in COUNTED.items() for name in names]
+
+
+def launch_counts() -> dict:
+    """Every launch counter's value, keyed (function, attribute, kind):
+    ``(fn, "launches", None)``, and per kernel or route
+    ``(fn, "routes", route)``."""
+    out = {}
+    for fn in counted_ops():
+        out[fn, "launches", None] = fn.launches
+        for attr in BY_KIND:
+            for kind, n in getattr(fn, attr, {}).items():
+                out[fn, attr, kind] = n
+    return out
+
+
+def launches_since(before: dict) -> dict:
+    """The counters that moved since ``before`` (a :func:`launch_counts`),
+    by how much."""
+    return {k: n - before[k] for k, n in launch_counts().items()
+            if n != before[k]}
+
+
+def add_launches(increase: dict, times: int = 1) -> None:
+    """Add ``times`` x ``increase`` (a :func:`launches_since`) to the
+    counters: a CUDA graph's replay runs the launches its capture counted."""
+    for (fn, attr, kind), n in increase.items():
+        if kind is None:
+            setattr(fn, attr, getattr(fn, attr) + n * times)
+        else:
+            getattr(fn, attr)[kind] += n * times
 
 
 def check(err: int, what: str) -> None:

@@ -19,6 +19,16 @@ a shard draw the same masks.
 bf16 training is the model's ``compute_dtype='bfloat16'``: parameters stay
 float32 and are cast at each call, as flax's ``dtype=bf16`` does; there is
 no autocast and no GradScaler (bf16 has float32's exponent range).
+
+Spans (``utils/profiling.py`` ``span``, recorded only while a profiler
+runs): ``train_step`` is the root ``dctseg.trainer.step``; its children
+are ``trainer.forward`` (the model and the loss) and ``trainer.backward``
+once per micro-batch, and ``trainer.optimizer`` twice
+(``zero_grad`` first; the learning rate and ``optimizer.step`` last).  The
+root's own time is the rest: the labels' widening, the argmax and the
+metrics.  The step loop's wait for its next device batch is
+``trainer.batch_wait`` (``Trainer._device_batches``): one a batch, and one
+at the epoch's end, the wait that finds no batch.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from dctseg_torch.parallel.mesh import Mesh, data_size, make_mesh
 from dctseg_torch.train.checkpoint import Checkpointer, should_save
 from dctseg_torch.train.optim import make_optimizer, make_schedule, set_lr
 from dctseg_torch.utils.logging_utils import LOGGER
+from dctseg_torch.utils.profiling import span
 
 logger = logging.getLogger(LOGGER)
 
@@ -107,24 +118,32 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     module = getattr(model, "module", model)
     shard = spatial.space_shard(mesh)
     group = None if mesh is None else mesh.data_group
-    target, edge = target.long(), edge.long()
-    optimizer.zero_grad(set_to_none=True)
-    comps, pred = [], torch.empty(target.shape, dtype=torch.long,
-                                  device=target.device)
-    for j in range(ga):
-        sync = (model.no_sync() if j < ga - 1 and hasattr(model, "no_sync")
-                else contextlib.nullcontext())
-        with sync, spatial.sharded(shard), losses.batch_group(group):
-            outs = model(x[j::ga], train=True, generator=generator)
-            comp = total_loss(outs, target[j::ga], edge[j::ga], criterion)
-            (comp["loss"] / ga if ga > 1 else comp["loss"]).backward()
-        comps.append({k: v.detach() for k, v in comp.items()})
-        pred[j::ga] = outs[0].detach().argmax(dim=-1)
-        del outs, comp
-    set_lr(optimizer, lr)
-    optimizer.step()
-    comp = {k: sum(c[k] for c in comps) / ga for k in comps[0]}
-    return train_metrics(comp, pred, target, module.cfg.num_classes, group)
+    with span("trainer.step"):
+        target, edge = target.long(), edge.long()
+        with span("trainer.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        comps, pred = [], torch.empty(target.shape, dtype=torch.long,
+                                      device=target.device)
+        for j in range(ga):
+            sync = (model.no_sync() if j < ga - 1
+                    and hasattr(model, "no_sync")
+                    else contextlib.nullcontext())
+            with sync, spatial.sharded(shard), losses.batch_group(group):
+                with span("trainer.forward"):
+                    outs = model(x[j::ga], train=True, generator=generator)
+                    comp = total_loss(outs, target[j::ga], edge[j::ga],
+                                      criterion)
+                with span("trainer.backward"):
+                    (comp["loss"] / ga if ga > 1 else comp["loss"]).backward()
+            comps.append({k: v.detach() for k, v in comp.items()})
+            pred[j::ga] = outs[0].detach().argmax(dim=-1)
+            del outs, comp
+        with span("trainer.optimizer"):
+            set_lr(optimizer, lr)
+            optimizer.step()
+        comp = {k: sum(c[k] for c in comps) / ga for k in comps[0]}
+        return train_metrics(comp, pred, target, module.cfg.num_classes,
+                             group)
 
 
 class Trainer:
@@ -320,11 +339,18 @@ class Trainer:
         host-to-device copies on a side stream while the current step runs;
         the queue bounds them to ``device_prefetch`` batches ahead."""
         depth = self.cfg.train.device_prefetch
+        end = object()
         if depth <= 0:
-            for batch in self.loader:
-                yield self._place(batch, torch.cuda.current_stream()
-                                  if self.device.type == "cuda" else None)[0]
-            return
+            batches = iter(self.loader)
+            stream = (torch.cuda.current_stream()
+                      if self.device.type == "cuda" else None)
+            while True:
+                with span("trainer.batch_wait"):
+                    batch = next(batches, end)
+                    if batch is end:
+                        return
+                    tensors = self._place(batch, stream)[0]
+                yield tensors
         side = (torch.cuda.Stream(device=self.device)
                 if self.device.type == "cuda" else None)
         # the feeder thread copies on this device (the current one where
@@ -333,7 +359,6 @@ class Trainer:
                  if self.device.index is not None
                  else torch.cuda.current_device())
         q: "queue.Queue" = queue.Queue(maxsize=depth)
-        end = object()
         stop = threading.Event()   # the consumer has gone
 
         def put(item) -> bool:
@@ -361,17 +386,18 @@ class Trainer:
         t.start()
         try:
             while True:
-                item = q.get()
-                if item is end:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                tensors, done = item
-                if done is not None:
-                    cur = torch.cuda.current_stream()
-                    cur.wait_event(done)
-                    for a in tensors:
-                        a.record_stream(cur)
+                with span("trainer.batch_wait"):
+                    item = q.get()
+                    if item is end:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    tensors, done = item
+                    if done is not None:
+                        cur = torch.cuda.current_stream()
+                        cur.wait_event(done)
+                        for a in tensors:
+                            a.record_stream(cur)
                 yield tensors
         finally:
             stop.set()

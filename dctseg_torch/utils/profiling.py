@@ -20,6 +20,15 @@ port counts what its eager forward dispatches:
 model costs no compute and no device memory.  :func:`trace` records a
 ``torch.profiler`` trace of the enclosed work and writes it for Chrome's or
 Perfetto's trace viewer.
+
+:func:`span` marks a phase of the port's own work (``dctseg.<name>``) in
+that trace: a ``record_function`` range, opened only while a profiler runs,
+so the phases share the profile's clock with the kernels, copies and aten
+ops under them.  The engine (``infer/engine.py``) and the Trainer
+(``train/trainer.py``) open them; each ``tiled_probs`` call or train step
+is a root span whose children are its phases.  With no profiler running a
+span is one flag check and records nothing: the profiler is the only
+recorder.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import os
 from typing import Callable, Dict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
@@ -40,6 +50,19 @@ _NO_DATA = frozenset({torch.ops.aten.empty.memory_format,
                       torch.ops.aten.empty_like.default,
                       torch.ops.aten.new_empty.default,
                       torch.ops.aten.new_empty_strided.default})
+
+
+SPAN_PREFIX = "dctseg."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager over one phase ``name`` of the port's work: while
+    a ``torch.profiler`` profile runs, ``record_function("dctseg." + name)``;
+    otherwise a shared no-op, at the cost of one flag check."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 def moves_data(func, args, out) -> bool:
