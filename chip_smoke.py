@@ -43,7 +43,12 @@ Phases (any failure raises and the script exits non-zero):
      and read just after:
        - serving: fp32 seg_probs on the 8 crops of a volume through the
          kernels vs through the plain path and vs the s2d path, bf16
-         tta_probs on one 128^3 volume, then bf16 Predictor.tiled_probs on 3
+         tta_probs on one 128^3 volume, the engine's staged copy of host
+         volumes to the card (torch.equal to x.to, each input's route
+         counted, the caller's volume overwritten at once, tiled_probs of
+         a host volume equal staged and fused; the copy's host and device
+         ms in turns with the pageable copy), then bf16
+         Predictor.tiled_probs on 3
          seeded 240x240x160x4 volumes, on the direct path and on the s2d
          path (its 13 attention calls per volume on the tensor-core
          kernel), then one B=8 bf16 forward under torch.profiler for the
@@ -877,6 +882,88 @@ def run_main_path(predictor, volumes):
             raise AssertionError(f"probs sum off by {dev_sum}")
         del out
     return times
+
+
+STAGE_TIMED = 10    # check_staged_input's timed calls of each copy
+
+
+def check_staged_input(dev, model):
+    """The engine's copy of a host volume to the card (``Predictor._input``)
+    held bit for bit to ``x.to(dev)``: the serving volume and the unpadded
+    one (not a multiple of the chunk) staged, a byte tensor under one chunk
+    staged, a non-contiguous view on the host route, a pinned volume on the
+    pinned route, each counted on its route; the caller's volume
+    overwritten as soon as the copy returns, the card's copy unchanged; two
+    volumes staged back to back, each whole (the caching host allocator
+    may hand the first one's pinned block to the second);
+    ``tiled_probs`` of a host volume equal to ``tiled_probs`` of its copy on
+    the card, staged and fused.  Then the staged copy and ``x.to(dev)`` in
+    turns: host ms of the call, device ms to the last byte (CUDA events),
+    the rate."""
+    g = torch.Generator().manual_seed(SEED + 17)
+    vols = [torch.randn(VOLUME, generator=g) for _ in range(2)]
+    cases = {"serving": (vols[0], "staged"),
+             "unpadded": (vols[1][:, :, :, :155].contiguous(), "staged"),
+             "bytes": (torch.randint(0, 256, (7, 1001), generator=g,
+                                     dtype=torch.uint8), "staged"),
+             "non_contiguous": (vols[0][:, :, :, :155], "host"),
+             "pinned": (vols[1].pin_memory(), "pinned")}
+    predictor = Predictor(model, device=dev)
+    rows = {}
+    for name, (x, route) in cases.items():
+        before = dict(predictor.input_routes)
+        got = predictor._input(x)
+        torch.cuda.synchronize()
+        moved = {k: n - before[k] for k, n in predictor.input_routes.items()
+                 if n != before[k]}
+        rows[name] = (torch.equal(got, x.to(dev))
+                      and moved == {route: 1})
+    src = vols[0].clone()
+    want = src.to(dev)
+    got = predictor._input(src)
+    src.fill_(float("nan"))
+    torch.cuda.synchronize()
+    rows["overwritten_at_once"] = torch.equal(got, want)
+    first, second = predictor._input(vols[0]), predictor._input(vols[1])
+    torch.cuda.synchronize()
+    rows["back_to_back"] = (torch.equal(first.cpu(), vols[0])
+                            and torch.equal(second.cpu(), vols[1]))
+    del first, second, got, want
+    eager = predictor.tiled_probs(vols[0].to(dev))
+    for fuse in (False, True):
+        engine = Predictor(model, device=dev, fuse_dispatch=fuse)
+        on_card = engine.tiled_probs(vols[0].to(dev))
+        staged = engine.tiled_probs(vols[0])
+        rows[f"tiled_probs_{'fused' if fuse else 'staged'}"] = (
+            torch.equal(staged, on_card) and torch.equal(staged, eager)
+            and engine.input_routes["staged"] == 1)
+        del engine, on_card, staged
+    del eager
+    timed = {"staged": lambda x: predictor._input(x),
+             "pageable": lambda x: x.to(dev)}
+    host, device = ({k: [] for k in timed} for _ in range(2))
+    for i in range(STAGE_TIMED):
+        for k in (timed if i % 2 else list(timed)[::-1]):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            timed[k](vols[i % 2])
+            host[k].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            device[k].append(start.elapsed_time(end))
+    nbytes = vols[0].numel() * vols[0].element_size()
+    ok = all(rows.values())
+    log(check="staged_input", ok=ok, cases=rows,
+        routes=predictor.input_routes, bytes=nbytes,
+        host_ms={k: statistics.median(v) for k, v in host.items()},
+        device_ms={k: statistics.median(v) for k, v in device.items()},
+        gb_per_s={k: nbytes / statistics.median(v) / 1e6
+                  for k, v in device.items()})
+    if not ok:
+        raise AssertionError(f"staged input differs: {rows}")
 
 
 def check_device_metrics(dev, pairs):
@@ -4209,6 +4296,7 @@ def main() -> int:
     g = gen(dev, SEED + 5)
     check_tta(predictor, torch.randn((1, 128, 128, 128, 4), device=dev,
                                      generator=g))
+    check_staged_input(dev, model)
     volumes = [torch.randn(VOLUME, device=dev, generator=g)
                for _ in range(N_VOLUMES)]
     serving = {}

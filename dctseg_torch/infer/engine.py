@@ -29,6 +29,21 @@ warm-up counts as the eager call it is; its capture, which launches
 nothing, keeps what it counted in ``_Captured.launches`` and takes it back;
 every replay adds it again.
 
+The volume's way to the card (``Predictor._input``, counted by route in
+``Predictor.input_routes``): a contiguous host tensor or array that is not
+pinned is read once into pinned memory from torch's caching host allocator
+(``Tensor.pin_memory``: one ``copy_`` on the intra-op threads) and sent
+from there by one asynchronous copy on the current stream (``staged``).
+``_input`` returns once the volume is read, so the caller may overwrite it
+at once; the crops wait for the copy in stream order, and the allocator
+hands the pinned block out again only after the stream has passed the
+copy.  A pinned tensor is one asynchronous copy (``pinned``): as with any
+such copy, the caller leaves it unchanged until the stream has passed the
+copy.  A tensor already on the device is returned as is (``device``); the
+rest, non-contiguous host tensors and every input of a CPU Predictor, take
+``Tensor.to`` as it is (``host``).  The bytes on the card are the input's,
+bit for bit, whatever the route.
+
 Spans (``utils/profiling.py`` ``span``, recorded only while a profiler
 runs): each ``tiled_probs`` call is a root ``dctseg.engine.tiled_probs``
 whose children are ``engine.input`` (the volume to the device),
@@ -78,6 +93,8 @@ CROPS = [
     (slice(112, 240), slice(0, 128), slice(27, 155)),
     (slice(112, 240), slice(112, 240), slice(27, 155)),
 ]
+
+INPUT_ROUTES = ("staged", "pinned", "device", "host")   # of ``_input``
 
 
 class _Captured(NamedTuple):
@@ -132,11 +149,24 @@ class Predictor:
                               and mesh is None)
         self._graphs: dict = {}   # (stage, shape, dtype) -> _Captured
         self._pool = None         # the graphs' shared memory pool
+        self.input_routes = dict.fromkeys(INPUT_ROUTES, 0)
 
     def _input(self, x) -> torch.Tensor:
+        """``x`` (a tensor or an array) on ``self.device``, by the route
+        its place and layout pick (module docstring)."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
-        return x.to(self.device)
+        if self.device.type == "cpu" or (x.device.type == "cpu"
+                                         and not x.is_contiguous()):
+            route = "host"
+        elif x.device.type != "cpu":
+            route = "device"
+        else:
+            route = "pinned" if x.is_pinned() else "staged"
+        self.input_routes[route] += 1
+        if route == "staged":
+            x = x.pin_memory()
+        return x.to(self.device, non_blocking=route != "host")
 
     def model_probs(self, xs: torch.Tensor) -> torch.Tensor:
         """The model's decoder softmax on one batch, on the folded weights

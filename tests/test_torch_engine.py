@@ -208,3 +208,34 @@ def test_ensemble_probs_and_update_params():
     assert pred.model.offset.item() == 2.0              # the last set stays
     with pytest.raises(RuntimeError, match="Unexpected key"):
         pred.update_params({"offset": torch.tensor(1.0), "bias": 1.0})
+
+
+# ---- the volume's way to the device (Predictor._input)
+
+@pytest.mark.parametrize("kind", ["tensor", "array"])
+def test_cpu_input_takes_the_host_route(kind):
+    x = np.random.default_rng(4).normal(size=(1, 6, 5, 4, 4)).astype(
+        np.float32)
+    pred = Predictor(_StandIn(), device="cpu")
+    got = pred._input(torch.from_numpy(x) if kind == "tensor" else x)
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), x)
+    assert pred.input_routes == {"staged": 0, "pinned": 0, "device": 0,
+                                 "host": 1}
+
+
+def test_device_input_is_returned_as_is():
+    pred = Predictor(_StandIn(), device="meta")
+    x = torch.empty((1, 6, 5, 4, 4), device="meta")
+    assert pred._input(x) is x
+    assert pred.input_routes == {"staged": 0, "pinned": 0, "device": 1,
+                                 "host": 0}
+
+
+def test_non_contiguous_host_input_takes_the_host_route():
+    pred = Predictor(_StandIn(), device="meta")
+    x = torch.zeros((1, 6, 5, 8, 4))[:, :, :, :5]
+    got = pred._input(x)
+    assert got.device.type == "meta" and got.shape == x.shape
+    assert pred.input_routes == {"staged": 0, "pinned": 0, "device": 0,
+                                 "host": 1}
