@@ -1,6 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only swin]
+
+``--only swin`` runs phases 1, 2 and the Swin UNETR phase alone.
 
 Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -146,6 +148,15 @@ Phases (any failure raises and the script exits non-zero):
      forward; K7's amax route and K1's external-statistics pair with
      absmax slots at the calls of one rank's int8 slab forward, against
      their bounds;
+  5b. Swin UNETR: K8 (shifted-window attention) against its plain version
+     at the four stages' B=8 shapes, shifted and unshifted, bf16, and f16
+     and D = 32, 64 on small cases (one ulp of the f32 result); K1's
+     pre-activation residual route against its plain version on both
+     routes; their card times beside their bounds, plain versions and
+     library calls (F.scaled_dot_product_attention with a float mask);
+     one B=8 forward at the published widths against the benchmark's f32
+     reference, its launches, time (and with the plain attention), device
+     time by kernel family, peak memory, and tiled_probs of a volume;
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
 """
@@ -993,6 +1004,8 @@ EXT_COUNTERS = ("fused_norm_stats", "fused_norm_apply",
                 "fused_norm_stats_amax", "fused_norm_apply_amax")
 INT8_COUNTERS = ("fused_instance_norm_act_amax", "int8_conv3d",
                  "quantize_absmax", "quantize_from_amax", "quantize_amax")
+# K8: it runs only in Swin UNETR
+SWIN_COUNTERS = ("fused_window_attention",)
 # K7's counter of each route: one operator a route (amax runs only over a
 # mesh, its slots MAX-reduced over the ranks before from_amax)
 K7_COUNTERS = {"grid": "quantize_absmax", "from_amax": "quantize_from_amax",
@@ -1036,7 +1049,8 @@ def run_eval_path(quantize="none", calls=None):
                 "minplus_pass": EDT_LAUNCHES * EVAL_VOLUMES,
                 "masked_order_stats": SEARCH_LAUNCHES * EVAL_VOLUMES,
                 "count_leq": 0,
-                **dict.fromkeys(INT8_COUNTERS + EXT_COUNTERS, 0)}
+                **dict.fromkeys(INT8_COUNTERS + EXT_COUNTERS
+                                + SWIN_COUNTERS, 0)}
     if quantize != "none":
         forward = int8_expected(calls, "direct", quantize)
         for k in ("fused_instance_norm_act",) + INT8_COUNTERS:
@@ -4226,7 +4240,365 @@ def run_spatial_train():
     return rows
 
 
-def main() -> int:
+
+# ------------------------------------------------------------ Swin UNETR
+
+# the four Swin stages of a B=8 forward on 128^3 crops: (tokens a side,
+# channels, heads); every stage's head dim is 16
+SWIN_STAGES = ((64, 48, 3), (32, 96, 6), (16, 192, 12), (8, 384, 24))
+SWIN_WINDOW = 7
+SWIN_MODEL = dict(in_channels=4, out_channels=3, feature_size=48,
+                  depths=[2, 2, 2, 2], num_heads=[3, 6, 12, 24],
+                  window_size=7, mlp_ratio=4.0, qkv_bias=True,
+                  norm_eps=1e-5)
+# (shape, act) of K1's pre-activation residual route: the 128^3 x 48 site
+# of encoder1 and decoder1 (split route) and a bottleneck one (fused)
+NORM_PRE_CASES = (((8, 128, 128, 128, 48), "lrelu"),
+                  ((8, 32, 32, 32, 96), "lrelu"),
+                  ((8, 4, 4, 4, 768), "lrelu"),
+                  ((2, 8, 8, 8, 24), "none"))
+
+
+def swin_window_inputs(dev, g, edge, c, heads, batch=8, dt=torch.bfloat16,
+                       ws=SWIN_WINDOW):
+    """q, k, v as views of one (BW, N, 3, H, D) projection, the bias table
+    and the shift's region ids of one stage's windows at ``batch``."""
+    from dctseg_torch.models import swin_unetr as su
+    side = -(-edge // ws) * ws
+    nw = (side // ws) ** 3
+    n = ws ** 3
+    qkv = torch.randn((batch * nw, n, 3, heads, c // heads), device=dev,
+                      generator=g).to(dt)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    table = (torch.randn(((2 * ws - 1) ** 3, heads), device=dev,
+                         generator=g) * 0.02).clamp(-2, 2)
+    ids = su.region_ids((side,) * 3, (ws,) * 3, (ws // 2,) * 3, dev)
+    return q, k, v, table, ids, nw
+
+
+def check_window_attention(dev):
+    """K8 against its plain version (in f32, by batch element) at the four
+    stages' B=8 shapes, shifted (the region ids) and unshifted, bf16; f16
+    and D = 32, 64 on a small case.  Bound: one bf16 (f16) ulp of the f32
+    result + 1e-5: the kernel computes in f32 and rounds once, and its f32
+    differs from the plain version's by the order of its sums, exp2 and
+    p's 16-bit hi + lo split.  Returns the worst bf16 error at the
+    stages."""
+    g = gen(dev, SEED + 11)
+    cases = [(edge, c, h, torch.bfloat16, 8) for edge, c, h in SWIN_STAGES]
+    cases += [(14, 96, 3, torch.float16, 2), (14, 64, 2, torch.bfloat16, 2),
+              (8, 128, 2, torch.bfloat16, 1)]
+    worst = 0.0
+    for edge, c, heads, dt, batch in cases:
+        q, k, v, table, ids, nw = swin_window_inputs(dev, g, edge, c, heads,
+                                                     batch, dt)
+        scale = (c // heads) ** -0.5
+        for shifted in (False, True):
+            mask = ids if shifted else None
+            before = attn.fused_window_attention.launches
+            got = attn.fused_window_attention(q, k, v, table, mask, scale,
+                                              SWIN_WINDOW)
+            launched = attn.fused_window_attention.launches - before
+            again = attn.fused_window_attention(q, k, v, table, mask, scale,
+                                                SWIN_WINDOW)
+            err = 0.0
+            over = 0
+            for b in range(batch):
+                rows = slice(b * nw, (b + 1) * nw)
+                want = attn.fused_window_attention_plain(
+                    q[rows].float(), k[rows].float(), v[rows].float(), table,
+                    mask, scale, SWIN_WINDOW)
+                e = (got[rows].float() - want).abs()
+                ulp = (bf16_ulp(want) if dt == torch.bfloat16
+                       else torch.exp2(torch.floor(torch.log2(
+                           want.abs().clamp(min=2.0 ** -14))) - 10))
+                over += int((e > ulp + 1e-5).sum())
+                err = max(err, e.max().item())
+                del want, e, ulp
+            ok = over == 0 and launched == 1 and torch.equal(got, again)
+            if dt == torch.bfloat16 and batch == 8:
+                worst = max(worst, err)
+            log(check="window_attention", stage_edge=edge, channels=c,
+                heads=heads, dtype=str(dt), batch=batch, windows=nw * batch,
+                shifted=shifted, launches=launched, max_abs_err=err,
+                over_bound=over, tol="1 ulp of the f32 result + 1e-5",
+                bitwise_repeat=torch.equal(got, again), ok=ok)
+            if not ok:
+                raise AssertionError(f"window attention disagrees at {edge} "
+                                     f"{c} {heads} {dt} shifted={shifted}")
+            del got, again
+        del q, k, v
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_norm_pre(dev):
+    """K1's pre-activation residual route against its plain version:
+    act(x*a + b + r) in f32, cast once; within 1e-4 + one ulp of the
+    output (the kernel's f32 statistics differ in the last bits), a second
+    call bitwise equal, both routes occurring, each launch counted on
+    fused_instance_norm_act and on its ``*_pre`` route."""
+    g = gen(dev, SEED + 12)
+    worst, routes = 0.0, set()
+    for shape, act in NORM_PRE_CASES:
+        c = shape[-1]
+        x = (torch.randn(shape, device=dev, generator=g) * 3 + 1).bfloat16()
+        r = torch.randn(shape, device=dev, generator=g).bfloat16()
+        want = fusednorm.fused_norm_residual_act_plain(x, r, c, act=act)
+        plan = fusednorm.plan_for(shape, x.dtype, 8, fusednorm.RES_BEFORE, 0)
+        before = dict(fusednorm.fused_instance_norm_act.routes)
+        got = fusednorm.fused_norm_residual_act(x, r, c, act=act)
+        moved = {k: n - before[k] for k, n in
+                 fusednorm.fused_instance_norm_act.routes.items()
+                 if n != before[k]}
+        again = fusednorm.fused_norm_residual_act(x, r, c, act=act)
+        err = (got.float() - want.float()).abs()
+        ulps = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+        ok = (bool((err <= 1e-4 + ulps).all()) and torch.equal(got, again)
+              and moved == {plan.route + "_pre": plan.launches})
+        routes.add(plan.route)
+        if shape[-1] == 48:
+            worst = max(worst, err.max().item())
+        log(check="fusednorm_pre", shape=list(shape), act=act,
+            route=plan.route, launches=moved, max_abs_err=err.max().item(),
+            tol="1e-4 + 1 bf16 ulp of the output",
+            bitwise_repeat=torch.equal(got, again), ok=ok)
+        if not ok:
+            raise AssertionError(f"fusednorm pre route disagrees: {shape}")
+        del x, r, want, got, again, err, ulps
+    if routes != {"fused", "split"}:
+        raise AssertionError(f"pre route checked on {routes} only")
+    torch.cuda.synchronize()
+    return worst
+
+
+def window_bound_ms(bw, heads, n, d, elem=2):
+    """K8's bound on one call: q, k, v read and the output written once at
+    HBM's rate, or its two products at the bf16 peak, the larger."""
+    nbytes = 4 * bw * n * heads * d * elem
+    flops = 4 * bw * heads * n * n * d
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+
+
+def sdpa_mask(table, ids, heads, n, ws=SWIN_WINDOW):
+    """The additive float mask F.scaled_dot_product_attention takes in
+    K8's place: (nW, H, N, N) bias + shift mask, bf16."""
+    idx = attn.relative_position_index(ws, n).to(table.device)
+    bias = table[idx].permute(2, 0, 1)[None]
+    if ids is None:
+        return bias.bfloat16()
+    i = ids.long()
+    m = torch.where(i[:, :, None] != i[:, None, :], attn.MASK_VALUE, 0.0)
+    return (bias + m[:, None]).bfloat16()
+
+
+def time_window_attention(dev, iters=5):
+    """Per stage, bf16 at B=8, one shifted and one unshifted call: K8's
+    call time (CUDA events) and card time (queued), its bound, the plain
+    version (f32, per batch element, times 8) and
+    F.scaled_dot_product_attention with the bias and mask as one float
+    mask (the mask made beforehand, not timed).  Sums are per volume: two
+    blocks a stage."""
+    g = gen(dev, SEED + 13)
+    rows, total = [], collections.Counter()
+    for edge, c, heads in SWIN_STAGES:
+        q, k, v, table, ids, nw = swin_window_inputs(dev, g, edge, c, heads)
+        scale = (c // heads) ** -0.5
+        bw, n, d = q.shape[0], q.shape[2], q.shape[3]
+        row = dict(stage_edge=edge, windows=bw, heads=heads, n=n, d=d)
+        for tag, mask in (("unshifted", None), ("shifted", ids)):
+            def call():
+                return attn.fused_window_attention(q, k, v, table, mask,
+                                                   scale, SWIN_WINDOW)
+            row[f"{tag}_ms"] = time_ms(call, iters)
+            row[f"{tag}_device_ms"] = queued_ms(call, iters)
+            row[f"{tag}_plain_ms"] = 8 * time_ms(
+                lambda: attn.fused_window_attention_plain(
+                    q[:nw], k[:nw], v[:nw], table, mask, scale,
+                    SWIN_WINDOW), 1, warmup=1)
+            full = sdpa_mask(table, mask, heads, n)
+            if mask is not None:    # (nW, H, N, N) -> (BW, H, N, N)
+                full = full.repeat(bw // full.shape[0], 1, 1, 1)
+            try:
+                row[f"{tag}_library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=full, scale=scale), iters)
+            except RuntimeError as exc:   # no kernel takes the call
+                row[f"{tag}_library_ms"] = None
+                row[f"{tag}_library_error"] = str(exc)[:200]
+            del full
+        row["bound_ms"] = window_bound_ms(bw, heads, n, d)
+        for key in ("ms", "device_ms", "plain_ms", "library_ms"):
+            vals = [row[f"{t}_{key}"] for t in ("unshifted", "shifted")]
+            if all(x is not None for x in vals):
+                total[key] += sum(vals)
+        total["bound_ms"] += 2 * row["bound_ms"]
+        log(timing="window_attention", **row)
+        rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    total = dict(total)
+    total["roofline_pct"] = 100.0 * total["bound_ms"] / total["device_ms"]
+    log(timing="window_attention_volume", **total)
+    return rows, total
+
+
+def time_norm_pre(dev, iters=10):
+    """K1's pre route at 128^3 x 48, B=8, bf16 (a decoder1 or encoder1
+    site): call and card time, bound (x and r read, the output written
+    once), plain, and the library's instance_norm + add + leaky_relu."""
+    g = gen(dev, SEED + 14)
+    shape = (8, 128, 128, 128, 48)
+    x = torch.randn(shape, device=dev, generator=g).bfloat16()
+    r = torch.randn(shape, device=dev, generator=g).bfloat16()
+    xc, rc = x.permute(0, 4, 1, 2, 3), r.permute(0, 4, 1, 2, 3)
+
+    def call():
+        return fusednorm.fused_norm_residual_act(x, r, 48, act="lrelu")
+    row = dict(shape=list(shape), dtype="bf16",
+               route=fusednorm.plan_for(shape, x.dtype, 8,
+                                        fusednorm.RES_BEFORE, 0).route)
+    row["ms"] = time_ms(call, iters)
+    row["device_ms"] = queued_ms(call, iters)
+    row["bound_ms"] = 3 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+    row["plain_ms"] = time_ms(lambda: fusednorm.fused_norm_residual_act_plain(
+        x, r, 48, act="lrelu"), 2)
+    row["library_ms"] = time_ms(
+        lambda: F.leaky_relu(F.instance_norm(xc) + rc, 0.01), 2)
+    log(timing="fusednorm_pre", **row)
+    return row
+
+
+def swin_engine(dev, weights, **overrides):
+    from dctseg_torch.models import swin_unetr as su
+    model = su.build_model(su.SwinUNETRConfig(**overrides), device=dev)
+    model.load_state_dict(weights, strict=True)
+    return model
+
+
+def run_swin_forward(dev):
+    """Swin UNETR at its published widths: the parameter count; one B=8
+    bf16 forward of a volume's 8 crops against the benchmark's f32
+    reference (TF32 off) in blocks of 2 crops (largest and 90th-percentile
+    probability gap, label agreement by the region rule); the launches a
+    forward (K1 by route, K8); forward time with K8 and with the plain
+    attention, peak memory; one forward under torch.profiler: device time
+    by op family; tiled_probs of a 240x240x160 volume through the engine."""
+    from benchmark.reference import swin_unetr as swref
+    from dctseg_torch.models import swin_unetr as su
+    weights = swref.make_weights(SWIN_MODEL, SEED + 15, dev)
+    model = swin_engine(dev, weights)
+    params = profiling.count_params(model)
+    g = gen(dev, SEED + 16)
+    vol = torch.randn(VOLUME, device=dev, generator=g)
+    xs = Predictor.crops(vol)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _build.launch_counts()
+    with torch.inference_mode():
+        probs = model(xs)[0]
+    torch.cuda.synchronize()
+    moved = {f"{fn.__name__}{'' if kind is None else '/' + kind}": n
+             for (fn, attr, kind), n in _build.launches_since(before).items()}
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        fwd_ms = statistics.median(event_ms(lambda: model(xs)[0])
+                                   for _ in range(3))
+    plain_model = swin_engine(dev, weights, window_kernel=False)
+    try:
+        with torch.inference_mode():
+            plain_ms = statistics.median(
+                event_ms(lambda: plain_model(xs)[0]) for _ in range(2))
+    except torch.cuda.OutOfMemoryError:
+        plain_ms = None
+    del plain_model
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        prof, _ = profiled(lambda: model(xs)[0])
+    by = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dur = (e.time_range.end - e.time_range.start) / 1e3
+        name = e.name
+        fam = ("k8" if "window_attention_kernel" in name else
+               "k1" if "norm_kernel" in name else
+               "conv" if re.search(r"conv|cudnn|sm90_xmma|implicit", name,
+                                   re.I) else
+               "gemm" if re.search(r"gemm|cutlass|nvjet", name, re.I) else
+               "other")
+        by[fam] += dur
+    swref.strict_float32()
+    ref = swref.SwinUNETRRef(SWIN_MODEL, weights)
+    gaps = []
+    label_agree = 0.0
+    with torch.no_grad():
+        for i in range(0, 8, 2):
+            want = ref.forward(xs[i:i + 2].float())[0]
+            gap = (probs[i:i + 2] - want).abs().amax(-1).flatten()
+            gaps.append(gap)
+            label_agree += (su.region_labels(probs[i:i + 2])
+                            == su.region_labels(want)).float().mean().item()
+            del want
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gap = torch.cat(gaps)
+    q90 = gap.kthvalue(int(0.9 * gap.numel())).values.item()
+    predictor = Predictor(model, device=dev)
+    host = vol.cpu()
+    with torch.inference_mode():
+        tiled = predictor.tiled_probs(host)
+        labels = su.region_labels(tiled[0]).cpu()
+    row = dict(parameters=params, forward_ms=fwd_ms,
+               plain_attention_forward_ms=plain_ms,
+               k8_saved_ms=None if plain_ms is None else plain_ms - fwd_ms,
+               peak_memory_bytes=peak,
+               launches=moved, device_ms_by_family=dict(by),
+               max_prob_gap=gap.max().item(), prob_gap_q90=q90,
+               label_agreement=label_agree / 4,
+               tiled_shape=list(tiled.shape),
+               labels_counts=torch.bincount(labels.flatten().long(),
+                                            minlength=4).tolist())
+    log(phase="swin_unetr_forward", **row)
+    if not (gap.max().item() < 0.2 and q90 < 0.02):
+        raise AssertionError(f"Swin UNETR forward off the reference: {row}")
+    del model, predictor, probs, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_swin(dev):
+    """The Swin UNETR phase: K8 and K1's pre route against their plain
+    versions, their timings, the whole forward; the kernel table's rows."""
+    attn_err = check_window_attention(dev)
+    pre_err = check_norm_pre(dev)
+    rows, total = time_window_attention(dev)
+    pre = time_norm_pre(dev)
+    fwd = run_swin_forward(dev)
+    return [
+        dict(name="window_attention", route="cuda",
+             source="dctseg_torch/csrc/attention.cu",
+             replaces="monai/networks/nets/swin_unetr.py WindowAttention "
+                      "(no TPU kernel)",
+             launches=fwd["launches"].get("fused_window_attention"),
+             max_abs_err=attn_err, ms=total["ms"],
+             device_ms=total["device_ms"], bound_ms=total["bound_ms"],
+             roofline_pct=total["roofline_pct"],
+             plain_ms=total["plain_ms"],
+             library_ms=total.get("library_ms"),
+             unit="per B=8 bf16 Swin UNETR forward (8 calls: two blocks "
+                  "a stage); library: F.scaled_dot_product_attention with "
+                  "the bias and mask as a float mask"),
+        dict(name="fusednorm_pre", route="cuda",
+             source="dctseg_torch/csrc/fusednorm.cu",
+             replaces="MONAI UnetResBlock lrelu(IN(conv2(h)) + r)",
+             max_abs_err=pre_err, ms=pre["ms"], device_ms=pre["device_ms"],
+             bound_ms=pre["bound_ms"], plain_ms=pre["plain_ms"],
+             library_ms=pre["library_ms"], route_taken=pre["route"],
+             unit="per call at 8x128^3x48 bf16")]
+
+
+def main(argv=None) -> int:
+    only = (argv if argv is not None else sys.argv[1:])[-1:] == ["swin"]
     # ---- 1. the card
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4249,6 +4621,13 @@ def main() -> int:
         ptxas=[ln.strip() for ln in _build.last_build_log.splitlines()
                if "registers" in ln or "spill" in ln],
         k6_tma_ptxas=k6_ptxas())
+
+    if only:
+        print(json.dumps({"kernels": run_swin(dev)}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # ---- 3. kernels vs plain versions
     check_norm_plan()
@@ -4636,6 +5015,7 @@ def main() -> int:
         spatial_train_step_ms={k: r["step_ms"]
                                for k, r in space_train.items()},
         conv3_vjp_ms={k: vjp_row[f"{k}_ms"] for k in ("xla", "explicit")})
+    kernels += run_swin(dev)
     # ---- 6. result
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,13 @@ Strategies:
   sweep       flip TTA for every checkpoint of --checkpoint-dir, one row of
               mean dice per checkpoint in <output-dir>/save_pth.csv
 
+--arch swin_unetr evaluates Swin UNETR (MONAI's BraTS 2021 configuration,
+``dctseg_torch/models/swin_unetr.py``; ``--feature-size`` narrows it for
+smoke runs) in place of ClsWiseFormer, with labels by BRATS21's region
+rule, on the tiling or single strategy (flip TTA averages softmaxes and
+refuses its region head); its --checkpoint is a MONAI checkpoint.  It
+takes none of --quantize, --spatial-shards or --multimodel.
+
 With no --root it evaluates synthetic volumes (dataset-free smoke).  It runs
 on the GPU unless given ``--device cpu``.  Its weights: a reference-format
 ``.pth`` given with ``--checkpoint``; else, unless ``--random-params``, epoch
@@ -41,6 +48,10 @@ import torch
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", default="clswiseformer",
+                   choices=["clswiseformer", "swin_unetr"])
+    p.add_argument("--feature-size", type=int, default=48,
+                   help="Swin UNETR's feature size (48 published)")
     p.add_argument("--strategy", default="tta",
                    choices=["tta", "single", "tiling", "tiling_tta",
                             "sweep"])
@@ -140,6 +151,12 @@ def main(argv=None) -> dict:
     from dctseg_torch.utils.logging_utils import setup_logging
     from dctseg_torch.utils.proctitle import set_process_title
 
+    swin = a.arch == "swin_unetr"
+    if swin and (a.quantize != "none" or a.spatial_shards > 1
+                 or a.multimodel or a.strategy == "sweep"):
+        raise ValueError("--arch swin_unetr takes none of --quantize, "
+                         "--spatial-shards, --multimodel or --strategy "
+                         "sweep")
     if a.strategy == "sweep" and a.random_params:
         raise ValueError("--strategy sweep evaluates the checkpoints of "
                          "--checkpoint-dir; it takes no --random-params")
@@ -155,11 +172,22 @@ def main(argv=None) -> dict:
         quantize=a.quantize, use_pallas_attention=a.pallas_attention,
         **({} if a.img_dim == 128
            else {"top_num": min(128, (a.img_dim // 16) ** 3)}))
-    model = build_model(mcfg, device=device,
-                        generator=torch.Generator().manual_seed(0))
+    if swin:
+        from dctseg_torch.models import swin_unetr
+        model = swin_unetr.build_model(
+            swin_unetr.SwinUNETRConfig(
+                feature_size=a.feature_size,
+                compute_dtype=mcfg.compute_dtype),
+            device=device, generator=torch.Generator().manual_seed(0))
+    else:
+        model = build_model(mcfg, device=device,
+                            generator=torch.Generator().manual_seed(0))
     ckpt = Checkpointer(a.checkpoint_dir)
     if a.random_params:
         log.info("using random params (seed 0)")
+    elif a.checkpoint and swin:
+        swin_unetr.load_monai_checkpoint(model, a.checkpoint)
+        log.info("loaded MONAI checkpoint %s", a.checkpoint)
     elif a.checkpoint:
         load_reference_checkpoint(model, a.checkpoint)
         log.info("loaded checkpoint %s", a.checkpoint)

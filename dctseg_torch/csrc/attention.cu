@@ -36,6 +36,19 @@
 // per head: a warpgroup's 64-row tile and a TMA descriptor per call are
 // larger than the work; mma.sync is the tool at this size.
 //
+// window_attention_kernel (K8), the shifted-window attention of Swin
+// UNETR's encoder, bf16 and f16, D 16, 32 or 64, up to ws^3 tokens a
+// window (ws <= 8; MONAI's windows are 7^3 = 343 tokens at D = 16):
+// softmax(q k^T * scale + bias + mask) v for every (window, head), the
+// bias gathered inside the kernel from the (2 ws - 1)^3 x H table of
+// learned relative-position biases by MONAI's index formula (no
+// (H, N, N) tensor is made), the shift mask (-100 where two tokens' region
+// ids differ) from an (nW, N) int8 map of region ids, or none for an
+// unshifted block.  Bound: the ALU and MUFU work of the N^2 scores a
+// (window, head) (at D = 16 the products take a fraction of it), then the
+// bytes of q, k, v read once and the output written once.  The design is
+// at the kernel below.
+//
 // attention_simt_kernel, any dtype (the f32 instantiation, and shapes
 // outside the tensor-core kernel's limits): one block per (b, h) and tile
 // of 32 queries; K and V of the (b, h) are staged once into shared memory
@@ -444,6 +457,281 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// ------------------------------------------- shifted-window attention (K8)
+
+constexpr int kWinWarps = 4;
+constexpr int kWinThreads = kWinWarps * 32;
+constexpr int kWinGroups = 4;             // 16-key groups per softmax chunk
+constexpr int kWinMaxSide = 8;            // window side of the bias table
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMaskValue = -100.f;      // MONAI's shift-mask value
+
+struct WinParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  const float* table;       // [(2 ws - 1)^3] rows of H, strides below
+  const int8_t* ids;        // [nW][N] region ids, or null (no shift mask)
+  Strides st;
+  long table_row, table_head;   // element strides of the bias table
+  int bw, h, n, nw, ws;
+  float scale;
+};
+
+// One block per (window, head): K and V of the pair staged once in shared
+// memory in the input dtype (16-byte cp.async, keys padded to a multiple
+// of 16 with zero rows, rows padded by 16 bytes for conflict-free
+// ldmatrix), the head's column of the bias table in f32 (times log2 e),
+// each key's offset into the table and, for a shifted block, its region
+// id.  Each warp takes tiles of 16 queries: its Q fragments come straight
+// from global memory; S = Q K^T runs on mma.sync.m16n8k16 with f32
+// accumulators, 64 keys at a time, with an online softmax in the log2
+// domain: s * scale * log2 e + table[base_i - off_j] (+ -100 log2 e where
+// the two tokens' region ids differ), padded keys -inf.  P V takes p from
+// registers as hi + lo, two 16-bit halves in two MMAs, so p keeps f32
+// accuracy; the output is the f32 accumulator over the row sum, cast once.
+template <typename T, int D16, bool MASK>
+__global__ void __launch_bounds__(kWinThreads)
+window_attention_kernel(const WinParams p) {
+  constexpr int D = D16 * 16;
+  constexpr int P = D + kPad;               // shared row pitch, elements
+  constexpr int kChunks = D / 8;            // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = p.n;
+  const int n2p = (N + 15) & ~15;
+  const int side = 2 * p.ws - 1;
+  const int rows = side * side * side;
+  T* Ks = reinterpret_cast<T*>(smem_raw);   // [n2p][P]
+  T* Vs = Ks + n2p * P;                     // [n2p][P]
+  float* tb = reinterpret_cast<float*>(Vs + n2p * P);   // [rows]
+  int* koff = reinterpret_cast<int*>(tb + rows);        // [n2p]
+  int* kid = koff + n2p;                                 // [n2p] (MASK)
+
+  const int bw = blockIdx.x / p.h, h = blockIdx.x - bw * p.h;
+  const int tid = threadIdx.x;
+  const Strides& st = p.st;
+  const T* kb = static_cast<const T*>(p.k) + bw * st.kb + h * st.kh;
+  const T* vb = static_cast<const T*>(p.v) + bw * st.vb + h * st.vh;
+  const T* qb = static_cast<const T*>(p.q) + bw * st.qb + h * st.qh;
+  const int8_t* ids = MASK ? p.ids + (long)(bw % p.nw) * N : nullptr;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int c = tid; c < n2p * kChunks; c += kWinThreads) {
+    const int j = c / kChunks, part = (c % kChunks) * 8;
+    T* kd = Ks + j * P + part;
+    T* vd = Vs + j * P + part;
+    if (j < N) {
+      cp_async16(kd, kb + j * st.kn + part);
+      cp_async16(vd, vb + j * st.vn + part);
+    } else {
+      *reinterpret_cast<uint4*>(kd) = zero;
+      *reinterpret_cast<uint4*>(vd) = zero;
+    }
+  }
+  for (int i = tid; i < rows; i += kWinThreads)
+    tb[i] = __ldg(p.table + i * p.table_row + h * p.table_head) * kLog2e;
+  const int ws = p.ws, ws2 = p.ws * p.ws;
+  for (int j = tid; j < n2p; j += kWinThreads) {
+    // key j at (j / ws^2, j / ws % ws, j % ws) of a ws^3 window (MONAI
+    // indexes the first N tokens of it); a padded key reads row 0
+    koff[j] = j < N ? (j / ws2) * side * side + (j / ws % ws) * side + j % ws
+                    : 0;
+    if (MASK) kid[j] = j < N ? ids[j] : 0;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;    // accumulator row, column pair
+  const int nk16 = n2p / 16;
+  const float sc = p.scale * kLog2e;
+  const float masked = kMaskValue * kLog2e;
+  for (int q0 = warp * 16; q0 < N; q0 += kWinWarps * 16) {
+    // the warp's Q rows q0 + g and q0 + g + 8, as mma A fragments
+    const int r0 = q0 + g, r1 = r0 + 8;
+    uint32_t qa[D16][4];
+#pragma unroll
+    for (int dk = 0; dk < D16; ++dk) {
+      const int c = dk * 16 + 2 * t;
+      const T* q0p = qb + (long)r0 * st.qn + c;
+      const T* q1p = qb + (long)r1 * st.qn + c;
+      qa[dk][0] = r0 < N ? *reinterpret_cast<const uint32_t*>(q0p) : 0u;
+      qa[dk][1] = r1 < N ? *reinterpret_cast<const uint32_t*>(q1p) : 0u;
+      qa[dk][2] = r0 < N ? *reinterpret_cast<const uint32_t*>(q0p + 8) : 0u;
+      qa[dk][3] = r1 < N ? *reinterpret_cast<const uint32_t*>(q1p + 8) : 0u;
+    }
+    // the table row of (query i, key j) is base_i - off_j
+    const int c0 = min(r0, N - 1), c1 = min(r1, N - 1);
+    const int base0 = (c0 / ws2 + ws - 1) * side * side +
+                      (c0 / ws % ws + ws - 1) * side + c0 % ws + ws - 1;
+    const int base1 = (c1 / ws2 + ws - 1) * side * side +
+                      (c1 / ws % ws + ws - 1) * side + c1 % ws + ws - 1;
+    const int id0 = MASK ? (int)ids[c0] : 0, id1 = MASK ? (int)ids[c1] : 0;
+
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    float o[2 * D16][4];
+#pragma unroll
+    for (int nb = 0; nb < 2 * D16; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nb][e] = 0.f;
+
+    for (int g0 = 0; g0 < nk16; g0 += kWinGroups) {
+      // S for keys 16 g0 .. 16 (g0 + kWinGroups): s[nb] is keys 8 nb ..
+      float s[2 * kWinGroups][4];
+#pragma unroll
+      for (int kk = 0; kk < kWinGroups; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[2 * kk][e] = s[2 * kk + 1][e] = 0.f;
+        if (g0 + kk < nk16) {
+          const T* kr = Ks + ((g0 + kk) * 16 + (lane & 7) +
+                              ((lane >> 4) << 3)) * P +
+                        ((lane >> 3) & 1) * 8;
+#pragma unroll
+          for (int dk = 0; dk < D16; ++dk) {
+            uint32_t bf[4];
+            ldmatrix_x4(bf, kr + dk * 16);
+            mma16816<T>(s[2 * kk], qa[dk], bf[0], bf[1]);
+            mma16816<T>(s[2 * kk + 1], qa[dk], bf[2], bf[3]);
+          }
+        }
+      }
+      // scores in the log2 domain, the chunk's row max
+      float cm0 = -INFINITY, cm1 = -INFINITY;
+#pragma unroll
+      for (int nb = 0; nb < 2 * kWinGroups; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = g0 * 16 + nb * 8 + 2 * t + e;
+          float x0 = -INFINITY, x1 = -INFINITY;
+          if (j < N) {
+            const int off = koff[j];
+            x0 = fmaf(s[nb][e], sc, tb[base0 - off]);
+            x1 = fmaf(s[nb][2 + e], sc, tb[base1 - off]);
+            if (MASK) {
+              const int kj = kid[j];
+              if (kj != id0) x0 += masked;
+              if (kj != id1) x1 += masked;
+            }
+          }
+          s[nb][e] = x0;
+          s[nb][2 + e] = x1;
+          cm0 = fmaxf(cm0, x0);
+          cm1 = fmaxf(cm1, x1);
+        }
+      }
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        cm0 = fmaxf(cm0, __shfl_xor_sync(0xffffffffu, cm0, sh));
+        cm1 = fmaxf(cm1, __shfl_xor_sync(0xffffffffu, cm1, sh));
+      }
+      const float n0 = fmaxf(m0, cm0), n1 = fmaxf(m1, cm1);
+      const float a0 = exp2f(m0 - n0), a1 = exp2f(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int nb = 0; nb < 2 * D16; ++nb) {
+        o[nb][0] *= a0;
+        o[nb][1] *= a0;
+        o[nb][2] *= a1;
+        o[nb][3] *= a1;
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2 * kWinGroups; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[nb][e] = exp2f(s[nb][e] - n0);
+          s[nb][2 + e] = exp2f(s[nb][2 + e] - n1);
+          l0 += s[nb][e];
+          l1 += s[nb][2 + e];
+        }
+      }
+      // O += P V, p as hi + lo
+#pragma unroll
+      for (int kk = 0; kk < kWinGroups; ++kk) {
+        if (g0 + kk < nk16) {
+          uint32_t ph[4], pl[4];
+          split2<T>(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+          split2<T>(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+          split2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+          split2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+          const T* vr = Vs + ((g0 + kk) * 16 + (lane & 7) +
+                              ((lane >> 3) & 1) * 8) * P +
+                        (lane >> 4) * 8;
+#pragma unroll
+          for (int dp = 0; dp < D16; ++dp) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, vr + dp * 16);
+            mma16816<T>(o[2 * dp], ph, bf[0], bf[1]);
+            mma16816<T>(o[2 * dp], pl, bf[0], bf[1]);
+            mma16816<T>(o[2 * dp + 1], ph, bf[2], bf[3]);
+            mma16816<T>(o[2 * dp + 1], pl, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int sh = 1; sh < 4; sh <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+    }
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+    // rows r0 and r1 into the (BW, N, H, D) output
+    T* out0 = static_cast<T*>(p.out) + (((long)bw * N + r0) * p.h + h) * D + 2 * t;
+    T* out1 = static_cast<T*>(p.out) + (((long)bw * N + r1) * p.h + h) * D + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < 2 * D16; ++nb) {
+      if (r0 < N)
+        *reinterpret_cast<uint32_t*>(out0 + nb * 8) =
+            pack2<T>(o[nb][0] * i0, o[nb][1] * i0);
+      if (r1 < N)
+        *reinterpret_cast<uint32_t*>(out1 + nb * 8) =
+            pack2<T>(o[nb][2] * i1, o[nb][3] * i1);
+    }
+  }
+}
+
+size_t window_smem(int n, int d, int ws, bool mask) {
+  const size_t n2p = (n + 15) & ~15;
+  const size_t side = 2 * ws - 1;
+  return 2 * n2p * (d + kPad) * 2 + side * side * side * 4 + n2p * 4 +
+         (mask ? n2p * 4 : 0);
+}
+
+template <typename T, int D16, bool MASK>
+cudaError_t launch_window(const WinParams& p, cudaStream_t stream) {
+  auto kernel = window_attention_kernel<T, D16, MASK>;
+  const size_t smem = window_smem(p.n, D16 * 16, p.ws, MASK);
+  static unsigned opted_in = 0;             // the largest size, once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (!((opted_in >> (dev & 31)) & 1u)) {
+    const size_t most = window_smem(kWinMaxSide * kWinMaxSide * kWinMaxSide,
+                                    D16 * 16, kWinMaxSide, true);
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)most);
+    if (e != cudaSuccess) return e;
+    opted_in |= 1u << (dev & 31);
+  }
+  // No host state changes per call (the pointers aside): a CUDA graph may
+  // capture this launch and replay it.
+  kernel<<<p.bw * p.h, kWinThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, bool MASK>
+cudaError_t dispatch_window(const WinParams& p, int d, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch_window<T, 1, MASK>(p, s);
+    case 32: return launch_window<T, 2, MASK>(p, s);
+    case 64: return launch_window<T, 4, MASK>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace dctseg
 
@@ -485,4 +773,50 @@ extern "C" int dctseg_attention_fwd(const int64_t* args, float scale,
     case kF16: return launch_simt<__half>(q, k, v, out, b, h, n, n2, d, st, scale, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Shifted-window attention (K8).  args: q, k, v, out, table, ids (device
+// pointers; ids 0 for an unshifted block), BW, H, N, D, nW, ws, the 9
+// element strides of q, k and v along BW, H and N, the table's strides
+// along its rows and heads, and the dtype code.  q, k, v: (BW, H, N, D)
+// with unit stride on D, rows on 16-byte boundaries; out: contiguous
+// (BW, N, H, D); table: f32 [(2 ws - 1)^3] x H; ids: int8 [nW][N].
+extern "C" int dctseg_window_attention_fwd(const int64_t* args, float scale,
+                                           void* stream) {
+  WinParams p;
+  p.q = reinterpret_cast<const void*>(args[0]);
+  p.k = reinterpret_cast<const void*>(args[1]);
+  p.v = reinterpret_cast<const void*>(args[2]);
+  p.out = reinterpret_cast<void*>(args[3]);
+  p.table = reinterpret_cast<const float*>(args[4]);
+  p.ids = reinterpret_cast<const int8_t*>(args[5]);
+  p.bw = (int)args[6];
+  p.h = (int)args[7];
+  p.n = (int)args[8];
+  const int d = (int)args[9];
+  p.nw = (int)args[10];
+  p.ws = (int)args[11];
+  p.st = Strides{args[12], args[13], args[14], args[15], args[16],
+                 args[17], args[18], args[19], args[20]};
+  p.table_row = args[21];
+  p.table_head = args[22];
+  const int dtype = (int)args[23];
+  p.scale = scale;
+  const Strides& st = p.st;
+  const bool ok =
+      p.bw >= 1 && p.h >= 1 && (long)p.bw * p.h < (1L << 31) && p.n >= 1 &&
+      p.ws >= 1 && p.ws <= kWinMaxSide && p.n <= p.ws * p.ws * p.ws &&
+      p.nw >= 1 && p.bw % p.nw == 0 && (dtype == kBF16 || dtype == kF16) &&
+      aligned16(p.q) && aligned16(p.k) && aligned16(p.v) && aligned16(p.out) &&
+      st.qb % 8 == 0 && st.qh % 8 == 0 && st.qn % 8 == 0 && st.kb % 8 == 0 &&
+      st.kh % 8 == 0 && st.kn % 8 == 0 && st.vb % 8 == 0 && st.vh % 8 == 0 &&
+      st.vn % 8 == 0;
+  if (!ok) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool mask = p.ids != nullptr;
+  if (dtype == kBF16)
+    return mask ? dispatch_window<__nv_bfloat16, true>(p, d, s)
+                : dispatch_window<__nv_bfloat16, false>(p, d, s);
+  return mask ? dispatch_window<__half, true>(p, d, s)
+              : dispatch_window<__half, false>(p, d, s);
 }

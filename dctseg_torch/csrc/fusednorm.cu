@@ -6,7 +6,12 @@
 // computes: per (sample, fine channel) f32 sum and sum of squares over all
 // spatial positions, var = max(E[x^2] - mean^2, 0), a = 1/sqrt(var + eps),
 // b = -mean * a; then y = act(x * a + b) in f32, cast to the output dtype,
-// then + residual in the output dtype.  Lane o*F + c of a C = O*F wide
+// then + residual in the output dtype.  The pre-activation residual route
+// (MONAI's UnetResBlock: lrelu(IN(conv2(h)) + r)) adds the residual before
+// the activation instead, y = act(x * a + b + r) in f32, cast once; the
+// caller asks for it with kResidualBefore in the act argument, and it has
+// kernels of its own (RES = 2), so the other routes' kernels and their
+// occupancy, and hence their plans, are as they were.  Lane o*F + c of a C = O*F wide
 // channel axis belongs to fine channel c (the s2d views of the JAX package).
 //
 // Layout: x, residual and out are contiguous (N, S, C) -- channels last,
@@ -92,6 +97,10 @@ constexpr unsigned kMaxSpins = 1u << 24;
 
 enum Mode : int { kStats = 0, kApply = 1, kFused = 2 };
 enum Act : int { kNone = 0, kRelu = 1, kLrelu = 2 };
+// or-ed into the act argument: the residual goes in before the activation
+constexpr int kResidualBefore = 8;
+// RES: no residual, added after the activation and the cast, or before
+enum Res : int { kNoRes = 0, kResAfter = 1, kResBefore = 2 };
 
 struct Params {
   const void* x;
@@ -194,7 +203,7 @@ __device__ __forceinline__ void fold(int rows, int c, Load load, float* part,
   __syncthreads();
 }
 
-template <typename T, int VEC, int MODE, bool RES, bool AMAX>
+template <typename T, int VEC, int MODE, int RES, bool AMAX>
 __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
   using P = Pack<T, VEC>;
   __shared__ float rowsum[2 * kThreads * VEC];   // [rpi][c] sums, squares
@@ -376,8 +385,12 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       const float y = to_f32(v.v[j]) * sa[j] + sb[j];
-      const T yc = from_f32<T>(activate(y, p.act, p.slope));
-      o.v[j] = RES ? from_f32<T>(to_f32(yc) + to_f32(r.v[j])) : yc;
+      if (RES == kResBefore) {
+        o.v[j] = from_f32<T>(activate(y + to_f32(r.v[j]), p.act, p.slope));
+      } else {
+        const T yc = from_f32<T>(activate(y, p.act, p.slope));
+        o.v[j] = RES ? from_f32<T>(to_f32(yc) + to_f32(r.v[j])) : yc;
+      }
       if (AMAX) m = max(m, __float_as_uint(to_f32(o.v[j])) & 0x7fffffffu);
     }
     return o;
@@ -419,7 +432,7 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const Params p) {
   }
 }
 
-template <typename T, int VEC, int MODE, bool RES>
+template <typename T, int VEC, int MODE, int RES>
 const void* kernel_with(bool amax) {
   if (amax)
     return reinterpret_cast<const void*>(&norm_kernel<T, VEC, MODE, RES, true>);
@@ -427,20 +440,26 @@ const void* kernel_with(bool amax) {
 }
 
 template <typename T, int VEC, int MODE>
-const void* kernel_of(bool res, bool amax) {
-  if constexpr (MODE == kStats)
-    return reinterpret_cast<const void*>(&norm_kernel<T, VEC, kStats, false,
+const void* kernel_of(int res, bool amax) {
+  if constexpr (MODE == kStats) {
+    return reinterpret_cast<const void*>(&norm_kernel<T, VEC, kStats, kNoRes,
                                                       false>);
-  else
-    return res ? kernel_with<T, VEC, MODE, true>(amax)
-               : kernel_with<T, VEC, MODE, false>(amax);
+  } else {
+    if (res == kResBefore)   // no absmax variant on this route
+      return amax ? nullptr
+                  : reinterpret_cast<const void*>(
+                        &norm_kernel<T, VEC, MODE, kResBefore, false>);
+    return res ? kernel_with<T, VEC, MODE, kResAfter>(amax)
+               : kernel_with<T, VEC, MODE, kNoRes>(amax);
+  }
 }
 
-// The kernel for (dtype, vec, mode, residual, absmax); the stats pass
-// ignores the residual and the absmax (it only zeroes the slots).
+// The kernel for (dtype, vec, mode, residual route (Res), absmax); the
+// stats pass ignores the residual and the absmax (it only zeroes the
+// slots).
 template <int MODE>
-const void* pick(int dtype, int vec, bool res, bool amax) {
-  res = res && MODE != kStats;
+const void* pick(int dtype, int vec, int res, bool amax) {
+  res = MODE != kStats ? res : kNoRes;
   amax = amax && MODE != kStats;
   if (dtype == kF32 && vec == 4) return kernel_of<float, 4, MODE>(res, amax);
   if (dtype == kF32 && vec == 1) return kernel_of<float, 1, MODE>(res, amax);
@@ -462,7 +481,8 @@ cudaError_t blocks_per_sm(const void* k, size_t smem, int* out) {
 
 using namespace dctseg;
 
-// What the card holds at once, for (dtype, vec, residual) and the variant
+// What the card holds at once, for (dtype, vec, residual route: Res) and
+// the variant
 // (amax: with the absmax output), on the current device; each variant has
 // its own plan.  Split route (fused == 0): the blocks of the less-occupying
 // of its two kernels, one wave.  Fused route: the blocks of its kernel (the
@@ -510,7 +530,8 @@ extern "C" int dctseg_fusednorm_coresident(int dtype, int vec, int fused,
 
 // args (int64, ops/fusednorm.py launch_args): x, residual (0 for none),
 // out, ab, partial, tickets, generations, n, s, c, f, bps, rows_per_block,
-// act, dtype, vec, fused, staged, amax (0 for none: the plain variant).  The
+// act (| kResidualBefore: the pre-activation residual route), dtype, vec,
+// fused, staged, amax (0 for none: the plain variant).  The
 // wrapper guarantees c / vec <= 256, f | c, s * c < 2^31, 16-byte pointers
 // where vec > 1, and for the fused route a grid of bps * n co-resident
 // blocks.
@@ -539,7 +560,10 @@ extern "C" int dctseg_fusednorm(const int64_t* a, float eps, float slope,
   p.eps = eps;
   p.slope = slope;
   p.count = 0.f;
-  const bool res = p.res != nullptr, amax = p.amax != nullptr;
+  const bool amax = p.amax != nullptr;
+  const int res = p.res == nullptr ? kNoRes
+                  : (p.act & kResidualBefore) ? kResBefore : kResAfter;
+  p.act &= ~kResidualBefore;
   if (p.c % vec || p.c / vec > kThreads || p.f < 1 || p.c % p.f ||
       p.bps < 1 || p.n < 1 || p.n > 65535 || p.staged < 0)
     return cudaErrorInvalidValue;

@@ -8,6 +8,12 @@ One parameterized loop covers the four reference variants:
   strategy='tiling_tta' tiling + flip TTA over tilings
 
 Returns the mean (WT, TC, ET) Dice, mIoU and HD95 and logs them per volume.
+
+Labels come from the probabilities by the model's head (its ``head``
+attribute, 'softmax' where it has none): the argmax of ClsWiseFormer's
+class softmax, or BRATS21 ``test.py``'s rule on Swin UNETR's region
+sigmoids (``models/swin_unetr.py`` ``region_labels``).  Flip TTA averages
+softmaxes, so the TTA strategies refuse a region head.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from dctseg_torch import metrics
 from dctseg_torch.infer.engine import Predictor, ensemble_probs
+from dctseg_torch.models.swin_unetr import region_labels
 from dctseg_torch.utils import export
 from dctseg_torch.utils.logging_utils import LOGGER
 
@@ -34,6 +41,26 @@ def postprocess_device(o: torch.Tensor) -> torch.Tensor:
     device metrics stay usable under ``postprocess``."""
     et = o == 3
     return torch.where(et & (et.sum() < 500), torch.ones_like(o), o)
+
+
+HEADS = ("softmax", "regions")
+
+
+def head_of(model) -> str:
+    """The model's output head: 'softmax' (class probabilities, the
+    default) or 'regions' (TC, WT, ET sigmoids)."""
+    head = getattr(model, "head", "softmax")
+    if head not in HEADS:
+        raise ValueError(f"unknown head {head!r}; expected one of {HEADS}")
+    return head
+
+
+def labels_of(probs: torch.Tensor, head: str = "softmax") -> torch.Tensor:
+    """uint8 labels {0, 1, 2, 3} of (..., C) probabilities: the argmax for
+    a softmax head, BRATS21's region rule for a region head."""
+    if head == "regions":
+        return region_labels(probs)
+    return torch.argmax(probs, dim=-1).to(torch.uint8)
 
 
 def validate_softmax(
@@ -71,6 +98,11 @@ def validate_softmax(
         raise ValueError(f"hd95_mode must be 'reference' or 'surface', "
                          f"got {hd95_mode!r}")
     paired = max(1, int(paired))
+    head = head_of(predictor.model)
+    if head == "regions" and strategy in ("tta", "tiling_tta"):
+        raise ValueError(f"strategy {strategy!r} averages flipped softmaxes; "
+                         "a region head (Swin UNETR) takes 'tiling' or "
+                         "'single'")
     batched_call_shape = hd95_mode == "reference"
     wt, tc, et = [], [], []
     h_wt, h_tc, h_et = [], [], []
@@ -96,15 +128,15 @@ def validate_softmax(
 
     def predict(batches) -> torch.Tensor:
         """One forward over a group of volumes; returns the uint8 labels
-        (V, ...) on the device, not yet waited for.  The argmax runs on the
-        device, so the host fetches labels, not probabilities."""
+        (V, ...) on the device, not yet waited for.  The labels are made on
+        the device, so the host fetches labels, not probabilities."""
         x = (torch.cat([b.x for b in batches]) if len(batches) > 1
              else batches[0].x)
         if param_sets:
             probs = ensemble_probs(lambda: run(x), predictor, param_sets)
         else:
             probs = run(x)
-        return torch.argmax(probs, dim=-1).to(torch.uint8)
+        return labels_of(probs, head)
 
     def stream():
         """Group-of-``paired`` pipeline: group i+1 is queued on the device

@@ -9,7 +9,8 @@ memory, which cuDNN takes as it is -- and hand back NDHWC.
 
 Init follows ``torch_kernel_init``: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with
 fan_in = in_channels * prod(kernel) (for the transpose conv too, as flax
-counts it), zero biases.
+counts it), zero biases.  ``bias=False`` gives a conv without one (MONAI's
+block convs): its ``bias`` is None, and ``prepare`` hands None on.
 
 Folding: the convs derive tensors from their parameters at every call (the
 cast to the compute dtype, the s2d weight transforms, the int8 weights).
@@ -127,13 +128,14 @@ class Conv3d(WeightPrep, nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
                  dtype: torch.dtype = torch.float32, generator=None,
-                 quantize: str = "none", spatial_gate: bool = False):
+                 quantize: str = "none", spatial_gate: bool = False,
+                 bias: bool = True):
         super().__init__()
         k = kernel_size
         self.stride, self.padding, self.dtype = stride, padding, dtype
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                k, k, k))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
         _uniform_(self.weight, in_channels * k ** 3, generator)
         self.spatial_gate = spatial_gate
         self.int8 = in_channels >= 64 and (
@@ -146,7 +148,7 @@ class Conv3d(WeightPrep, nn.Module):
         return ("int8", "float") if self.spatial_gate else ("int8",)
 
     def prepare(self, kind: str) -> tuple:
-        b = self.bias.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
         if kind == "int8":
             return (*quant.prepare_weight(self.weight), b)
         return self.weight.to(self.dtype), b
@@ -191,17 +193,19 @@ class ConvTranspose3d(WeightPrep, nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 2, stride: int = 2,
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 bias: bool = True):
         super().__init__()
         k = kernel_size
         self.stride, self.dtype = stride, dtype
         self.weight = nn.Parameter(torch.empty(in_channels, out_channels,
                                                k, k, k))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
         _uniform_(self.weight, in_channels * k ** 3, generator)
 
     def prepare(self, kind: str) -> tuple:
-        return self.weight.to(self.dtype), self.bias.to(self.dtype)
+        return self.weight.to(self.dtype), (
+            None if self.bias is None else self.bias.to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.prepared("float")

@@ -116,6 +116,9 @@ _SIGNATURES = {
     # (int64 args: q, k, v, out, b, h, n, n2, d, 9 strides, dtype, kernel;
     #  scale, stream)
     "dctseg_attention_fwd": [_vp, ctypes.c_float, _vp],
+    # (int64 args: q, k, v, out, table, ids, bw, h, n, d, nw, ws, 9 strides,
+    #  2 table strides, dtype; scale, stream)
+    "dctseg_window_attention_fwd": [_vp, ctypes.c_float, _vp],
     # (x, out, a, d, b, stream)
     "dctseg_minplus_pass": [_vp, _vp, _long, _int, _long, _vp],
     # (x, out, rows, d, stream)
@@ -230,7 +233,7 @@ def refuse_in_capture(what: str) -> None:
 # them by kernel or route in a dict (BY_KIND).  The modules import this one,
 # so the functions are looked up when first read.
 COUNTED = {
-    "attention": ("fused_attention",),
+    "attention": ("fused_attention", "fused_window_attention"),
     "fusednorm": ("fused_instance_norm_act", "fused_instance_norm_act_amax",
                   "fused_norm_stats", "fused_norm_apply",
                   "fused_norm_stats_amax", "fused_norm_apply_amax"),

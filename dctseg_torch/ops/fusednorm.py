@@ -50,6 +50,16 @@ slots zeroed by the statistics launch, and :func:`fused_norm_apply_amax`
 (``torch.ops.dctseg.fused_norm_apply_amax``) fills them with max |out| per
 sample, bit for bit :func:`fused_instance_norm_act_amax`'s on the same
 output.  Inference only (their backward raises).
+
+:func:`fused_norm_residual_act` (``torch.ops.dctseg.fused_norm_residual_act``)
+is the pre-activation residual route, MONAI's ``UnetResBlock`` ending
+``lrelu(IN(conv2(h)) + r)``: y = act(x*a + b + r) in f32, cast once, where
+:func:`fused_instance_norm_act` adds its residual after the activation and
+the cast.  The same kernel with its own instantiations (and so its own
+occupancy and plans), on either route; its launches count on
+:func:`fused_instance_norm_act`'s counter, and every launch of that
+counter also counts by route in its ``routes``: ``fused`` and ``split``,
+and ``fused_pre`` and ``split_pre`` for this route.
 """
 
 from __future__ import annotations
@@ -65,6 +75,12 @@ import torch
 from dctseg_torch.ops import _build, library
 
 ACTS = {"none": 0, "relu": 1, "lrelu": 2}
+# or-ed into the act argument: the residual goes in before the activation
+# (csrc/fusednorm.cu kResidualBefore)
+RESIDUAL_BEFORE = 8
+# the residual's place, as plan_for, coresident and the kernel take it
+RES_NONE, RES_AFTER, RES_BEFORE = 0, 1, 2
+ROUTES = ("fused", "split", "fused_pre", "split_pre")
 THREADS = 256           # csrc/fusednorm.cu kThreads
 # The fused route runs where all samples fit in its blocks' staging shared
 # memory plus this much of the H100's 50 MB L2, so the apply's second read
@@ -99,13 +115,9 @@ def fused_norm_stats_plain(x: torch.Tensor,
     return torch.stack([s, sq], dim=1)
 
 
-def fused_norm_apply_plain(x: torch.Tensor, sums: torch.Tensor,
-                           count: float, fine_channels: int,
-                           eps: float = 1e-5, act: str = "none",
-                           slope: float = 0.01,
-                           residual: torch.Tensor | None = None
-                           ) -> torch.Tensor:
-    """Plain version of the external-statistics apply: the norm of x by
+def _normed(x: torch.Tensor, sums: torch.Tensor, count: float,
+            fine_channels: int, eps: float) -> torch.Tensor:
+    """x*a + b in f32, (N, S, C): a and b of each lane's fine channel from
     the (N, 2, F) ``sums`` over ``count`` elements."""
     n, cb = x.shape[0], x.shape[-1]
     o = cb // fine_channels
@@ -116,8 +128,19 @@ def fused_norm_apply_plain(x: torch.Tensor, sums: torch.Tensor,
     # lane o*C + c carries fine channel c
     a = a.repeat(1, o)[:, None, :]
     b = b.repeat(1, o)[:, None, :]
-    xr = x.reshape(n, -1, cb).float()
-    y = _act(xr * a + b, act, slope).to(x.dtype).reshape(x.shape)
+    return x.reshape(n, -1, cb).float() * a + b
+
+
+def fused_norm_apply_plain(x: torch.Tensor, sums: torch.Tensor,
+                           count: float, fine_channels: int,
+                           eps: float = 1e-5, act: str = "none",
+                           slope: float = 0.01,
+                           residual: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Plain version of the external-statistics apply: the norm of x by
+    the (N, 2, F) ``sums`` over ``count`` elements."""
+    y = _normed(x, sums, count, fine_channels, eps)
+    y = _act(y, act, slope).to(x.dtype).reshape(x.shape)
     return y + residual if residual is not None else y
 
 
@@ -131,6 +154,18 @@ def fused_norm_apply_amax_plain(x: torch.Tensor, sums: torch.Tensor,
     out = fused_norm_apply_plain(x, sums, count, fine_channels, eps, act,
                                  slope, residual)
     return out, out.reshape(out.shape[0], -1).float().abs().amax(dim=1)
+
+
+def fused_norm_residual_act_plain(x: torch.Tensor, residual: torch.Tensor,
+                                  fine_channels: int, eps: float = 1e-5,
+                                  act: str = "none", slope: float = 0.01
+                                  ) -> torch.Tensor:
+    """Plain version of the pre-activation residual route:
+    act(x*a + b + residual) in f32, cast once to x's dtype."""
+    y = _normed(x, fused_norm_stats_plain(x, fine_channels),
+                norm_count(x, fine_channels), fine_channels, eps)
+    y = y + residual.reshape(y.shape).float()
+    return _act(y, act, slope).to(x.dtype).reshape(x.shape)
 
 
 def fused_instance_norm_act_plain(x: torch.Tensor, fine_channels: int,
@@ -270,6 +305,21 @@ def fused_instance_norm_act(x: torch.Tensor, fine_channels: int,
     return library.call(_OP, x, residual, fine_channels, eps, act, slope)
 
 
+def fused_norm_residual_act(x: torch.Tensor, residual: torch.Tensor,
+                            fine_channels: int, eps: float = 1e-5,
+                            act: str = "none", slope: float = 0.01
+                            ) -> torch.Tensor:
+    """InstanceNorm (affine-free, per fine channel), + ``residual``, then
+    the activation: act(x*a + b + residual) in f32, cast once.  ``x`` and
+    ``residual``: (N, *spatial, C) of one shape and dtype; on CUDA
+    contiguous (channels last)."""
+    if residual is None:
+        raise ValueError("the pre-activation residual route takes a "
+                         "residual")
+    _check(x, fine_channels, act, residual)
+    return library.call(_PRE_OP, x, residual, fine_channels, eps, act, slope)
+
+
 def fused_norm_stats(x: torch.Tensor, fine_channels: int) -> torch.Tensor:
     """(N, 2, F) f32: per (sample, fine channel) the sums of x and of x^2,
     the statistics launch of the external-statistics variant.  On CUDA,
@@ -340,6 +390,8 @@ def fused_instance_norm_act_amax(x: torch.Tensor, fine_channels: int,
 
 
 fused_instance_norm_act.launches = 0   # kernel launches on CUDA tensors
+# the same launches by route (those of fused_norm_residual_act: ``*_pre``)
+fused_instance_norm_act.routes = dict.fromkeys(ROUTES, 0)
 fused_instance_norm_act_amax.launches = 0   # those of the absmax variant
 fused_norm_stats.launches = 0   # the external-statistics variant's
 fused_norm_apply.launches = 0
@@ -356,14 +408,15 @@ def vector_width(x: torch.Tensor, *others) -> int:
 
 
 def coresident(device: int, dtype: torch.dtype, vec: int, fused: bool,
-               res: bool, amax: bool = False) -> tuple:
+               res: int, amax: bool = False) -> tuple:
     """(blocks, stage bytes): the blocks of the fused kernel (or of each
-    split kernel) for ``dtype``, with or without a residual, of the plain
+    split kernel) for ``dtype``, with the residual ``res`` (RES_NONE,
+    RES_AFTER or RES_BEFORE; a bool reads as the first two), of the plain
     or the absmax variant (``amax``), that CUDA device ``device`` holds at
     once, and the shared memory a fused block may keep rows in.  An
     occupancy query, once per device, dtype, width, route, residual and
     variant."""
-    key = (device, _build.dtype_code(dtype), vec, fused, res, amax)
+    key = (device, _build.dtype_code(dtype), vec, fused, int(res), amax)
     found = _coresident.get(key)
     if found is None:
         blocks, stage = ctypes.c_int(0), ctypes.c_int(0)
@@ -375,11 +428,12 @@ def coresident(device: int, dtype: torch.dtype, vec: int, fused: bool,
 
 
 @functools.lru_cache(maxsize=256)
-def plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
+def plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: int,
              device: int, amax: bool = False) -> LaunchPlan:
     """The plan of a call on CUDA device ``device``: x of ``shape`` and
-    ``dtype`` moved ``vec`` lanes at a time, with or without a residual,
-    of the plain or the absmax variant (``amax``)."""
+    ``dtype`` moved ``vec`` lanes at a time, with the residual ``res`` (as
+    :func:`coresident` takes it), of the plain or the absmax variant
+    (``amax``)."""
     n, c = shape[0], shape[-1]
     if c // vec > THREADS:
         raise ValueError(f"fusednorm kernel takes C <= {THREADS * vec} "
@@ -411,9 +465,11 @@ def launch_args(plan: LaunchPlan, x: int, residual: int, out: int,
         amax))
 
 
-def _launch(x, residual, fine_channels, eps, act, slope, amax=False):
+def _launch(x, residual, fine_channels, eps, act, slope, amax=False,
+            before=False):
     """The kernel's output; with ``amax`` (the absmax variant), (output,
-    per-sample absmax)."""
+    per-sample absmax); with ``before``, the residual added before the
+    activation (:func:`fused_norm_residual_act`)."""
     if not x.is_contiguous() or (residual is not None
                                  and not residual.is_contiguous()):
         raise ValueError("the fusednorm kernel takes contiguous "
@@ -429,8 +485,9 @@ def _launch(x, residual, fine_channels, eps, act, slope, amax=False):
                          "and at most 65535 samples")
     vec = vector_width(x, out, *(() if residual is None else (residual,)))
     device = x.get_device()
-    plan = plan_for(tuple(x.shape), x.dtype, vec, residual is not None,
-                    device, amax)
+    res = (RES_NONE if residual is None
+           else RES_BEFORE if before else RES_AFTER)
+    plan = plan_for(tuple(x.shape), x.dtype, vec, res, device, amax)
     stream = _build.stream_of(x)
     cache = _build.workspaces(_workspaces)
     ws = cache.get((device, stream))
@@ -443,10 +500,16 @@ def _launch(x, residual, fine_channels, eps, act, slope, amax=False):
         out.data_ptr(), ws.floats.data_ptr(), ws.counters.data_ptr(),
         ws.counters.numel() // 2, tuple(x.shape), fine_channels, act,
         x.dtype, vec, 0 if slots is None else slots.data_ptr())
+    if before:
+        args[LAUNCH_ARGS.index("act")] |= RESIDUAL_BEFORE
     _build.check(_build.lib().dctseg_fusednorm(
         args.buffer_info()[0], eps, slope, stream), "fusednorm")
-    (fused_instance_norm_act_amax if amax
-     else fused_instance_norm_act).launches += plan.launches
+    if amax:
+        fused_instance_norm_act_amax.launches += plan.launches
+    else:
+        fused_instance_norm_act.launches += plan.launches
+        fused_instance_norm_act.routes[
+            plan.route + ("_pre" if before else "")] += plan.launches
     return (out, slots) if amax else out
 
 
@@ -572,6 +635,35 @@ def _fake_apply_amax(x, residual, sums, slots, count, fine_channels, eps,
     return x.new_empty(x.shape)
 
 
+def _launch_pre(x, residual, fine_channels, eps, act, slope):
+    return _launch(x, residual, fine_channels, eps, act, slope, before=True)
+
+
+def _cpu_pre(x, residual, fine_channels, eps, act, slope):
+    return fused_norm_residual_act_plain(x, residual, fine_channels, eps,
+                                         act, slope).contiguous()
+
+
+def _setup_context_pre(ctx, inputs, output):
+    x, residual, *args = inputs
+    ctx.save_for_backward(x, residual)
+    ctx.args = args
+
+
+def _backward_pre(ctx, grad):
+    """(dx, dresidual): the plain version's autograd gradient at the saved
+    inputs."""
+    x, residual = ctx.saved_tensors
+    fine_channels, eps, act, slope = ctx.args
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(),
+                  residual.detach().requires_grad_()]
+        y = fused_norm_residual_act_plain(*leaves, fine_channels, eps, act,
+                                          slope)
+        dx, dr = torch.autograd.grad(y, leaves, grad)
+    return dx, dr, None, None, None, None
+
+
 def _cpu(x, residual, fine_channels, eps, act, slope):
     return fused_instance_norm_act_plain(x, fine_channels, eps, act, slope,
                                          residual).contiguous()
@@ -621,6 +713,12 @@ _OP = library.define(
     "float slope) -> Tensor",
     cuda=_launch, cpu=_cpu, fake=_fake, backward=_backward,
     setup_context=_setup_context)
+_PRE_OP = library.define(
+    "fused_norm_residual_act",
+    "(Tensor x, Tensor residual, int fine_channels, float eps, str act, "
+    "float slope) -> Tensor",
+    cuda=_launch_pre, cpu=_cpu_pre, fake=_fake, backward=_backward_pre,
+    setup_context=_setup_context_pre)
 _AMAX_OP = library.define(
     "fused_instance_norm_act_amax",
     "(Tensor x, Tensor? residual, int fine_channels, float eps, str act, "

@@ -1,6 +1,7 @@
 """The port's on-path kernels as torch operators in the ``dctseg``
 namespace: ``torch.ops.dctseg.fused_instance_norm_act``,
-``torch.ops.dctseg.fused_attention``, ``torch.ops.dctseg.space_to_depth``
+``torch.ops.dctseg.fused_attention``,
+``torch.ops.dctseg.fused_window_attention``, ``torch.ops.dctseg.space_to_depth``
 and the int8 pair ``torch.ops.dctseg.quantize_absmax`` /
 ``torch.ops.dctseg.int8_conv3d``.
 
@@ -21,7 +22,7 @@ Each kernel module defines its operator here when it is imported:
 Each operator whose kernel does matrix work also has a flop formula for
 ``torch.utils.flop_counter.FlopCounterMode`` (``utils/profiling.py``
 ``flops_of``): the attention 4*B*H*N*N2*D (two products of 2*N*N2*D a
-head), the int8 conv 2 * its multiply-accumulates.  The norm, the
+head), the window attention 4*BW*H*N^2*D, the int8 conv 2 * its multiply-accumulates.  The norm, the
 quantizer and the relayout have none and count 0, as FlopCounterMode
 counts elementwise work.
 
@@ -54,6 +55,13 @@ def attention_flops(q_shape, k_shape, v_shape, scale, *, out_shape=None,
     return 4 * b * h * n * k_shape[2] * d
 
 
+def window_attention_flops(q_shape, k_shape, v_shape, table_shape, ids_shape,
+                           scale, ws, *, out_shape=None, **kwargs) -> int:
+    """K8's two products on q, k, v (BW, H, N, D): 4*BW*H*N^2*D."""
+    b, h, n, d = q_shape
+    return 4 * b * h * n * k_shape[2] * d
+
+
 def int8_conv_flops(xq_shape, stats_shape, wq_shape, *args, out_shape=None,
                     **kwargs) -> int:
     """2 * MACs: every output element (N, Do, Ho, Wo, Co) sums k^3 * Ci
@@ -62,6 +70,7 @@ def int8_conv_flops(xq_shape, stats_shape, wq_shape, *args, out_shape=None,
 
 
 FLOP_FORMULAS = {"fused_attention": attention_flops,
+                 "fused_window_attention": window_attention_flops,
                  "int8_conv3d": int8_conv_flops}
 
 
