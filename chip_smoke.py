@@ -154,9 +154,13 @@ Phases (any failure raises and the script exits non-zero):
      pre-activation residual route against its plain version on both
      routes; their card times beside their bounds, plain versions and
      library calls (F.scaled_dot_product_attention with a float mask);
+     K9 (the encoder's LayerNorms) on each route against its f32 plain
+     version at the four stages' B=8 shapes (one ulp), its card time per
+     volume beside its byte bound, the plain sequence and F.layer_norm;
      one B=8 forward at the published widths against the benchmark's f32
-     reference, its launches, time (and with the plain attention), device
-     time by kernel family, peak memory, and tiled_probs of a volume;
+     reference, its launches (K9's 25 pinned), time (and with the plain
+     attention, and with K9's plain versions), device time by kernel
+     family, peak memory, and tiled_probs of a volume;
   6. print the kernels' JSON line, then the result line.
 The last line of stdout is {"ok": true, "device": {...}}.
 """
@@ -199,8 +203,8 @@ from dctseg_torch.models import clswiseformer as cwf
 from dctseg_torch.models import unet
 from dctseg_torch.ops import _build
 from dctseg_torch.ops import attention as attn
-from dctseg_torch.ops import (edt, fusednorm, minplus, orderstats, quant,
-                              relayout)
+from dctseg_torch.ops import (edt, fusednorm, layernorm, minplus, orderstats,
+                              quant, relayout)
 from dctseg_torch.train.trainer import Trainer
 from dctseg_torch.utils import profiling
 
@@ -1004,8 +1008,9 @@ EXT_COUNTERS = ("fused_norm_stats", "fused_norm_apply",
                 "fused_norm_stats_amax", "fused_norm_apply_amax")
 INT8_COUNTERS = ("fused_instance_norm_act_amax", "int8_conv3d",
                  "quantize_absmax", "quantize_from_amax", "quantize_amax")
-# K8: it runs only in Swin UNETR
-SWIN_COUNTERS = ("fused_window_attention",)
+# K8 and K9: they run only in Swin UNETR
+SWIN_COUNTERS = ("fused_window_attention", "layer_norm_to_windows",
+                 "windows_residual_layer_norm", "layer_norm")
 # K7's counter of each route: one operator a route (amax runs only over a
 # mesh, its slots MAX-reduced over the ranks before from_amax)
 K7_COUNTERS = {"grid": "quantize_absmax", "from_amax": "quantize_from_amax",
@@ -4469,6 +4474,196 @@ def time_norm_pre(dev, iters=10):
     return row
 
 
+# K9's launches in a B=8 forward: norm1 and norm2 of the 8 blocks, the 4
+# merging norms and the 5 proj_out norms
+K9_LAUNCHES = {"layer_norm_to_windows": 8, "windows_residual_layer_norm": 8,
+               "layer_norm": 9}
+
+
+def k9_cases(dev, edge, c, shift):
+    """One stage's K9 inputs at B=8, bf16: x, norm weight and bias, the
+    window and shift get_window_size gives, the merging's gathered rows
+    and their weight."""
+    from dctseg_torch.models import swin_unetr as su
+    g = gen(dev, SEED + 17 + edge + shift)
+    grid = (edge,) * 3
+    window, sh = su.get_window_size(grid, (SWIN_WINDOW,) * 3, (shift,) * 3)
+    x = (torch.randn((8, *grid, c), device=dev, generator=g) * 2
+         + 0.5).bfloat16()
+    w = torch.randn(c, device=dev, generator=g) * 0.5 + 1
+    b = torch.randn(c, device=dev, generator=g) * 0.1
+    half = -(-edge // 2)
+    merged = torch.randn((8, half, half, half, 8 * c), device=dev,
+                         generator=g).bfloat16()
+    wm = torch.randn(8 * c, device=dev, generator=g) * 0.5 + 1
+    return x, w, b, window, sh, merged, wm
+
+
+def check_layer_norm(dev):
+    """K9 on each route at the four stages' B=8 shapes, shifted and
+    unshifted, against its plain version on f32 inputs: within one bf16
+    ulp of the f32 result + 1e-6 (the kernel's f32 sums differ in order);
+    the residual sum x + y bit for bit; one launch a call, counted on its
+    wrapper; a second call bitwise equal.  Returns the worst error."""
+    worst = 0.0
+    for edge, c, _ in SWIN_STAGES:
+        for shift in (0, SWIN_WINDOW // 2):
+            x, w, b, window, sh, merged, wm = k9_cases(dev, edge, c, shift)
+            y = torch.randn(layernorm._to_windows_shape(x, window),
+                            device=dev).bfloat16()
+            before = _build.launch_counts()
+            calls = {
+                "to_windows": (
+                    lambda: layernorm.layer_norm_to_windows(
+                        x, w, b, 1e-5, window, sh),
+                    lambda: layernorm.layer_norm_to_windows_plain(
+                        x.float(), w, b, 1e-5, window, sh)),
+                "windows_residual": (
+                    lambda: layernorm.windows_residual_layer_norm(
+                        y, x, w, b, 1e-5, window, sh),
+                    lambda: layernorm.windows_residual_layer_norm_plain(
+                        y, x, w, b, 1e-5, window, sh)),
+                "merging": (
+                    lambda: layernorm.layer_norm(merged, wm, None, 1e-5),
+                    lambda: layernorm.layer_norm_plain(merged.float(), wm,
+                                                       None, 1e-5)),
+                "proj_out": (
+                    lambda: layernorm.layer_norm(x, None, None, 1e-5),
+                    lambda: layernorm.layer_norm_plain(x.float(), None,
+                                                       None, 1e-5))}
+            for route, (kernel, plain) in calls.items():
+                got, again, want = kernel(), kernel(), plain()
+                if route == "windows_residual":
+                    same_sum = torch.equal(got[0], want[0])
+                    again, got = again[1], got[1]
+                    want = layernorm.layer_norm_plain(want[0].float(), w, b,
+                                                      1e-5)
+                else:
+                    same_sum = True
+                err = (got.float() - want).abs()
+                over = int((err > bf16_ulp(want) + 1e-6).sum())
+                ok = over == 0 and same_sum and torch.equal(got, again)
+                worst = max(worst, err.max().item())
+                log(check="layer_norm", route=route, stage_edge=edge,
+                    channels=c, window=list(window), shift=list(sh),
+                    max_abs_err=err.max().item(), over_bound=over,
+                    residual_sum_bitwise=same_sum,
+                    tol="1 bf16 ulp of the f32 result + 1e-6",
+                    bitwise_repeat=torch.equal(got, again), ok=ok)
+                if not ok:
+                    raise AssertionError(f"K9 {route} disagrees at {edge} "
+                                         f"{c} shift={shift}")
+                del got, again, want, err
+            moved = {(fn.__name__, kind): n for (fn, _, kind), n
+                     in _build.launches_since(before).items()}
+            want_moved = {("layer_norm_to_windows", None): 2,
+                          ("windows_residual_layer_norm", None): 2,
+                          ("layer_norm", None): 4}
+            if moved != want_moved:
+                raise AssertionError(f"K9 launches {moved}")
+            del x, y, merged
+    torch.cuda.synchronize()
+    return worst
+
+
+def time_layer_norm(dev, iters=10):
+    """Per stage at B=8, bf16: each route's call time (CUDA events) and
+    card time (queued), its bound (every input row read once and every
+    output row written once, the windows' padding rows included), the
+    plain sequence's time and F.layer_norm's on the same rows (bf16 in and
+    out, the library's norm alone: no pad, roll or windows).  Sums a
+    volume: two blocks a stage (one unshifted, one shifted), the merging
+    norm, and proj_out of the stage's input (and of the last output); the
+    summed bound must equal ``swin_norm_roofline.swin``'s."""
+    rows, total = [], collections.Counter()
+    elem = 2
+    for i, (edge, c, _) in enumerate(SWIN_STAGES):
+        row = dict(stage_edge=edge, channels=c)
+        for shift in (0, SWIN_WINDOW // 2):
+            x, w, b, window, sh, merged, wm = k9_cases(dev, edge, c, shift)
+            win = layernorm.layer_norm_to_windows(x, w, b, 1e-5, window, sh)
+            y = torch.randn_like(win)
+            wb, bb = w.bfloat16(), b.bfloat16()
+            tag = "shifted" if shift else "unshifted"
+            routes = {
+                "to_windows": (
+                    lambda: layernorm.layer_norm_to_windows(
+                        x, w, b, 1e-5, window, sh),
+                    lambda: layernorm.layer_norm_to_windows_plain(
+                        x, w, b, 1e-5, window, sh),
+                    lambda: F.layer_norm(x, (c,), wb, bb),
+                    (x.numel() + win.numel()) * elem),
+                "windows_residual": (
+                    lambda: layernorm.windows_residual_layer_norm(
+                        y, x, w, b, 1e-5, window, sh),
+                    lambda: layernorm.windows_residual_layer_norm_plain(
+                        y, x, w, b, 1e-5, window, sh),
+                    lambda: F.layer_norm(x, (c,), wb, bb),
+                    4 * x.numel() * elem)}
+            if shift == 0:
+                routes["merging"] = (
+                    lambda: layernorm.layer_norm(merged, wm, None, 1e-5),
+                    lambda: layernorm.layer_norm_plain(merged, wm, None,
+                                                       1e-5),
+                    lambda: F.layer_norm(merged, (8 * c,), wm.bfloat16()),
+                    2 * merged.numel() * elem)
+                routes["proj_out"] = (
+                    lambda: layernorm.layer_norm(x, None, None, 1e-5),
+                    lambda: layernorm.layer_norm_plain(x, None, None, 1e-5),
+                    lambda: F.layer_norm(x, (c,)),
+                    2 * x.numel() * elem)
+            for route, (kernel, plain, library, nbytes) in routes.items():
+                key = f"{route}_{tag}" if route in ("to_windows",
+                                                    "windows_residual") \
+                    else route
+                row[f"{key}_ms"] = time_ms(kernel, iters)
+                row[f"{key}_device_ms"] = queued_ms(kernel, iters)
+                row[f"{key}_plain_ms"] = time_ms(plain, 3)
+                row[f"{key}_library_ms"] = time_ms(library, iters)
+                row[f"{key}_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+                for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                          "bound_ms"):
+                    total[k] += row[f"{key}_{k}"]
+            del x, merged, win, y
+            torch.cuda.empty_cache()
+        log(timing="layer_norm", **row)
+        rows.append(row)
+        if i == len(SWIN_STAGES) - 1:    # proj_out of the last output
+            half = -(-edge // 2)
+            z = torch.randn((8, half, half, half, 2 * c), device=dev
+                            ).bfloat16()
+            total["ms"] += time_ms(
+                lambda: layernorm.layer_norm(z, None, None, 1e-5), iters)
+            total["device_ms"] += queued_ms(
+                lambda: layernorm.layer_norm(z, None, None, 1e-5), iters)
+            total["plain_ms"] += time_ms(
+                lambda: layernorm.layer_norm_plain(z, None, None, 1e-5), 3)
+            total["library_ms"] += time_ms(lambda: F.layer_norm(z, (2 * c,)),
+                                           iters)
+            total["bound_ms"] += 2 * z.numel() * elem / HBM_BYTES_PER_S * 1e3
+    total = dict(total)
+    reader_ms = swin_norm_bound_ms()
+    if not math.isclose(total["bound_ms"], reader_ms, rel_tol=1e-9):
+        raise AssertionError(f"K9's summed bound {total['bound_ms']} ms is "
+                             f"not swin_norm_roofline.swin's {reader_ms}")
+    total["roofline_pct"] = 100.0 * total["bound_ms"] / total["device_ms"]
+    log(timing="layer_norm_volume", **total)
+    return rows, total
+
+
+def swin_norm_bound_ms():
+    """``swin_norm_roofline.swin``'s byte bound of a B=8 bf16 forward at
+    SWIN_MODEL's widths, in ms."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmark", "metrics", "swin_norm_roofline.swin.py")
+    spec = importlib.util.spec_from_file_location("swin_norm_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    model = dict(SWIN_MODEL, compute_dtype="bfloat16")
+    return mod.norm_bytes(model) / HBM_BYTES_PER_S * 1e3
+
+
 def swin_engine(dev, weights, **overrides):
     from dctseg_torch.models import swin_unetr as su
     model = su.build_model(su.SwinUNETRConfig(**overrides), device=dev)
@@ -4481,9 +4676,11 @@ def run_swin_forward(dev):
     bf16 forward of a volume's 8 crops against the benchmark's f32
     reference (TF32 off) in blocks of 2 crops (largest and 90th-percentile
     probability gap, label agreement by the region rule); the launches a
-    forward (K1 by route, K8); forward time with K8 and with the plain
-    attention, peak memory; one forward under torch.profiler: device time
-    by op family; tiled_probs of a 240x240x160 volume through the engine."""
+    forward (K1 by route, K8, K9: K9_LAUNCHES asserted); forward time with
+    K8 and K9, with the plain attention, and with K9's plain versions (the
+    torch sequence before K9), peak memory; one forward under
+    torch.profiler: device time by op family; tiled_probs of a
+    240x240x160 volume through the engine."""
     from benchmark.reference import swin_unetr as swref
     from dctseg_torch.models import swin_unetr as su
     weights = swref.make_weights(SWIN_MODEL, SEED + 15, dev)
@@ -4501,9 +4698,28 @@ def run_swin_forward(dev):
     moved = {f"{fn.__name__}{'' if kind is None else '/' + kind}": n
              for (fn, attr, kind), n in _build.launches_since(before).items()}
     peak = torch.cuda.max_memory_allocated()
+    k9 = {k: moved.get(k, 0) for k in K9_LAUNCHES}
+    if k9 != K9_LAUNCHES:
+        raise AssertionError(f"K9 launches a forward {k9}, expected "
+                             f"{K9_LAUNCHES}")
     with torch.inference_mode():
         fwd_ms = statistics.median(event_ms(lambda: model(xs)[0])
                                    for _ in range(3))
+    plain_norms = {"layer_norm": layernorm.layer_norm_plain,
+                   "layer_norm_to_windows":
+                       layernorm.layer_norm_to_windows_plain,
+                   "windows_residual_layer_norm":
+                       layernorm.windows_residual_layer_norm_plain}
+    kept = {k: getattr(su, k) for k in plain_norms}
+    try:
+        for k, fn in plain_norms.items():
+            setattr(su, k, fn)
+        with torch.inference_mode():
+            plain_norms_ms = statistics.median(
+                event_ms(lambda: model(xs)[0]) for _ in range(3))
+    finally:
+        for k, fn in kept.items():
+            setattr(su, k, fn)
     plain_model = swin_engine(dev, weights, window_kernel=False)
     try:
         with torch.inference_mode():
@@ -4522,7 +4738,10 @@ def run_swin_forward(dev):
         dur = (e.time_range.end - e.time_range.start) / 1e3
         name = e.name
         fam = ("k8" if "window_attention_kernel" in name else
-               "k1" if "norm_kernel" in name else
+               "k9" if re.search(r"dctseg::.*\blayer_norm_kernel\b",
+                                 name) else
+               "torch_layer_norm" if "layer_norm_kernel" in name else
+               "k1" if re.search(r"dctseg::.*\bnorm_kernel\b", name) else
                "conv" if re.search(r"conv|cudnn|sm90_xmma|implicit", name,
                                    re.I) else
                "gemm" if re.search(r"gemm|cutlass|nvjet", name, re.I) else
@@ -4551,6 +4770,8 @@ def run_swin_forward(dev):
     row = dict(parameters=params, forward_ms=fwd_ms,
                plain_attention_forward_ms=plain_ms,
                k8_saved_ms=None if plain_ms is None else plain_ms - fwd_ms,
+               plain_norms_forward_ms=plain_norms_ms,
+               k9_saved_ms=plain_norms_ms - fwd_ms,
                peak_memory_bytes=peak,
                launches=moved, device_ms_by_family=dict(by),
                max_prob_gap=gap.max().item(), prob_gap_q90=q90,
@@ -4567,12 +4788,14 @@ def run_swin_forward(dev):
 
 
 def run_swin(dev):
-    """The Swin UNETR phase: K8 and K1's pre route against their plain
+    """The Swin UNETR phase: K8, K1's pre route and K9 against their plain
     versions, their timings, the whole forward; the kernel table's rows."""
     attn_err = check_window_attention(dev)
     pre_err = check_norm_pre(dev)
+    ln_err = check_layer_norm(dev)
     rows, total = time_window_attention(dev)
     pre = time_norm_pre(dev)
+    _, ln_total = time_layer_norm(dev)
     fwd = run_swin_forward(dev)
     return [
         dict(name="window_attention", route="cuda",
@@ -4594,7 +4817,24 @@ def run_swin(dev):
              max_abs_err=pre_err, ms=pre["ms"], device_ms=pre["device_ms"],
              bound_ms=pre["bound_ms"], plain_ms=pre["plain_ms"],
              library_ms=pre["library_ms"], route_taken=pre["route"],
-             unit="per call at 8x128^3x48 bf16")]
+             unit="per call at 8x128^3x48 bf16"),
+        dict(name="layer_norm", route="cuda",
+             source="dctseg_torch/csrc/layernorm.cu",
+             replaces="MONAI SwinTransformerBlock norm1 + pad + roll + "
+                      "window partition, window reverse + roll + crop + "
+                      "residual + norm2, PatchMerging norm, proj_out (no "
+                      "TPU kernel)",
+             launches={k: fwd["launches"].get(k) for k in K9_LAUNCHES},
+             max_abs_err=ln_err, ms=ln_total["ms"],
+             device_ms=ln_total["device_ms"], bound_ms=ln_total["bound_ms"],
+             roofline_pct=ln_total["roofline_pct"],
+             plain_ms=ln_total["plain_ms"],
+             library_ms=ln_total["library_ms"],
+             forward_ms=fwd["forward_ms"],
+             plain_norms_forward_ms=fwd["plain_norms_forward_ms"],
+             unit="per B=8 bf16 Swin UNETR forward (25 launches); "
+                  "library: F.layer_norm on the same rows, bf16, the norm "
+                  "alone")]
 
 
 def main(argv=None) -> int:

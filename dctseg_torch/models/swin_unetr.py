@@ -17,13 +17,18 @@ A block's attention part: LayerNorm, zero padding at the end of D, H and W
 to multiples of the window, for every second block a cyclic shift by half
 the window (``roll(-3)``) with MONAI's shift mask (-100 between tokens of
 different regions of ``compute_mask``), the windows, attention with the
-learned relative-position bias, the windows back, the shift back, the crop.
-On any axis no longer than the window the window is that axis and the
-shift 0 (``get_window_size``).  The padding tokens attend and are attended
-to unmasked, as in MONAI.  The attention runs as K8
-(``ops/attention.py`` ``fused_window_attention``: the bias gathered and
-the mask applied inside the kernel), or with ``window_kernel=False`` as its
-plain version.  The roll, the padding and the windows are torch ops.
+learned relative-position bias, the windows back, the shift back, the crop,
+the residual add and the block's second LayerNorm.  On any axis no longer
+than the window the window is that axis and the shift 0
+(``get_window_size``).  The padding tokens attend and are attended to
+unmasked, as in MONAI.  The attention runs as K8 (``ops/attention.py``
+``fused_window_attention``: the bias gathered and the mask applied inside
+the kernel), or with ``window_kernel=False`` as its plain version.  The
+encoder's LayerNorms run on K9 (``ops/layernorm.py``): norm1 with the
+padding, the roll and the partition in its addressing, the windows back,
+the roll back, the crop and the residual add with norm2, and
+PatchMerging's norm and ``proj_out`` in place; on CPU tensors K9's
+operators run their plain versions, the torch sequence above.
 
 The legacy PatchMerging (MONAI's ``PatchMerging``, the v0.9.0 form that
 ``downsample="merging"`` selects) concatenates the 2x2x2 neighbours in the
@@ -37,7 +42,8 @@ Precision: bf16 compute over f32 parameters, as the serving configuration
 of ClsWiseFormer; LayerNorm and InstanceNorm statistics, the softmax and
 the sigmoid in f32.  The residual blocks' norms run on K1 with
 ``fused_norms`` (``ops/fusednorm.py``: the last norm of each block on its
-pre-activation residual route, ``fused_norm_residual_act``).
+pre-activation residual route, ``fused_norm_residual_act``), the encoder's
+LayerNorms on K9.
 
 Module and parameter names follow MONAI's tree (``swinViT.layers1.0.
 blocks.0.attn.qkv.weight``, ``encoder1.layer.conv1.conv.weight``, ...).
@@ -69,6 +75,10 @@ from dctseg_torch.ops.attention import (fused_window_attention,
                                         fused_window_attention_plain)
 from dctseg_torch.ops.fusednorm import (fused_instance_norm_act,
                                         fused_norm_residual_act)
+from dctseg_torch.ops.layernorm import (PROJ_EPS, layer_norm,
+                                        layer_norm_to_windows, padded,
+                                        window_partition,
+                                        windows_residual_layer_norm)
 from dctseg_torch.ops.norms import instance_norm, leaky_relu
 from dctseg_torch.utils.profiling import span
 
@@ -126,23 +136,6 @@ def get_window_size(x_size, window_size, shift_size):
     return tuple(win), tuple(shift)
 
 
-def window_partition(x: torch.Tensor, window) -> torch.Tensor:
-    """(B, D, H, W, C) -> (B * nW, wd * wh * ww, C), windows in (d, h, w)
-    order, batch major."""
-    b, d, h, w, c = x.shape
-    wd, wh, ww = window
-    x = x.view(b, d // wd, wd, h // wh, wh, w // ww, ww, c)
-    return x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, wd * wh * ww, c)
-
-
-def window_reverse(windows: torch.Tensor, window, dims) -> torch.Tensor:
-    """The inverse of :func:`window_partition` onto (B, D, H, W, C)."""
-    b, d, h, w = dims
-    wd, wh, ww = window
-    x = windows.view(b, d // wd, h // wh, w // ww, wd, wh, ww, -1)
-    return x.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, d, h, w, -1)
-
-
 @functools.lru_cache(maxsize=64)
 def _region_ids(dims, window, shift, device) -> torch.Tensor:
     img = torch.zeros(dims, dtype=torch.int8)
@@ -178,17 +171,16 @@ def _named(module: nn.Module) -> nn.ModuleDict:
 
 class LayerNorm(layers.LayerNorm):
     """Affine LayerNorm over the channels: statistics and the affine in
-    f32, cast back to the input dtype."""
+    f32, cast back to the input dtype; K9's ``plain`` route."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), (x.shape[-1],), self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 def proj_out(x: torch.Tensor) -> torch.Tensor:
     """MONAI's ``proj_out(x, normalize=True)``: a parameter-free LayerNorm
     over the channels, in f32."""
-    return F.layer_norm(x.float(), (x.shape[-1],)).to(x.dtype)
+    return layer_norm(x, None, None, PROJ_EPS)
 
 
 class PatchEmbed(nn.Module):
@@ -250,30 +242,18 @@ class SwinTransformerBlock(nn.Module):
             "linear1": Dense(dim, hidden, dtype=dtype, generator=generator),
             "linear2": Dense(hidden, dim, dtype=dtype, generator=generator)})
 
-    def attend(self, x: torch.Tensor) -> torch.Tensor:
-        b, d, h, w, c = x.shape
-        window, shift = get_window_size((d, h, w), self.window, self.shift)
-        y = self.norm1(x)
-        pads = [(-n) % wn for n, wn in zip((d, h, w), window)]
-        if any(pads):
-            y = F.pad(y, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
-        dims = (b, d + pads[0], h + pads[1], w + pads[2])
-        ids = None
-        if any(shift):
-            y = torch.roll(y, shifts=tuple(-s for s in shift),
-                           dims=(1, 2, 3))
-            ids = region_ids(dims[1:], window, shift, x.device)
-        y = self.attn(window_partition(y, window), ids)
-        y = window_reverse(y, window, dims)
-        if any(shift):
-            y = torch.roll(y, shifts=shift, dims=(1, 2, 3))
-        if any(pads):
-            y = y[:, :d, :h, :w]
-        return y
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attend(x)
-        y = self.mlp["linear1"](self.norm2(x))
+        grid = x.shape[1:4]
+        window, shift = get_window_size(grid, self.window, self.shift)
+        ids = (region_ids(padded(grid, window), window, shift, x.device)
+               if any(shift) else None)
+        n1, n2 = self.norm1, self.norm2
+        y = self.attn(layer_norm_to_windows(x, n1.weight, n1.bias, n1.eps,
+                                            window, shift), ids)
+        # x + attention, and norm2 of that sum
+        x, y = windows_residual_layer_norm(y, x, n2.weight, n2.bias, n2.eps,
+                                           window, shift)
+        y = self.mlp["linear1"](y)
         y = self.mlp["linear2"](F.gelu(y, approximate="none"))
         return x + y
 

@@ -119,6 +119,10 @@ _SIGNATURES = {
     # (int64 args: q, k, v, out, table, ids, bw, h, n, d, nw, ws, 9 strides,
     #  2 table strides, dtype; scale, stream)
     "dctseg_window_attention_fwd": [_vp, ctypes.c_float, _vp],
+    # (int64 args: x, windows, out, out2, weight, bias, rows, c, route, d, h,
+    #  w, dp, hp, wp, wd, wh, ww, sd, sh, sw, dtype, vectors a lane, lanes;
+    #  eps, stream)
+    "dctseg_layer_norm": [_vp, ctypes.c_float, _vp],
     # (x, out, a, d, b, stream)
     "dctseg_minplus_pass": [_vp, _vp, _long, _int, _long, _vp],
     # (x, out, rows, d, stream)
@@ -242,6 +246,8 @@ COUNTED = {
     "quant": ("quantize_absmax", "quantize_from_amax", "quantize_amax",
               "int8_conv3d"),
     "relayout": ("space_to_depth",),
+    "layernorm": ("layer_norm_to_windows", "windows_residual_layer_norm",
+                  "layer_norm"),
 }
 BY_KIND = ("kernel_launches", "routes")
 

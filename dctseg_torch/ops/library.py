@@ -1,9 +1,12 @@
 """The port's on-path kernels as torch operators in the ``dctseg``
 namespace: ``torch.ops.dctseg.fused_instance_norm_act``,
 ``torch.ops.dctseg.fused_attention``,
-``torch.ops.dctseg.fused_window_attention``, ``torch.ops.dctseg.space_to_depth``
-and the int8 pair ``torch.ops.dctseg.quantize_absmax`` /
-``torch.ops.dctseg.int8_conv3d``.
+``torch.ops.dctseg.fused_window_attention``, ``torch.ops.dctseg.space_to_depth``,
+the int8 pair ``torch.ops.dctseg.quantize_absmax`` /
+``torch.ops.dctseg.int8_conv3d`` and K9's three LayerNorm routes
+``torch.ops.dctseg.layer_norm_to_windows``,
+``torch.ops.dctseg.windows_residual_layer_norm`` and
+``torch.ops.dctseg.layer_norm``.
 
 Each kernel module defines its operator here when it is imported:
 
@@ -22,7 +25,7 @@ Each kernel module defines its operator here when it is imported:
 Each operator whose kernel does matrix work also has a flop formula for
 ``torch.utils.flop_counter.FlopCounterMode`` (``utils/profiling.py``
 ``flops_of``): the attention 4*B*H*N*N2*D (two products of 2*N*N2*D a
-head), the window attention 4*BW*H*N^2*D, the int8 conv 2 * its multiply-accumulates.  The norm, the
+head), the window attention 4*BW*H*N^2*D, the int8 conv 2 * its multiply-accumulates.  The norms, the
 quantizer and the relayout have none and count 0, as FlopCounterMode
 counts elementwise work.
 
