@@ -2567,7 +2567,9 @@ def time_dispatch(dev, iters=200, repeats=DISPATCH_REPEATS):
     cases = {
         "fusednorm": (
             lambda: fusednorm.fused_instance_norm_act(x, 128, act="relu"),
-            lambda: fusednorm._launch(x, None, 128, 1e-5, "relu", 0.01)),
+            lambda: fusednorm._launch(
+                fusednorm.VARIANTS["fused_instance_norm_act"], x, None, 128,
+                1e-5, "relu", 0.01)),
         "attention": (lambda: attn.fused_attention(q, k, v, scale),
                       lambda: attn._launch(q, k, v, scale)),
         "relayout": (lambda: relayout.space_to_depth(xr, torch.bfloat16),

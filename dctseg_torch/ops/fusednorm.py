@@ -26,40 +26,37 @@ owner's.  The backward recomputes the plain version under autograd, on
 either device; the trainer keeps the kernel out of training, so no
 backward kernel is owed.
 
-:func:`fused_instance_norm_act_amax` (the operator
-``torch.ops.dctseg.fused_instance_norm_act_amax``) also returns, per
-sample, max |out| over the elements written: the statistic the int8
-activation quantizer needs (``ops/quant.py`` ``quantize_from_amax``), so
-that it reads the norm's output once.  Same kernel at one ``atomicMax`` a
-block, with a launch plan of its own (from its own occupancy, so the plain
-variant's plan does not depend on it); inference only (its backward
-raises).
+The kernel's seven operators are the rows of :data:`VARIANTS`, each with
+its schema, its plain version (the CPU implementation) and its counter;
+every CUDA call goes through the one launch function :func:`_launch`.
+Besides :func:`fused_instance_norm_act`:
 
-The external-statistics variant serves a volume whose D axis is sharded
-over a space group (``parallel/spatial.py``): :func:`fused_norm_stats`
-(``torch.ops.dctseg.fused_norm_stats``) is the split route's statistics
-launch, writing each sample's raw f32 sums of x and x^2 per fine channel,
-(N, 2, F); the caller all-reduces them over the group; and
-:func:`fused_norm_apply` (``torch.ops.dctseg.fused_norm_apply``) is the
-split route's apply launch on the reduced sums and the whole volume's
-count.  With the local sums and count the pair gives the split route's
-output bit for bit.  Where the output feeds an int8 conv on the slab, the
-pair also reports its absmax slots: :func:`fused_norm_stats_amax`
-(``torch.ops.dctseg.fused_norm_stats_amax``) returns (sums, slots), the
-slots zeroed by the statistics launch, and :func:`fused_norm_apply_amax`
-(``torch.ops.dctseg.fused_norm_apply_amax``) fills them with max |out| per
-sample, bit for bit :func:`fused_instance_norm_act_amax`'s on the same
-output.  Inference only (their backward raises).
+  * :func:`fused_norm_residual_act`, the pre-activation residual route
+    (MONAI's ``UnetResBlock`` ending ``lrelu(IN(conv2(h)) + r)``):
+    act(x*a + b + r) in f32, cast once, on instantiations of its own and so
+    with its own occupancy and plans, on either route;
+  * :func:`fused_instance_norm_act_amax`, which also returns per sample
+    max |out| over the elements written, the statistic the int8 quantizer
+    needs (``ops/quant.py`` ``quantize_from_amax``), so that it reads the
+    norm's output once: one ``atomicMax`` a block, and plans from its own
+    occupancy, so that the plain variant's do not depend on it;
+  * for a volume whose D axis is sharded over a space group
+    (``parallel/spatial.py``), the split route's two launches called
+    apart: :func:`fused_norm_stats` writes each sample's raw f32 sums of x
+    and x^2 per fine channel, (N, 2, F), which the caller all-reduces, and
+    :func:`fused_norm_apply` applies the reduced sums over the whole
+    volume's count (with the local sums and count, the split route's
+    output bit for bit); where the output feeds an int8 conv on the slab,
+    :func:`fused_norm_stats_amax` also zeroes absmax slots and
+    :func:`fused_norm_apply_amax` fills them, bit for bit
+    :func:`fused_instance_norm_act_amax`'s on the same output.
 
-:func:`fused_norm_residual_act` (``torch.ops.dctseg.fused_norm_residual_act``)
-is the pre-activation residual route, MONAI's ``UnetResBlock`` ending
-``lrelu(IN(conv2(h)) + r)``: y = act(x*a + b + r) in f32, cast once, where
-:func:`fused_instance_norm_act` adds its residual after the activation and
-the cast.  The same kernel with its own instantiations (and so its own
-occupancy and plans), on either route; its launches count on
-:func:`fused_instance_norm_act`'s counter, and every launch of that
-counter also counts by route in its ``routes``: ``fused`` and ``split``,
-and ``fused_pre`` and ``split_pre`` for this route.
+The absmax and external-statistics operators are inference only (their
+backward raises).  Each row counts its launches in its wrapper's
+``.launches``, but the pre route counts in
+:func:`fused_instance_norm_act`'s, and every launch of that counter also
+counts by route in its ``routes``: ``fused`` and ``split``, and
+``fused_pre`` and ``split_pre`` for the pre route.
 """
 
 from __future__ import annotations
@@ -68,7 +65,7 @@ import array
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -389,21 +386,13 @@ def fused_instance_norm_act_amax(x: torch.Tensor, fine_channels: int,
                         slope)
 
 
-fused_instance_norm_act.launches = 0   # kernel launches on CUDA tensors
-# the same launches by route (those of fused_norm_residual_act: ``*_pre``)
-fused_instance_norm_act.routes = dict.fromkeys(ROUTES, 0)
-fused_instance_norm_act_amax.launches = 0   # those of the absmax variant
-fused_norm_stats.launches = 0   # the external-statistics variant's
-fused_norm_apply.launches = 0
-fused_norm_stats_amax.launches = 0   # its pair with absmax slots
-fused_norm_apply_amax.launches = 0
-
-
 def vector_width(x: torch.Tensor, *others) -> int:
     """Lanes per 16-byte load for the kernel: 16 bytes' worth where C and
-    every pointer allow it, else 1."""
+    every pointer (of x and of each of ``others`` that is not None) allow
+    it, else 1."""
     vec = 16 // x.element_size()
-    aligned = not any(t.data_ptr() % 16 for t in (x, *others))
+    aligned = not any(t.data_ptr() % 16 for t in (x, *others)
+                      if t is not None)
     return vec if x.shape[-1] % vec == 0 and aligned else 1
 
 
@@ -446,6 +435,20 @@ def plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: int,
                        split_blocks, stage_bytes)
 
 
+def ext_plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
+                 device: int, amax: bool = False) -> LaunchPlan:
+    """The external-statistics variant's plan on CUDA device ``device``:
+    the split route's of the plain or the absmax variant (its two launches
+    are called apart, with the all-reduce between them)."""
+    n, c = shape[0], shape[-1]
+    if c // vec > THREADS:
+        raise ValueError(f"fusednorm kernel takes C <= {THREADS * vec} "
+                         f"channels here; got C={c}")
+    split_blocks = coresident(device, dtype, vec, False, res, amax)[0]
+    return plan_launch(n, math.prod(shape) // (n * c), c, _ITEMSIZE[dtype],
+                       vec, 0, split_blocks, 0)
+
+
 def launch_args(plan: LaunchPlan, x: int, residual: int, out: int,
                 floats: int, counters: int, ncap: int, shape: tuple,
                 fine_channels: int, act: str, dtype: torch.dtype, vec: int,
@@ -465,91 +468,46 @@ def launch_args(plan: LaunchPlan, x: int, residual: int, out: int,
         amax))
 
 
-def _launch(x, residual, fine_channels, eps, act, slope, amax=False,
-            before=False):
-    """The kernel's output; with ``amax`` (the absmax variant), (output,
-    per-sample absmax); with ``before``, the residual added before the
-    activation (:func:`fused_norm_residual_act`)."""
+_ACT_ARG = LAUNCH_ARGS.index("act")
+
+
+def _launch(v, x, residual, fine_channels, eps, act, slope, sums=None,
+            count=1.0, slots=None):
+    """One call of the kernel as row ``v`` runs it: the norm of x, by
+    :func:`plan_for`'s plan; or with external statistics one launch of
+    :func:`ext_plan_for`'s, phase 0 writing the (N, 2, F) sums and phase 1
+    the norm from ``sums`` over ``count`` elements.  Absmax slots
+    (``v.amax``) are made here and returned beside the result, or given to
+    phase 1 to fill."""
     if not x.is_contiguous() or (residual is not None
                                  and not residual.is_contiguous()):
         raise ValueError("the fusednorm kernel takes contiguous "
                          "(N, *spatial, C) tensors (channels last)")
-    out = torch.empty_like(x)
-    n, c = x.shape[0], x.shape[-1]
-    slots = (torch.empty(n, dtype=torch.float32, device=x.device) if amax
-             else None)
-    if x.numel() == 0:
-        return (out, slots.zero_()) if amax else out
-    if x.numel() >= 2 ** 31 * n or n > 65535:
-        raise ValueError("fusednorm kernel takes < 2^31 elements a sample "
-                         "and at most 65535 samples")
-    vec = vector_width(x, out, *(() if residual is None else (residual,)))
-    device = x.get_device()
-    res = (RES_NONE if residual is None
-           else RES_BEFORE if before else RES_AFTER)
-    plan = plan_for(tuple(x.shape), x.dtype, vec, res, device, amax)
-    stream = _build.stream_of(x)
-    cache = _build.workspaces(_workspaces)
-    ws = cache.get((device, stream))
-    if ws is None:
-        _build.refuse_in_capture("making a fusednorm workspace")
-        ws = cache[device, stream] = _Workspace(x.device)
-    ws.reserve(n, 2 * n * c * (1 + plan.blocks))
-    args = launch_args(
-        plan, x.data_ptr(), 0 if residual is None else residual.data_ptr(),
-        out.data_ptr(), ws.floats.data_ptr(), ws.counters.data_ptr(),
-        ws.counters.numel() // 2, tuple(x.shape), fine_channels, act,
-        x.dtype, vec, 0 if slots is None else slots.data_ptr())
-    if before:
-        args[LAUNCH_ARGS.index("act")] |= RESIDUAL_BEFORE
-    _build.check(_build.lib().dctseg_fusednorm(
-        args.buffer_info()[0], eps, slope, stream), "fusednorm")
-    if amax:
-        fused_instance_norm_act_amax.launches += plan.launches
-    else:
-        fused_instance_norm_act.launches += plan.launches
-        fused_instance_norm_act.routes[
-            plan.route + ("_pre" if before else "")] += plan.launches
-    return (out, slots) if amax else out
-
-
-def ext_plan_for(shape: tuple, dtype: torch.dtype, vec: int, res: bool,
-                 device: int, amax: bool = False) -> LaunchPlan:
-    """The external-statistics variant's plan on CUDA device ``device``:
-    the split route's of the plain or the absmax variant (its two launches
-    are called apart, with the all-reduce between them)."""
+    phase, shape = v.phase, tuple(x.shape)
     n, c = shape[0], shape[-1]
-    if c // vec > THREADS:
-        raise ValueError(f"fusednorm kernel takes C <= {THREADS * vec} "
-                         f"channels here; got C={c}")
-    split_blocks = coresident(device, dtype, vec, False, res, amax)[0]
-    return plan_launch(n, math.prod(shape) // (n * c), c, _ITEMSIZE[dtype],
-                       vec, 0, split_blocks, 0)
-
-
-def _launch_ext(x, residual, fine_channels, eps, act, slope, sums, count,
-                phase, slots=None):
-    """One launch of the external-statistics variant: phase 0 writes
-    ``sums``, phase 1 the output (returned) from them; with ``slots``
-    (the absmax slots), phase 0 zeroes them and phase 1 fills them."""
-    if not x.is_contiguous() or (residual is not None
-                                 and not residual.is_contiguous()):
-        raise ValueError("the fusednorm kernel takes contiguous "
-                         "(N, *spatial, C) tensors (channels last)")
-    n, c = x.shape[0], x.shape[-1]
-    out = torch.empty_like(x) if phase else None
+    out = None if phase == 0 else torch.empty_like(x)
+    if phase == 0:
+        sums = torch.empty((n, 2, fine_channels), dtype=torch.float32,
+                           device=x.device)
+    result = sums if phase == 0 else out
+    if v.amax and phase != 1:
+        slots = torch.empty(n, dtype=torch.float32, device=x.device)
+        result = result, slots
     if x.numel() == 0:
         if slots is not None:
             slots.zero_()
-        return out if phase else sums.zero_()
+        if phase == 0:
+            sums.zero_()
+        return result
     if x.numel() >= 2 ** 31 * n or n > 65535:
         raise ValueError("fusednorm kernel takes < 2^31 elements a sample "
                          "and at most 65535 samples")
-    vec = vector_width(x, *(() if out is None else (out,)),
-                       *(() if residual is None else (residual,)))
+    vec = vector_width(x, out, residual)
     device = x.get_device()
-    plan = ext_plan_for(tuple(x.shape), x.dtype, vec, residual is not None,
-                        device, slots is not None)
+    res = (RES_NONE if residual is None
+           else RES_BEFORE if v.before else RES_AFTER)
+    plan = (plan_for if phase is None else ext_plan_for)(
+        shape, x.dtype, vec, res, device, v.amax)
     stream = _build.stream_of(x)
     cache = _build.workspaces(_workspaces)
     ws = cache.get((device, stream))
@@ -560,186 +518,168 @@ def _launch_ext(x, residual, fine_channels, eps, act, slope, sums, count,
     args = launch_args(
         plan, x.data_ptr(), 0 if residual is None else residual.data_ptr(),
         0 if out is None else out.data_ptr(), ws.floats.data_ptr(),
-        ws.counters.data_ptr(), ws.counters.numel() // 2, tuple(x.shape),
+        ws.counters.data_ptr(), ws.counters.numel() // 2, shape,
         fine_channels, act, x.dtype, vec,
         0 if slots is None else slots.data_ptr())
-    args.append(sums.data_ptr())
-    _build.check(_build.lib().dctseg_fusednorm_ext(
-        args.buffer_info()[0], eps, slope, count, phase, stream),
-        "fusednorm external statistics")
-    ((fused_norm_stats, fused_norm_apply) if slots is None
-     else (fused_norm_stats_amax, fused_norm_apply_amax))[phase].launches += 1
-    return out if phase else sums
+    if v.before:
+        args[_ACT_ARG] |= RESIDUAL_BEFORE
+    if phase is None:
+        _build.check(_build.lib().dctseg_fusednorm(
+            args.buffer_info()[0], eps, slope, stream), "fusednorm")
+        v.counter.launches += plan.launches
+        if v.routes is not None:
+            v.counter.routes[plan.route + v.routes] += plan.launches
+    else:
+        args.append(sums.data_ptr())
+        _build.check(_build.lib().dctseg_fusednorm_ext(
+            args.buffer_info()[0], eps, slope, count, phase, stream),
+            "fusednorm external statistics")
+        v.counter.launches += 1
+    return result
 
 
-def _launch_stats(x, fine_channels, slots=None):
-    sums = torch.empty((x.shape[0], 2, fine_channels), dtype=torch.float32,
-                       device=x.device)
-    return _launch_ext(x, None, fine_channels, 0.0, "none", 0.0, sums, 1.0,
-                       0, slots)
+def _cpu(v, x, residual, fine_channels, eps, act, slope, sums=None,
+         count=1.0, slots=None):
+    """Row ``v``'s plain version, on :func:`_launch`'s arguments and with
+    its results (phase 0's slots zeroed)."""
+    if v.phase == 0:
+        sums = v.plain(x, fine_channels)
+        return ((sums, x.new_zeros(x.shape[0], dtype=torch.float32))
+                if v.amax else sums)
+    got = v.plain(x, *((sums, count) if v.phase else ()),
+                  fine_channels=fine_channels, eps=eps, act=act, slope=slope,
+                  residual=residual)
+    if not v.amax:
+        return got.contiguous()
+    out, amax = got
+    if v.phase:
+        slots.copy_(amax)
+        return out.contiguous()
+    return out.contiguous(), amax
 
 
-def _launch_stats_amax(x, fine_channels):
-    slots = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    return _launch_stats(x, fine_channels, slots), slots
+def _fake(v, x, residual, fine_channels, eps, act, slope, sums=None,
+          count=1.0, slots=None):
+    """Row ``v``'s outputs: their shapes, dtypes and strides only."""
+    n = x.shape[0]
+    result = (x.new_empty((n, 2, fine_channels), dtype=torch.float32)
+              if v.phase == 0 else x.new_empty(x.shape))
+    if v.amax and v.phase != 1:
+        return result, x.new_empty((n,), dtype=torch.float32)
+    return result
 
 
-def _launch_apply(x, residual, sums, count, fine_channels, eps, act, slope):
-    return _launch_ext(x, residual, fine_channels, eps, act, slope, sums,
-                       count, 1)
-
-
-def _launch_apply_amax(x, residual, sums, slots, count, fine_channels, eps,
-                       act, slope):
-    return _launch_ext(x, residual, fine_channels, eps, act, slope, sums,
-                       count, 1, slots)
-
-
-def _cpu_stats(x, fine_channels):
-    return fused_norm_stats_plain(x, fine_channels)
-
-
-def _cpu_stats_amax(x, fine_channels):
-    return (fused_norm_stats_plain(x, fine_channels),
-            x.new_zeros(x.shape[0], dtype=torch.float32))
-
-
-def _cpu_apply_amax(x, residual, sums, slots, count, fine_channels, eps, act,
-                    slope):
-    out, amax = fused_norm_apply_amax_plain(x, sums, count, fine_channels,
-                                            eps, act, slope, residual)
-    slots.copy_(amax)
-    return out.contiguous()
-
-
-def _cpu_apply(x, residual, sums, count, fine_channels, eps, act, slope):
-    return fused_norm_apply_plain(x, sums, count, fine_channels, eps, act,
-                                  slope, residual).contiguous()
-
-
-def _fake_stats(x, fine_channels):
-    return x.new_empty((x.shape[0], 2, fine_channels), dtype=torch.float32)
-
-
-def _fake_apply(x, residual, sums, count, fine_channels, eps, act, slope):
-    return x.new_empty(x.shape)
-
-
-def _fake_stats_amax(x, fine_channels):
-    return (_fake_stats(x, fine_channels),
-            x.new_empty((x.shape[0],), dtype=torch.float32))
-
-
-def _fake_apply_amax(x, residual, sums, slots, count, fine_channels, eps,
-                     act, slope):
-    return x.new_empty(x.shape)
-
-
-def _launch_pre(x, residual, fine_channels, eps, act, slope):
-    return _launch(x, residual, fine_channels, eps, act, slope, before=True)
-
-
-def _cpu_pre(x, residual, fine_channels, eps, act, slope):
-    return fused_norm_residual_act_plain(x, residual, fine_channels, eps,
-                                         act, slope).contiguous()
-
-
-def _setup_context_pre(ctx, inputs, output):
+def _setup_context(ctx, inputs, output):
     x, residual, *args = inputs
     ctx.save_for_backward(x, residual)
     ctx.args = args
 
 
-def _backward_pre(ctx, grad):
-    """(dx, dresidual): the plain version's autograd gradient at the saved
-    inputs."""
+def _backward(v, ctx, grad):
+    """(dx, dresidual): the autograd gradient of row ``v``'s plain version
+    at the saved inputs."""
     x, residual = ctx.saved_tensors
     fine_channels, eps, act, slope = ctx.args
     with torch.enable_grad():
-        leaves = [x.detach().requires_grad_(),
-                  residual.detach().requires_grad_()]
-        y = fused_norm_residual_act_plain(*leaves, fine_channels, eps, act,
-                                          slope)
-        dx, dr = torch.autograd.grad(y, leaves, grad)
-    return dx, dr, None, None, None, None
+        leaves = [t.detach().requires_grad_() for t in (x, residual)
+                  if t is not None]
+        y = v.plain(leaves[0], fine_channels=fine_channels, eps=eps, act=act,
+                    slope=slope, residual=leaves[1] if len(leaves) > 1
+                    else None)
+        grads = torch.autograd.grad(y, leaves, grad)
+    return (*grads, *[None] * (6 - len(grads)))
 
 
-def _cpu(x, residual, fine_channels, eps, act, slope):
-    return fused_instance_norm_act_plain(x, fine_channels, eps, act, slope,
-                                         residual).contiguous()
+class Variant(NamedTuple):
+    """One K1 operator, a row of :data:`VARIANTS`.  Its outputs follow from
+    ``phase`` and ``amax``: the norm (phase None or 1) or the sums (phase
+    0), and beside it the slots the row makes (``amax``, phase not 1)."""
+    name: str
+    schema: str
+    plain: Callable
+    # the wrapper whose .launches the row's launches add to, and with a
+    # route suffix (``routes``) its .routes by the plan's route
+    counter: Callable
+    routes: str | None = None
+    before: bool = False          # the residual added before the activation
+    amax: bool = False            # absmax slots
+    phase: int | None = None      # external statistics: 0 sums, 1 apply
+    # (implementation, row, the operator's arguments in its schema's order)
+    # -> the implementation called with _launch's; None: the schema's are
+    # _launch's own
+    reach: Callable | None = None
+    grad: bool = False            # a backward, from the plain version
 
 
-def _fake(x, residual, fine_channels, eps, act, slope):
-    return x.new_empty(x.shape)
+def _reach_stats(impl, v, x, fine_channels):
+    return impl(v, x, None, fine_channels, 0.0, "none", 0.0)
 
 
-def _launch_amax(x, residual, fine_channels, eps, act, slope):
-    return _launch(x, residual, fine_channels, eps, act, slope, amax=True)
+def _reach_apply(impl, v, x, residual, sums, count, fine_channels, eps, act,
+                 slope):
+    return impl(v, x, residual, fine_channels, eps, act, slope, sums, count)
 
 
-def _cpu_amax(x, residual, fine_channels, eps, act, slope):
-    out, amax = fused_instance_norm_act_amax_plain(x, fine_channels, eps,
-                                                   act, slope, residual)
-    return out.contiguous(), amax
+def _reach_apply_amax(impl, v, x, residual, sums, slots, count,
+                      fine_channels, eps, act, slope):
+    return impl(v, x, residual, fine_channels, eps, act, slope, sums, count,
+                slots)
 
 
-def _fake_amax(x, residual, fine_channels, eps, act, slope):
-    return x.new_empty(x.shape), x.new_empty((x.shape[0],),
-                                             dtype=torch.float32)
+VARIANTS = {v.name: v for v in (
+    Variant("fused_instance_norm_act",
+            "(Tensor x, Tensor? residual, int fine_channels, float eps, "
+            "str act, float slope) -> Tensor",
+            fused_instance_norm_act_plain, fused_instance_norm_act,
+            routes="", grad=True),
+    # counted on fused_instance_norm_act: k1_roofline.swin reads that
+    # counter's sum against the profile's count of K1's kernel launches
+    Variant("fused_norm_residual_act",
+            "(Tensor x, Tensor residual, int fine_channels, float eps, "
+            "str act, float slope) -> Tensor",
+            fused_norm_residual_act_plain, fused_instance_norm_act,
+            routes="_pre", before=True, grad=True),
+    Variant("fused_instance_norm_act_amax",
+            "(Tensor x, Tensor? residual, int fine_channels, float eps, "
+            "str act, float slope) -> (Tensor, Tensor)",
+            fused_instance_norm_act_amax_plain, fused_instance_norm_act_amax,
+            amax=True),
+    Variant("fused_norm_stats", "(Tensor x, int fine_channels) -> Tensor",
+            fused_norm_stats_plain, fused_norm_stats, phase=0,
+            reach=_reach_stats),
+    Variant("fused_norm_apply",
+            "(Tensor x, Tensor? residual, Tensor sums, float count, "
+            "int fine_channels, float eps, str act, float slope) -> Tensor",
+            fused_norm_apply_plain, fused_norm_apply, phase=1,
+            reach=_reach_apply),
+    Variant("fused_norm_stats_amax",
+            "(Tensor x, int fine_channels) -> (Tensor, Tensor)",
+            fused_norm_stats_plain, fused_norm_stats_amax, amax=True,
+            phase=0, reach=_reach_stats),
+    # the slots are the statistics launch's, filled in place: a mutable
+    # input
+    Variant("fused_norm_apply_amax",
+            "(Tensor x, Tensor? residual, Tensor sums, Tensor(a!) slots, "
+            "float count, int fine_channels, float eps, str act, "
+            "float slope) -> Tensor",
+            fused_norm_apply_amax_plain, fused_norm_apply_amax, amax=True,
+            phase=1, reach=_reach_apply_amax))}
+for _v in VARIANTS.values():
+    _v.counter.launches = 0      # kernel launches on CUDA tensors
+# the same launches by route (those of fused_norm_residual_act: ``*_pre``)
+fused_instance_norm_act.routes = dict.fromkeys(ROUTES, 0)
 
 
-def _setup_context(ctx, inputs, output):
-    x, residual, *args = inputs
-    ctx.save_for_backward(x)
-    ctx.args, ctx.residual = args, residual is not None
+def _define(v: Variant) -> torch._ops.OpOverload:
+    cuda, cpu, fake = (functools.partial(f, v) if v.reach is None
+                       else functools.partial(v.reach, f, v)
+                       for f in (_launch, _cpu, _fake))
+    return library.define(
+        v.name, v.schema, cuda=cuda, cpu=cpu, fake=fake,
+        backward=functools.partial(_backward, v) if v.grad else None,
+        setup_context=_setup_context if v.grad else None)
 
 
-def _backward(ctx, grad):
-    """(dx, dresidual): the plain version's autograd gradient at the saved
-    input; the residual, added last, passes ``grad`` through."""
-    x, = ctx.saved_tensors
-    fine_channels, eps, act, slope = ctx.args
-    with torch.enable_grad():
-        leaf = x.detach().requires_grad_()
-        y = fused_instance_norm_act_plain(leaf, fine_channels, eps, act,
-                                          slope)
-        dx, = torch.autograd.grad(y, leaf, grad)
-    return dx, grad if ctx.residual else None, None, None, None, None
-
-
-_OP = library.define(
-    "fused_instance_norm_act",
-    "(Tensor x, Tensor? residual, int fine_channels, float eps, str act, "
-    "float slope) -> Tensor",
-    cuda=_launch, cpu=_cpu, fake=_fake, backward=_backward,
-    setup_context=_setup_context)
-_PRE_OP = library.define(
-    "fused_norm_residual_act",
-    "(Tensor x, Tensor residual, int fine_channels, float eps, str act, "
-    "float slope) -> Tensor",
-    cuda=_launch_pre, cpu=_cpu_pre, fake=_fake, backward=_backward_pre,
-    setup_context=_setup_context_pre)
-_AMAX_OP = library.define(
-    "fused_instance_norm_act_amax",
-    "(Tensor x, Tensor? residual, int fine_channels, float eps, str act, "
-    "float slope) -> (Tensor, Tensor)",
-    cuda=_launch_amax, cpu=_cpu_amax, fake=_fake_amax)
-_STATS_OP = library.define(
-    "fused_norm_stats", "(Tensor x, int fine_channels) -> Tensor",
-    cuda=_launch_stats, cpu=_cpu_stats, fake=_fake_stats)
-_APPLY_OP = library.define(
-    "fused_norm_apply",
-    "(Tensor x, Tensor? residual, Tensor sums, float count, "
-    "int fine_channels, float eps, str act, float slope) -> Tensor",
-    cuda=_launch_apply, cpu=_cpu_apply, fake=_fake_apply)
-_STATS_AMAX_OP = library.define(
-    "fused_norm_stats_amax",
-    "(Tensor x, int fine_channels) -> (Tensor, Tensor)",
-    cuda=_launch_stats_amax, cpu=_cpu_stats_amax, fake=_fake_stats_amax)
-# the slots are the statistics launch's, filled in place: a mutable input
-_APPLY_AMAX_OP = library.define(
-    "fused_norm_apply_amax",
-    "(Tensor x, Tensor? residual, Tensor sums, Tensor(a!) slots, "
-    "float count, int fine_channels, float eps, str act, float slope) "
-    "-> Tensor",
-    cuda=_launch_apply_amax, cpu=_cpu_apply_amax, fake=_fake_apply_amax)
+# the operators the wrappers call, in the table's order
+(_OP, _PRE_OP, _AMAX_OP, _STATS_OP, _APPLY_OP, _STATS_AMAX_OP,
+ _APPLY_AMAX_OP) = map(_define, VARIANTS.values())

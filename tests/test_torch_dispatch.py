@@ -102,27 +102,33 @@ def test_fuse_dispatch_off_under_microbatch():
     assert not Predictor(_StandIn(), device="cpu").fuse_dispatch
 
 
-def test_fused_tta_matches_staged_and_jax(tiny):
+@pytest.fixture(scope="module")
+def staged_tta(tiny):
+    """The staged, unfolded engine's flip TTA of the tiny volume, which
+    the fused and the folded engines are held to."""
+    _, _, model, _, x, _ = tiny
+    return Predictor(model, device="cpu").tta_probs(x)
+
+
+def test_fused_tta_matches_staged_and_jax(tiny, staged_tta):
     """Fused flip TTA equals the staged engine bit for bit and the JAX
     package's fused engine at 1e-4."""
     jmodel, params, model, _, x, _ = tiny
     got = Predictor(model, device="cpu", fuse_dispatch=True).tta_probs(x)
-    np.testing.assert_array_equal(
-        got.numpy(), Predictor(model, device="cpu").tta_probs(x).numpy())
+    np.testing.assert_array_equal(got.numpy(), staged_tta.numpy())
     jp = JaxPredictor(jmodel, params, fuse_dispatch=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(jp.tta_probs(x)),
                                atol=1e-4)
 
 
-def test_fold_params_with_fuse_dispatch(tiny):
+def test_fold_params_with_fuse_dispatch(tiny, staged_tta):
     """fold_params and fuse_dispatch together equal the unfolded staged
     engine (bit for bit: the folded tensors are the ones a call computes)."""
     _, _, model, _, x, _ = tiny
     both = Predictor(model, device="cpu", fuse_dispatch=True,
                      fold_params=True)
-    np.testing.assert_array_equal(
-        both.tta_probs(x).numpy(),
-        Predictor(model, device="cpu").tta_probs(x).numpy())
+    np.testing.assert_array_equal(both.tta_probs(x).numpy(),
+                                  staged_tta.numpy())
 
 
 @pytest.mark.parametrize("fold", [False, True], ids=["unfolded", "folded"])
@@ -279,7 +285,8 @@ def test_owned_workspaces_keep_graph_workspaces_apart(monkeypatch):
     x = torch.zeros(2, 8, 8, 8, 16, dtype=torch.bfloat16)
     owned = {}
     with _build.owned_workspaces(owned):
-        fusednorm._launch(x, None, 16, 1e-5, "relu", 0.01)
+        fusednorm._launch(fusednorm.VARIANTS["fused_instance_norm_act"], x,
+                          None, 16, 1e-5, "relu", 0.01)
         quant._quantize_launch(x)
     fusednorm.plan_for.cache_clear()
     assert not fusednorm._workspaces and not quant._quant_workspaces

@@ -550,14 +550,17 @@ def test_fusednorm_ext_launch_arguments(recorder, monkeypatch, amax):
     monkeypatch.setattr(recorder, "sizes", {
         "dctseg_fusednorm_ext": len(fusednorm.LAUNCH_ARGS) + 1})
     x = torch.zeros(2, 8, 8, 8, 16, dtype=torch.bfloat16)
+    rows = fusednorm.VARIANTS
     if amax:
-        sums, slots = fusednorm._launch_stats_amax(x, 16)
-        out = fusednorm._launch_apply_amax(x, None, sums, slots, 1024.0, 16,
-                                           1e-5, "relu", 0.01)
+        sums, slots = fusednorm._launch(rows["fused_norm_stats_amax"], x,
+                                        None, 16, 0.0, "none", 0.0)
+        out = fusednorm._launch(rows["fused_norm_apply_amax"], x, None, 16,
+                                1e-5, "relu", 0.01, sums, 1024.0, slots)
     else:
-        sums, slots = fusednorm._launch_stats(x, 16), None
-        out = fusednorm._launch_apply(x, None, sums, 1024.0, 16, 1e-5,
-                                      "relu", 0.01)
+        sums, slots = fusednorm._launch(rows["fused_norm_stats"], x, None,
+                                        16, 0.0, "none", 0.0), None
+        out = fusednorm._launch(rows["fused_norm_apply"], x, None, 16, 1e-5,
+                                "relu", 0.01, sums, 1024.0)
     (_, st), (_, ap) = recorder.calls
     plan = fusednorm.ext_plan_for(tuple(x.shape), x.dtype, 8, False, -1,
                                   amax)
@@ -584,7 +587,10 @@ def test_fusednorm_launch_arguments(recorder, monkeypatch, amax):
                fusednorm.fused_instance_norm_act_amax):
         monkeypatch.setattr(fn, "launches", 0)
     x = torch.zeros(2, 8, 8, 8, 16, dtype=torch.bfloat16)
-    got = fusednorm._launch(x, None, 16, 1e-5, "relu", 0.01, amax=amax)
+    got = fusednorm._launch(
+        fusednorm.VARIANTS["fused_instance_norm_act_amax" if amax
+                           else "fused_instance_norm_act"],
+        x, None, 16, 1e-5, "relu", 0.01)
     (_, args), = recorder.calls
     plan = fusednorm.plan_for(tuple(x.shape), x.dtype, 8, False, -1, amax)
     # each variant's plan comes from its own kernels' occupancy

@@ -55,12 +55,16 @@ def jax_tiny():
 @pytest.fixture(scope="module")
 def jax_init_params():
     """Tiny JAX params from flax's own init (jitted): what the converter
-    test needs."""
+    test needs.  Both converters read the same values, so the init is
+    compiled at XLA's lowest backend optimization level (a quarter of the
+    compile time; its values may differ from the default's in the last
+    bits)."""
     x = jnp.asarray(_input())
     model = jax_cwf.build_model(jax_tiny_config(**PLAIN_FLAGS))
-    params = jax.jit(lambda k: model.init(k, x, train=False))(
-        jax.random.PRNGKey(0))
-    return jax.tree.map(np.asarray, params)
+    key = jax.random.PRNGKey(0)
+    init = jax.jit(lambda k: model.init(k, x, train=False)).lower(key).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+    return jax.tree.map(np.asarray, init(key))
 
 
 def _record_topk(monkeypatch, module, store):
@@ -68,7 +72,7 @@ def _record_topk(monkeypatch, module, store):
 
     def recording(tokens, query, k):
         selected, idx = orig(tokens, query, k)
-        store.append(np.asarray(idx))
+        store.append(idx)
         return selected, idx
     monkeypatch.setattr(module, "topk_select", recording)
 
@@ -88,15 +92,20 @@ def _interpret_kernels(monkeypatch):
                          ids=["kernels", "plain"])
 def test_forward_matches_jax(jax_tiny, monkeypatch, flags):
     """B=1 (the interpret-mode kernels are slow on the JAX side); the
-    batched routing is held to JAX at B=8 by test_torch_engine's TTA."""
+    batched routing is held to JAX at B=8 by test_torch_engine's TTA.
+    JAX's forward runs under jax.jit (the comparison needs no eager op
+    order), the routings it traces returned beside its outputs."""
     params, x = jax_tiny
     _interpret_kernels(monkeypatch)
-    jax_idx, port_idx = [], []
-    _record_topk(monkeypatch, jax_cwf, jax_idx)
+    traced, port_idx = [], []
+    _record_topk(monkeypatch, jax_cwf, traced)
     _record_topk(monkeypatch, cwf, port_idx)
 
     jmodel = jax_cwf.build_model(jax_tiny_config(**flags))
-    want = jmodel.apply(params, jnp.asarray(x), train=False)
+
+    def forward(p, v):
+        return jmodel.apply(p, v, train=False), list(traced)
+    want, jax_idx = jax.jit(forward)(params, jnp.asarray(x))
     cfg = tiny_model_config(**flags)
     model = build_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
@@ -105,7 +114,8 @@ def test_forward_matches_jax(jax_tiny, monkeypatch, flags):
 
     assert len(port_idx) == len(jax_idx) == 13
     for i, (a, b) in enumerate(zip(port_idx, jax_idx)):
-        np.testing.assert_array_equal(a, b, err_msg=f"routing {i}")
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=f"routing {i}")
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                atol=1e-4)
     for j in range(1, 5):

@@ -6,11 +6,13 @@ package's mesh, which runs here on conftest's 8 virtual CPU devices, and
 against one process.  Training over the mesh is in
 ``tests/test_torch_parallel_train.py``.
 
-Each mesh shape runs its worker processes once (a module fixture); the
-tests read their results.  fp32, the tiny model; tolerances:
+Each mesh shape runs its worker processes once (a module fixture), all
+started together and collected after the JAX oracles, which compute once
+each (module fixtures) while the workers run; the tests read their
+results.  fp32, the tiny model; tolerances:
   * the mesh Predictor against JAX's mesh Predictor: rtol 1e-4, atol 1e-5
     (``tests/test_infer.py``'s mesh test); under int8 on the direct path
-    ``tests/test_torch_quant.py``'s PORT_VS_JAX_DIRECT (mean |dp| 1e-6,
+    ``tests/test_torch_quant_model.py``'s PORT_VS_JAX_DIRECT (mean |dp| 1e-6,
     argmax agreement 0.999), on the s2d path its chaos rule
     (S2D_CHAOS_FACTOR);
   * the halo'd conv against the whole conv: rtol 1e-5 (values and
@@ -45,9 +47,9 @@ from dctseg_torch.ops import fusednorm, quant
 from dctseg_torch.parallel import mesh
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from test_torch_quant import PORT_VS_JAX_DIRECT, S2D_CHAOS_FACTOR  # noqa
+from test_torch_quant_model import PORT_VS_JAX_DIRECT, S2D_CHAOS_FACTOR  # noqa
 from torch_dist_worker import (CASES, INT8_CONVS, child_env,  # noqa: E402
-                               part_of, run_case, wait)
+                               finish_case, part_of, start_case, wait)
 
 torch.set_num_threads(max(1, (os.cpu_count() or 1) // 6))
 
@@ -90,10 +92,20 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def results(inputs, tmp_path_factory):
-    """Every case's per-rank results, each case run once."""
-    return {case: run_case(case, inputs, str(tmp_path_factory.mktemp(case)))
-            for case in FWD_CASES}
+def started(inputs, tmp_path_factory):
+    """Every case's ranks, started together: (processes, output dir).  The
+    JAX oracles' fixtures take it, so that the ranks run while they
+    compute."""
+    dirs = {case: str(tmp_path_factory.mktemp(case)) for case in FWD_CASES}
+    return {case: (start_case(case, inputs, out), out)
+            for case, out in dirs.items()}
+
+
+@pytest.fixture(scope="module")
+def results(started, jax_predictors, jax_int8, jax_s2d):
+    """Every case's per-rank results, each case run once; collected after
+    the JAX oracles, which compute while the ranks run."""
+    return {case: finish_case(*started[case]) for case in FWD_CASES}
 
 
 # ---- the mesh ----
@@ -193,26 +205,27 @@ def test_fused_norm_external_statistics_plain(act, res, fine):
 # ---- the mesh Predictor against JAX's ----
 
 @pytest.fixture(scope="module")
-def jax_predictors(inputs):
+def jax_predictors(started, inputs):
+    """JAX's float mesh Predictor on each case's mesh: seg_probs of the
+    B=8 batch and tta_probs of one volume."""
     jmodel = jax_build_model(jax_tiny_config(**FWD_FLAGS))
     params = {"params": convert_state_dict(
         {k: v.numpy() for k, v in inputs["fwd_weights"].items()})}
-    return {case: JaxPredictor(jmodel, params,
-                               mesh=jax_make_mesh(4, spatial=space))
-            for case, space in zip(FWD_CASES, (2, 4))}
+    out = {}
+    for case, space in zip(FWD_CASES, (2, 4)):
+        jp = JaxPredictor(jmodel, params, mesh=jax_make_mesh(4, spatial=space))
+        out[case] = {"seg": np.asarray(jp.seg_probs(inputs["fwd_x8"].numpy())),
+                     "tta": np.asarray(jp.tta_probs(inputs["fwd_x1"].numpy()))}
+    return out
 
 
 @pytest.mark.parametrize("engine", ["seg", "tta"])
 @pytest.mark.parametrize("case", FWD_CASES)
-def test_mesh_predictor_matches_jax(results, inputs, jax_predictors, case,
-                                    engine):
+def test_mesh_predictor_matches_jax(results, jax_predictors, case, engine):
     """seg_probs (B=8: its rows split over data) and tta_probs (the 8
     flips) on a (data=2, space=2) and a (data=1, space=4) mesh equal JAX's
     mesh Predictor; every rank returns the whole result."""
-    jp = jax_predictors[case]
-    want = np.asarray(jp.seg_probs(inputs["fwd_x8"].numpy())
-                      if engine == "seg"
-                      else jp.tta_probs(inputs["fwd_x1"].numpy()))
+    want = jax_predictors[case][engine]
     key = f"{engine}_probs"
     first = results[case][0]["forward"]["float"][key]
     np.testing.assert_allclose(first.numpy(), want, rtol=1e-4, atol=1e-5)
@@ -342,7 +355,7 @@ def _jax_mesh_probs(inputs, space, engines, flags, spec):
 
 
 @pytest.fixture(scope="module")
-def jax_int8(inputs):
+def jax_int8(started, inputs):
     return {(case, spec): _jax_mesh_probs(
         inputs, SPACE[case], (("seg_probs", "fwd_x8"),
                               ("tta_probs", "fwd_x1")), FWD_FLAGS, spec)
@@ -379,15 +392,11 @@ def test_mesh_predictor_int8_matches_jax(results, jax_int8, case, spec,
     assert len(ranks[0]["stats"]) > 0 and _stats_equal_over_ranks(ranks)
 
 
-def test_mesh_predictor_s2d_int8_within_jax_chaos(results, inputs):
-    """The tiny s2d int8 model on the (data=2, space=2) mesh (S2DConv3d's
-    routes, the down route's (1, 0) halo) against JAX's: 20 int8 convs in
-    a row make the tiny random network chaotic (``test_torch_quant.py``),
-    so the port is held to JAX's eager unsharded forward within
-    S2D_CHAOS_FACTOR times the drift of JAX's own mesh forward from it,
-    and below JAX's int8-against-float drift on the mesh; every rank
-    returns the same tensor, takes the same stats, and runs JAX's count of
-    int8 convs."""
+@pytest.fixture(scope="module")
+def jax_s2d(started, inputs):
+    """The tiny s2d model on s2d_x: JAX's int8 mesh Predictor on a (data=2,
+    space=2) mesh (seg_probs, and the int8 convs its forward traces), its
+    float one, and the int8 model's eager unsharded forward."""
     engines = (("seg_probs", "s2d_x"),)
     want, jax_convs = _jax_mesh_probs(inputs, 2, engines, S2D_FLAGS, "int8")
     jfloat, _ = _jax_mesh_probs(inputs, 2, engines, S2D_FLAGS, "none")
@@ -396,9 +405,21 @@ def test_mesh_predictor_s2d_int8_within_jax_chaos(results, inputs):
         {k: v.numpy() for k, v in inputs["fwd_weights"].items()})}
     eager = np.asarray(jmodel.apply(params, inputs["s2d_x"].numpy(),
                                     train=False)[0])
+    return want["seg_probs"], jax_convs, jfloat["seg_probs"], eager
+
+
+def test_mesh_predictor_s2d_int8_within_jax_chaos(results, jax_s2d):
+    """The tiny s2d int8 model on the (data=2, space=2) mesh (S2DConv3d's
+    routes, the down route's (1, 0) halo) against JAX's: 20 int8 convs in
+    a row make the tiny random network chaotic (``test_torch_quant_model.py``),
+    so the port is held to JAX's eager unsharded forward within
+    S2D_CHAOS_FACTOR times the drift of JAX's own mesh forward from it,
+    and below JAX's int8-against-float drift on the mesh; every rank
+    returns the same tensor, takes the same stats, and runs JAX's count of
+    int8 convs."""
+    want, jax_convs, jfloat, eager = jax_s2d
     ranks = [res["forward_s2d"] for res in results["fwd_data2_space2"]]
-    got, want, jfloat = (ranks[0]["seg_probs"].numpy(), want["seg_probs"],
-                         jfloat["seg_probs"])
+    got = ranks[0]["seg_probs"].numpy()
     values = dict(
         port_vs_eager=float(np.abs(got - eager).mean()),
         port_vs_eager_agree=_agreement(got, eager),
@@ -448,17 +469,21 @@ def test_evaluate_driver_two_processes_matches_one(tmp_path, extra=()):
     flags = ["--strategy", "single", "--random-params", "--fp32",
              "--img-dim", "32", "--base-channels", "4", "--num-samples", "1",
              "--input-shape", "48", "48", "40", "--no-hd95", *extra]
+    # the one-process run beside the two processes, in a directory of its
+    # own
+    (tmp_path / "one").mkdir()
+    one = subprocess.Popen(
+        [sys.executable, "-m", "dctseg_torch.cli.evaluate", "--device", "cpu",
+         *flags], cwd=tmp_path / "one", env=child_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     rcs, logs = _drivers("dctseg_torch.cli.evaluate",
                          ["--spatial-shards", "2", *flags], tmp_path)
     assert rcs == [0, 0], logs[0][-3000:] + logs[1][-3000:]
     got = json.loads(logs[0].strip().splitlines()[-1])
     assert not any(line.startswith("{") for line in logs[1].splitlines())
-    one = subprocess.run(
-        [sys.executable, "-m", "dctseg_torch.cli.evaluate", "--device", "cpu",
-         *flags], cwd=tmp_path, env=child_env(), capture_output=True,
-        text=True, timeout=600)
-    assert one.returncode == 0, one.stderr[-3000:]
-    want = json.loads(one.stdout.strip().splitlines()[-1])
+    out, err = one.communicate(timeout=600)
+    assert one.returncode == 0, err[-3000:]
+    want = json.loads(out.strip().splitlines()[-1])
     for k in ("wt", "tc", "et", "miou_wt"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
 

@@ -39,7 +39,8 @@ from dctseg_torch.train import optim
 from dctseg_torch.train.trainer import train_step
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_dist_worker import CASES, TRAIN_MODEL, run_case  # noqa: E402
+from torch_dist_worker import (CASES, TRAIN_MODEL,  # noqa: E402
+                               finish_case, start_case)
 
 torch.set_num_threads(max(1, (os.cpu_count() or 1) // 6))
 
@@ -67,10 +68,43 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def results(inputs, tmp_path_factory):
-    """Every case's per-rank results, each case run once."""
-    return {case: run_case(case, inputs, str(tmp_path_factory.mktemp(case)))
-            for case in TRAIN_CASES}
+def started(inputs, tmp_path_factory):
+    """Every case's ranks, started together: (processes, output dir).  The
+    JAX oracles' fixtures take it, so that the ranks run while they
+    compute."""
+    dirs = {case: str(tmp_path_factory.mktemp(case)) for case in TRAIN_CASES}
+    return {case: (start_case(case, inputs, out), out)
+            for case, out in dirs.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_epoch(started, inputs, tmp_path_factory):
+    """JAX's Trainer on a (data=2, space=2) mesh from the same weights and
+    samples: its global batch, steps and one epoch's logged metrics."""
+    cfg = JaxConfig(
+        model=jax_tiny_config(**TRAIN_MODEL),
+        data=JaxDataConfig(synthetic_num_samples=2, input_shape=(24, 24, 20),
+                           pad_depth=20, crop_size=(16, 16, 16),
+                           num_workers=1),
+        train=JaxTrainConfig(end_epoch=1, save_freq=1000, lr=1e-3,
+                             checkpoint_dir=str(
+                                 tmp_path_factory.mktemp("jax") / "ckpt"),
+                             num_devices=4, spatial_shards=2))
+    jt = JaxTrainer(cfg)
+    assert dict(jt.mesh.shape) == {"data": 2, "space": 2}
+    rep = replicated(jt.mesh)
+    params = jax.device_put({"params": convert_state_dict(
+        {k: v.numpy() for k, v in inputs["train_weights"].items()})}, rep)
+    jt.state = TrainState(params, jax.jit(jt.tx.init, out_shardings=rep)(
+        params), jnp.asarray(0, jnp.int32))
+    return jt.global_batch, jt.train_epoch(0)
+
+
+@pytest.fixture(scope="module")
+def results(started, jax_epoch):
+    """Every case's per-rank results, each case run once; collected after
+    JAX's epoch, which runs while the ranks do."""
+    return {case: finish_case(*started[case]) for case in TRAIN_CASES}
 
 
 def test_data_mesh_shape_and_groups(results):
@@ -86,7 +120,9 @@ def test_data_mesh_shape_and_groups(results):
 
 # ---- training ----
 
-def _one_process_step(inputs):
+@pytest.fixture(scope="module")
+def one_process(inputs):
+    """The loss and every gradient of one process's step over both rows."""
     model = ClsWiseFormer(tiny_model_config(**TRAIN_MODEL))
     model.load_state_dict(inputs["train_weights"], strict=True)
     opt = optim.make_optimizer(model.parameters(),
@@ -97,11 +133,11 @@ def _one_process_step(inputs):
 
 
 @pytest.mark.parametrize("case", TRAIN_CASES)
-def test_step_gradients_match_one_process(results, inputs, case):
+def test_step_gradients_match_one_process(results, one_process, case):
     """One DDP step over (data=2) and (data=2, space=2), each data shard on
     its row of the global batch of 2, gives the loss and every gradient of
     one process's step over both rows."""
-    loss, grads = _one_process_step(inputs)
+    loss, grads = one_process
     top = max(float(g.abs().max()) for g in grads.values())
     for res in results[case]:
         got = res["grads"]
@@ -113,29 +149,14 @@ def test_step_gradients_match_one_process(results, inputs, case):
                 atol=1e-5 * top, err_msg=name)
 
 
-def test_epoch_loss_matches_jax_trainer(results, inputs, tmp_path):
+def test_epoch_loss_matches_jax_trainer(results, jax_epoch):
     """A Trainer epoch over a (data=2, space=2) mesh (global batch 2, one
     step) logs the loss JAX's Trainer logs on a (data=2, space=2) mesh
     from the same weights and samples."""
-    cfg = JaxConfig(
-        model=jax_tiny_config(**TRAIN_MODEL),
-        data=JaxDataConfig(synthetic_num_samples=2, input_shape=(24, 24, 20),
-                           pad_depth=20, crop_size=(16, 16, 16),
-                           num_workers=1),
-        train=JaxTrainConfig(end_epoch=1, save_freq=1000, lr=1e-3,
-                             checkpoint_dir=str(tmp_path / "ckpt"),
-                             num_devices=4, spatial_shards=2))
-    jt = JaxTrainer(cfg)
-    assert dict(jt.mesh.shape) == {"data": 2, "space": 2}
-    rep = replicated(jt.mesh)
-    params = jax.device_put({"params": convert_state_dict(
-        {k: v.numpy() for k, v in inputs["train_weights"].items()})}, rep)
-    jt.state = TrainState(params, jax.jit(jt.tx.init, out_shardings=rep)(
-        params), jnp.asarray(0, jnp.int32))
-    want = jt.train_epoch(0)
+    global_batch, want = jax_epoch
     for res in results["train_data2_space2"]:
         got = res["epoch"]
-        assert (got["global_batch"], got["steps"]) == (jt.global_batch, 1)
+        assert (got["global_batch"], got["steps"]) == (global_batch, 1)
         for k in ("loss", "end_loss", "s_loss", "edge_loss", "mid_s_loss",
                   "mid_edge_loss", "dice_wt"):
             np.testing.assert_allclose(got["metrics"][k], want[k],

@@ -128,15 +128,26 @@ def test_batched_tiling_records_only_tiled_probs(volume):
     assert spans(profiled(lambda: p.tiled_probs_batch(two))) == []
 
 
-@pytest.mark.parametrize("method", ["tta_probs", "tta_probs_batch",
-                                    "seg_probs"])
+ENGINES = ["tta_probs", "tta_probs_batch", "seg_probs"]
+
+
+@pytest.fixture(scope="module")
+def answers(tiny):
+    """Each engine's answer on the tiny model, unprofiled and unfused:
+    both cases of an engine compare against it."""
+    model, x = tiny
+    p = Predictor(model, device="cpu")
+    return {method: getattr(p, method)(x) for method in ENGINES}
+
+
+@pytest.mark.parametrize("method", ENGINES)
 @pytest.mark.parametrize("fuse", [False, True])
-def test_other_engines_record_no_span(tiny, method, fuse):
+def test_other_engines_record_no_span(tiny, answers, method, fuse):
     """Only ``tiled_probs``, the path the benchmark reads, records spans;
     the other engines answer as before."""
     model, x = tiny
     p = Predictor(model, device="cpu", fuse_dispatch=fuse)
-    want = getattr(Predictor(model, device="cpu"), method)(x)
+    want = answers[method]
     prof = profiled(lambda: getattr(p, method)(x))
     assert spans(prof) == []
     torch.testing.assert_close(getattr(p, method)(x), want, rtol=0, atol=0)
@@ -340,3 +351,22 @@ def test_counted_ops_are_every_launch_counter():
     assert found == listed
     for fn in _build.counted_ops():
         assert isinstance(fn.launches, int)
+
+
+def test_k1_counters_come_from_its_table():
+    """K1's launch counters as the benchmark reads them: each name of
+    ``_build.COUNTED["fusednorm"]`` and of ``benchmark.trace.COUNTERS``
+    is a function of ``ops/fusednorm.py`` with an int ``.launches``, the
+    counter of a row of its table; the pre-activation route counts on
+    ``fused_instance_norm_act``, whose sum ``k1_roofline.swin`` compares
+    with the profile's count of K1's kernels."""
+    from benchmark.trace import COUNTERS
+    (module, names), _ = COUNTERS["fusednorm"]
+    assert module == fusednorm.__name__
+    counters = {v.counter for v in fusednorm.VARIANTS.values()}
+    for name in {*_build.COUNTED["fusednorm"], *names}:
+        fn = getattr(fusednorm, name)
+        assert inspect.isfunction(fn) and fn in counters
+        assert isinstance(fn.launches, int)
+    assert fusednorm.VARIANTS["fused_norm_residual_act"].counter is \
+        fusednorm.fused_instance_norm_act

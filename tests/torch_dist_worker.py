@@ -2,13 +2,14 @@
 (``tests/test_torch_parallel*.py``): it joins a gloo group through a
 FileStore, runs the jobs its case names on the tiny models, and writes what
 the parent compares to ``<out>/rank<r>.pt``.  It imports no JAX (the JAX oracle runs in the
-parent); the parent starts it through :func:`run_case`.
+parent); the parent starts a case's ranks with :func:`start_case`, computes
+its JAX oracles while they run, and collects them with :func:`finish_case`.
 
     python tests/torch_dist_worker.py CASE RANK OUT
 
 :data:`CASES` gives each case's world size, space axis and jobs.  The
 inputs and weights come from ``<out>/inputs.pt`` (the parent writes them,
-:func:`run_case`); the store is ``<out>/store``.
+:func:`start_case`); the store is ``<out>/store``.
 """
 
 import os
@@ -276,20 +277,30 @@ def wait(procs, timeout: float = 600):
     return [p.returncode for p in procs], logs
 
 
-def run_case(case: str, inputs: dict, out: str) -> list:
-    """Run ``case``'s ranks on ``inputs``; their results, in rank order."""
+def start_case(case: str, inputs: dict, out: str) -> list:
+    """Start ``case``'s ranks on ``inputs``, each writing its output to
+    ``<out>/rank<r>.log``; their processes, for :func:`finish_case`."""
     import subprocess
-    world, space, _ = CASES[case]
     torch.save(inputs, os.path.join(out, "inputs.pt"))
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), case, str(r), out],
-        cwd=REPO, env=child_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for r in range(world)]
-    rcs, logs = wait(procs)
-    for rc, log in zip(rcs, logs):
-        assert rc == 0, log[-4000:]
+    procs = []
+    for r in range(CASES[case][0]):
+        with open(os.path.join(out, f"rank{r}.log"), "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), case, str(r),
+                 out], cwd=REPO, env=child_env(), stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs
+
+
+def finish_case(procs: list, out: str, timeout: float = 600) -> list:
+    """Wait for the ranks :func:`start_case` started in ``out``; their
+    results, in rank order."""
+    for r, p in enumerate(procs):
+        rc = p.wait(timeout=timeout)
+        with open(os.path.join(out, f"rank{r}.log")) as log:
+            assert rc == 0, log.read()[-4000:]
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+            for r in range(len(procs))]
 
 
 def main():
