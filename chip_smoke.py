@@ -1,12 +1,21 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--only swin]
+    python3 chip_smoke.py [--only swin|convs]
 
-``--only swin`` runs phases 1, 2 and the Swin UNETR phase alone.
+``--only swin`` runs phases 1, 2 and the Swin UNETR phase alone,
+``--only convs`` phases 1, 2 and 2b.
 
 Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from dctseg_torch/csrc/ (nvcc, sm_90a);
+  2b. cuDNN's heuristic against its measured choice at every distinct conv
+     of both serving models' B=8 bf16 forwards (time_conv_choices: each
+     choice's kernels, time and first call, the conv's bound, the outputs
+     within bf16 rounding), ClsWiseFormer's fused engine captured after
+     its search held bit for bit to the staged engine, and the engines'
+     ``conv_autotune``; last in a full run, in a process of its own
+     (``--only convs``), where no other phase has cached a cuDNN plan or
+     run the profiler;
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it: fusednorm (on the route its launch plan
      picks at each width, one launch at the small widths and two at the
@@ -124,7 +133,8 @@ Phases (any failure raises and the script exits non-zero):
          each one's device busy time and idle share in one profiled call,
          then served by BundleServer
          on port 0: 3 labels and 1 probs requests over HTTP, each equal to
-         the bundle's answer and each launching one forward's kernels;
+         the bundle's answer on the server's device thread (cuDNN's plans
+         are per thread) and each launching one forward's kernels;
          an s2d ``single`` bundle at 128^3 exported on the CPU and moved
          to the card at load (2 relayout launches a forward, labels equal
          to seg_probs'); a paired V=2 ``tiling`` bundle that coalesces 2
@@ -195,7 +205,7 @@ from dctseg_torch.cli import evaluate, train
 from dctseg_torch.config import DataConfig, ModelConfig
 from dctseg_torch.data import synthetic
 from dctseg_torch.data.brats import BraTSDataset
-from dctseg_torch.infer.engine import Predictor
+from dctseg_torch.infer.engine import Predictor, measured_convs
 from dctseg_torch.infer.server import BundleServer
 from dctseg_torch.infer.serving import ServingBundle, export_bundle
 from dctseg_torch.models import attention as attn_model
@@ -1243,12 +1253,13 @@ def run_serving_bundles(dev, cfg_kw, weights):
     fresh; its probabilities against Predictor.tiled_probs on a seeded
     240x240x160x4 volume (probabilities equal bit for bit), and each one's
     device busy time in one profiled call; then a BundleServer on it answers
-    3 labels and 1 probs request, each equal to the bundle's own answer,
-    with each request's kernel launches those of one forward.  Then a
-    ``single`` s2d bundle at 128^3, exported on the CPU and moved to the
-    card at load, launches the relayout twice a forward; then a paired V=2
-    ``tiling`` bundle coalesces 2 concurrent single-volume requests into
-    one group whose labels equal the V=1 bundle's."""
+    3 labels and 1 probs request, each equal to the bundle's own answer on
+    the server's device thread, with each request's kernel launches those
+    of one forward.  Then a ``single`` s2d bundle at 128^3, exported on the
+    CPU and moved to the card at load, launches the relayout twice a
+    forward; then a paired V=2 ``tiling`` bundle coalesces 2 concurrent
+    single-volume requests into one group whose labels equal the paired
+    engine's on the server's device thread."""
     rng = np.random.default_rng(SEED + 6)
     vols = [rng.standard_normal(VOLUME, dtype=np.float32)
             for _ in range(N_VOLUMES)]
@@ -1318,9 +1329,10 @@ def run_serving_bundles(dev, cfg_kw, weights):
                 row[f"{name}_ms"])
         del dvols
 
-        # the HTTP server on the bundle
+        # the HTTP server on the bundle; the bundle's own answer on the
+        # server's device thread, whose conv plans served the request
         requests, v1_labels = [], {}
-        with serving(bundle) as (_, base):
+        with serving(bundle) as (server, base):
             for i, output in enumerate(("labels", "labels", "labels",
                                         "probs")):
                 vol = vols[i % N_VOLUMES]
@@ -1328,8 +1340,9 @@ def run_serving_bundles(dev, cfg_kw, weights):
                 got, latency, wall = post_volume(base, vol, output)
                 launches = expect_launches(f"request {i}", read_launches(),
                                            forward)
-                want = (bundle.labels(vol) if output == "labels"
-                        else bundle.predict(vol)).cpu().numpy()
+                want = server._on_device(
+                    bundle.labels if output == "labels" else bundle.predict,
+                    vol).cpu().numpy()
                 if output == "labels":
                     v1_labels[i] = got
                 err = float(np.abs(got.astype(np.float32)
@@ -1398,14 +1411,15 @@ def run_serving_bundles(dev, cfg_kw, weights):
                 t.join(timeout=600)
             launches = read_launches()
             group = server._coalescer.last_group_size
+            # the paired engine on the same two volumes (one B=16 forward)
+            # on the server's device thread, and its own difference from
+            # the B=8 engine: in bf16 the batch changes K1's launch plan
+            # and cuDNN's algorithms, so sums run in another order, and
+            # random weights leave many near-tied classes
+            both = torch.from_numpy(np.concatenate(vols[:2])).to(dev)
+            batch = server._on_device(predictor.tiled_probs_batch, both)
         if any(a is None for a in answers):
             raise AssertionError("a paired request got no answer")
-        # the paired engine on the same two volumes (one B=16 forward), and
-        # its own difference from the B=8 engine: in bf16 the batch changes
-        # K1's launch plan and cuDNN's algorithms, so sums run in another
-        # order, and random weights leave many near-tied classes
-        both = torch.from_numpy(np.concatenate(vols[:2])).to(dev)
-        batch = predictor.tiled_probs_batch(both)
         batch_labels = batch.argmax(-1).to(torch.uint8).cpu().numpy()
         single = [predictor.tiled_probs(both[i:i + 1]) for i in range(2)]
         paired_forward = {"fused_instance_norm_act": norm_launches(
@@ -1816,32 +1830,35 @@ def profile_int8_forward(engines, vol, path):
     each under torch.profiler after a warm one: the device time of K1
     (both variants: norm_kernel), of K7 by route (from_amax_kernel,
     grid_kernel) and of the whole forward.  Fails unless the profiler saw
-    each kernel's launches."""
+    each kernel's launches; a profile that missed some is taken again, up
+    to PROFILE_ATTEMPTS times, as in check_replays."""
     x = Predictor.crops(vol)
     row, s2d = {}, path == "s2d"
     for spec in ("none", "int8"):
-        engines[spec].seg_probs(x)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            engines[spec].seg_probs(x)
-            torch.cuda.synchronize()
-        found = collections.defaultdict(list)
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            for name in ("norm_kernel", "from_amax_kernel", "grid_kernel"):
-                if name in e.name:
-                    found[name].append(e.time_range.end - e.time_range.start)
         want = {"norm_kernel": norm_launches(torch.bfloat16, s2d),
                 "from_amax_kernel": 0, "grid_kernel": 0}
         if spec == "int8":
             want.update(from_amax_kernel=K7_CALLS[path, "int8"]["from_amax"],
                         grid_kernel=K7_CALLS[path, "int8"]["grid"])
-        got = {k: len(found[k]) for k in want}
+        engines[spec].seg_probs(x)
+        attempts = []
+        for _ in range(PROFILE_ATTEMPTS):
+            prof, _ = profiled(lambda: engines[spec].seg_probs(x))
+            found = collections.defaultdict(list)
+            for e in prof.events():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                for name in want:
+                    if name in e.name:
+                        found[name].append(
+                            e.time_range.end - e.time_range.start)
+            got = {k: len(found[k]) for k in want}
+            attempts.append(got)
+            if got == want:
+                break
         row[spec] = dict({f"{k}_device_ms": sum(v) / 1e3
                           for k, v in found.items()}, kernels=got,
+                         profile_attempts=attempts,
                          forward_device_busy_ms=device_busy_ms(prof))
         if got != want:
             raise AssertionError(f"profiled {spec} forward ({path}): "
@@ -2034,12 +2051,12 @@ def run_int8_bundle(dev, cfg_kw, weights, calls):
         if not row["probs_equal_tiled_probs"]:
             raise AssertionError(f"int8 bundle vs tiled_probs: {row}")
         del probs, live, dvol
-        with serving(bundle) as (_, base):
+        with serving(bundle) as (server, base):
             reset_launches()
             got, latency, wall = post_volume(base, vol, "labels")
             launches = expect_launches("int8 request", read_launches(),
                                        forward)
-        want = bundle.labels(vol).cpu().numpy()
+            want = server._on_device(bundle.labels, vol).cpu().numpy()
         row["request"] = dict(latency_ms=latency, client_ms=wall,
                               labels_equal_bundle=bool(
                                   np.array_equal(got, want)),
@@ -4839,8 +4856,199 @@ def run_swin(dev):
                   "alone")]
 
 
+# ------------------------------------------------- cuDNN's conv algorithms
+
+class ConvCalls(TorchDispatchMode):
+    """Counts a forward's ``aten.convolution`` calls by signature: the
+    operands' shapes, strides and dtype and the conv's arguments."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten.convolution.default:
+            x, w, b, *rest = args
+            self.calls[(tuple(x.shape), x.stride(), tuple(w.shape),
+                        w.stride(), b is not None, x.dtype,
+                        *(tuple(r) if isinstance(r, (list, tuple)) else r
+                          for r in rest), tuple(out.shape))] += 1
+        return out
+
+
+@contextlib.contextmanager
+def cudnn_flags(**flags):
+    kept = {k: getattr(torch.backends.cudnn, k) for k in flags}
+    for k, v in flags.items():
+        setattr(torch.backends.cudnn, k, v)
+    try:
+        yield
+    finally:
+        for k, v in kept.items():
+            setattr(torch.backends.cudnn, k, v)
+
+
+def serving_models(dev):
+    """The two serving cells' models at their configurations' widths
+    (``benchmark/configs``), random weights: {name: (model, volume)}."""
+    from benchmark.reference import swin_unetr as swref
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "clswiseformer_serve.json")) as f:
+        cfg = ModelConfig(**json.load(f)["model"])
+    return {"clswiseformer": cwf.build_model(cfg, device=dev),
+            "swin_unetr": swin_engine(dev, swref.make_weights(
+                SWIN_MODEL, SEED + 15, dev))}
+
+
+def time_conv_choices(dev, iters=5):
+    """cuDNN's heuristic against its measured choice (``benchmark`` on, as
+    the engine's ``measured_convs`` runs it) at every distinct conv of both
+    serving models' B=8 bf16 forwards.  PyTorch keys its plan cache by
+    shape, dtype, layout, ``deterministic`` and ``allow_tf32``, not by
+    ``benchmark``, and ``allow_tf32`` does nothing to a bf16 conv, so each
+    choice is made under a key of its own: the shapes are recorded under
+    (deterministic, allow_tf32) = (True, True), the heuristic runs under
+    (False, True), the measured choice under (False, False), and the
+    engines' check under (True, False).  Per conv: the kernels of one
+    profiled call and time_ms under each choice, the measured choice's
+    first call (its search) beside the heuristic's, the conv's bound
+    (``benchmark/reference/counts.py``), the largest gap between the two
+    outputs, and each output's largest error against the f32 conv over
+    what bf16 rounding and f32 sums allow (the measured choice's within
+    it), and whether a call with ``benchmark``
+    on under the heuristic's key keeps the heuristic's kernels (the cache
+    ignores the flag).  Then, before any other forward of its shapes,
+    ClsWiseFormer's fused engine (its capture after the search in the
+    warm-up) held to the staged engine by ``check_replays``, and each
+    model's ``conv_autotune`` after a ``tiled_probs``."""
+    from benchmark.reference.counts import bound_s, conv_costs
+    g = gen(dev, SEED + 21)
+    volumes = [torch.randn(VOLUME, device=dev, generator=g)
+               for _ in range(2)]
+    xs = Predictor.crops(volumes[0])
+    out = {}
+    for name, model in serving_models(dev).items():
+        # under inference_mode the mode would see aten.conv3d whole
+        with cudnn_flags(deterministic=True, allow_tf32=True), \
+                torch.no_grad(), ConvCalls() as rec:
+            model(xs)
+        if not rec.calls:
+            raise AssertionError(f"no convolution recorded in {name}")
+        row = dict(calls=sum(rec.calls.values()), shapes=len(rec.calls))
+        if name == "clswiseformer":
+            with cudnn_flags(deterministic=True, allow_tf32=False):
+                staged = Predictor(model, device=dev)
+                fused = Predictor(model, device=dev, fuse_dispatch=True)
+                replays = check_replays("autotuned", staged, fused, volumes)
+                row["fused_replays"] = replays["replays_equal_eager"]
+                row["capture_s"] = replays["capture_s"]
+                row["conv_autotune"] = {str(k): n for k, n in
+                                        staged.conv_autotune.items()}
+                del fused
+        convs, totals = [], collections.Counter()
+        for sig, calls in rec.calls.items():
+            xshape, xstride, wshape, wstride, bias, dtype, *args, yshape = sig
+            x = torch.empty_strided(xshape, xstride, dtype=dtype, device=dev)
+            w = torch.empty_strided(wshape, wstride, dtype=dtype, device=dev)
+            x.normal_(generator=g)
+            w.normal_(generator=g).mul_(math.prod(wshape[1:]) ** -0.5)
+            b = (torch.randn(yshape[1], device=dev, generator=g).to(dtype)
+                 if bias else None)
+            transposed = args[3]
+
+            def fn():
+                return torch.ops.aten.convolution(x, w, b, *args)
+
+            r = dict(x=xshape, w=wshape, transposed=transposed,
+                     stride=args[0], calls=calls)
+            outs = {}
+            with torch.inference_mode():
+                for choice, ctx, tf32 in (
+                        ("heuristic", cudnn_flags(benchmark=False), True),
+                        ("measured", measured_convs(), False)):
+                    with ctx, cudnn_flags(deterministic=False,
+                                          allow_tf32=tf32):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        y = fn()
+                        torch.cuda.synchronize()
+                        r[f"{choice}_first_s"] = time.perf_counter() - t0
+                        prof, _ = profiled(fn)
+                        r[f"{choice}_kernels"] = top_kernels(prof, 4)
+                        r[f"{choice}_ms"] = time_ms(fn, iters, warmup=1)
+                    outs[choice] = y
+                with cudnn_flags(benchmark=True, deterministic=False,
+                                 allow_tf32=True):
+                    r["cache_ignores_flag"] = (top_kernels(
+                        profiled(fn)[0], 4).keys()
+                        == r["heuristic_kernels"].keys())
+                with cudnn_flags(benchmark=False, allow_tf32=False):
+                    exact = torch.ops.aten.convolution(
+                        x.float(), w.float(), None if b is None
+                        else b.float(), *args)
+            r["max_abs_gap"] = (outs["heuristic"].float()
+                                - outs["measured"].float()).abs().max().item()
+            # each output's error against the f32 conv over what rounding
+            # allows: a bf16 ulp of |conv| + |bias| (the output's rounding
+            # and the bias add's) and twice the f32 sums' bound, K 2^-24 of
+            # the conv of |x| and |w| (K terms a sum)
+            with torch.inference_mode():
+                terms = math.prod(wshape[2:]) * wshape[0 if transposed
+                                                       else 1]
+                allowed = torch.ops.aten.convolution(
+                    x.float().abs(), w.float().abs(), None, *args).mul_(
+                        2 * terms * 2.0 ** -24)
+                scale = exact.abs()
+                if b is not None:
+                    scale += b.float().abs().view(-1, 1, 1, 1)
+                allowed += bf16_ulp(scale)
+                for choice, y in outs.items():
+                    r[f"{choice}_err_over_rounding"] = ((
+                        y.float() - exact).abs() / allowed).max().item()
+            del x, w, b, y, outs, exact, allowed, scale
+            ndhwc = (lambda s: (s[0], *s[2:], s[1]))
+            r["bound_ms"] = bound_s(*conv_costs(dict(
+                x=ndhwc(xshape), w=wshape, y=ndhwc(yshape),
+                transposed=transposed), 2)["fwd"]) * 1e3
+            for k in ("heuristic_ms", "measured_ms", "bound_ms"):
+                totals[k] += calls * r[k]
+            totals["search_s"] += r["measured_first_s"] - r[
+                "heuristic_first_s"]
+            convs.append(r)
+            log(conv=name, **r)
+        row.update(totals, convs=convs)
+        for k in ("heuristic", "measured"):
+            row[f"{k}_roofline_pct"] = 100 * totals["bound_ms"] / totals[
+                f"{k}_ms"]
+        if name == "swin_unetr":
+            with cudnn_flags(deterministic=True, allow_tf32=False):
+                staged = Predictor(model, device=dev)
+                host = volumes[0].cpu()
+                for i in range(2):     # the search, then a call without
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    staged.tiled_probs(host)
+                    torch.cuda.synchronize()
+                    row[f"tiled_probs_{i}_s"] = time.perf_counter() - t0
+                row["conv_autotune"] = {str(k): n for k, n in
+                                        staged.conv_autotune.items()}
+        out[name] = row
+        log(phase="conv_choices", model=name,
+            **{k: v for k, v in row.items() if k != "convs"})
+        bad = [c for c in convs if c["measured_err_over_rounding"] > 1]
+        if bad or not all(row.get("fused_replays", [True])):
+            raise AssertionError(f"conv choices of {name}: outputs apart "
+                                 f"beyond bf16 rounding {bad} or replays "
+                                 f"not equal {row.get('fused_replays')}")
+        del model, staged
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
-    only = (argv if argv is not None else sys.argv[1:])[-1:] == ["swin"]
+    only = (argv if argv is not None else sys.argv[1:])[-1:]
     # ---- 1. the card
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4864,8 +5072,11 @@ def main(argv=None) -> int:
                if "registers" in ln or "spill" in ln],
         k6_tma_ptxas=k6_ptxas())
 
+    if only == ["convs"]:
+        time_conv_choices(dev)
     if only:
-        print(json.dumps({"kernels": run_swin(dev)}), flush=True)
+        if only == ["swin"]:
+            print(json.dumps({"kernels": run_swin(dev)}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5258,6 +5469,9 @@ def main(argv=None) -> int:
                                for k, r in space_train.items()},
         conv3_vjp_ms={k: vjp_row[f"{k}_ms"] for k in ("xla", "explicit")})
     kernels += run_swin(dev)
+    # ---- 2b, last, in a process of its own (module docstring)
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--only",
+                    "convs"], check=True, timeout=1800)
     # ---- 6. result
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,26 @@ rest, non-contiguous host tensors and every input of a CPU Predictor, take
 ``Tensor.to`` as it is (``host``).  The bytes on the card are the input's,
 bit for bit, whatever the route.
 
+Measured conv algorithms (``measured_convs``): every forward of the model
+(``Predictor.model_probs``, which every engine, the fused stage's warm-up
+and capture and a mesh's slab forwards go through) runs with
+``torch.backends.cudnn.benchmark`` on, so cuDNN times the first
+``BENCHMARK_LIMIT`` candidate algorithms of each conv shape at its first
+call and keeps the fastest, in place of its heuristic's first choice, with
+the allocator's cache kept through the search.  The caller's
+``benchmark``, ``benchmark_limit`` and cache switch are restored after the
+call; every other cuDNN flag keeps the caller's value.  The search falls
+on the first forward of each input shape (the volumes' warm-up in a
+service; the eager warm-up before a capture, so a capture finds every plan
+cached): 1.5–3 s for a full-width model's B=8 forward on an H100, nothing
+after.  PyTorch caches one plan per conv shape and thread without regard
+to the flag: a shape already run on the thread under the heuristic keeps
+the heuristic's plan, and a thread new to a shape searches again and may
+pick another algorithm (so the server runs every program on one thread).
+Off cuDNN the flag does nothing.  ``Trainer`` does not autotune: an
+algorithm with a larger workspace could raise the training step's peak
+memory, and its step is paced by the host.
+
 Spans (``utils/profiling.py`` ``span``, recorded only while a profiler
 runs): each ``tiled_probs`` call is a root ``dctseg.engine.tiled_probs``
 whose children are ``engine.input`` (the volume to the device),
@@ -66,6 +86,7 @@ under a mesh, as in the JAX engine.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -95,6 +116,45 @@ CROPS = [
 ]
 
 INPUT_ROUTES = ("staged", "pinned", "device", "host")   # of ``_input``
+
+
+# The candidates cuDNN times a conv shape, in its heuristic's order.  On an
+# H100 at both serving models' B=8 bf16 convs, PyTorch's default of 10 and
+# 4 found the same conv time a forward (Swin UNETR 53.3 and 53.7 ms against
+# the heuristic's 90.6; ClsWiseFormer about 65 ms either way), 2 and 1 lost
+# the gain (85.1 and 90.9 ms), and the first forward's search took 4.0 s
+# at 10, 2.2 s at 4 and 1.7 s at 1 for Swin UNETR's 25 shapes.
+BENCHMARK_LIMIT = 4
+# PyTorch empties its allocator's cache after each shape's search, so the
+# forward allocates its activations anew after every new shape.  Kept, the
+# first Swin UNETR volume took 3.3 s in place of 7.4 s (1.5 s under the
+# heuristic), ClsWiseFormer's 3.0 s in place of 4.8 s (2.0 s).  The switch
+# is private to PyTorch's CUDA builds: where it is missing, nothing is set.
+_SEARCH_EMPTIES_CACHE = (
+    getattr(torch._C, "_cuda_get_conv_benchmark_empty_cache", None),
+    getattr(torch._C, "_cudnn_set_conv_benchmark_empty_cache", None))
+
+
+@contextlib.contextmanager
+def measured_convs():
+    """cuDNN picks each conv's algorithm by timing its first
+    ``BENCHMARK_LIMIT`` candidates, keeping the allocator's cache (module
+    docstring); the caller's ``benchmark``, ``benchmark_limit`` and cache
+    setting are restored on the way out, the other cuDNN flags are not
+    touched."""
+    cudnn = torch.backends.cudnn
+    get_empties, set_empties = _SEARCH_EMPTIES_CACHE
+    kept = cudnn.benchmark, cudnn.benchmark_limit
+    empties = get_empties() if get_empties and set_empties else None
+    cudnn.benchmark, cudnn.benchmark_limit = True, BENCHMARK_LIMIT
+    if empties is not None:
+        set_empties(False)
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = kept
+        if empties is not None:
+            set_empties(empties)
 
 
 class _Captured(NamedTuple):
@@ -133,7 +193,16 @@ class Predictor:
 
     ``mesh`` (a ``parallel.mesh.Mesh``) runs each forward over the ranks of
     a process group (module docstring); every rank calls the same engines
-    on the same input, float or int8."""
+    on the same input, float or int8.
+
+    Every forward runs on cuDNN's measured algorithms (``measured_convs``):
+    the first forward of an input shape on a thread times each conv's
+    candidates (1.5–3 s at B=8 on an H100), so ``seg_probs`` over volumes
+    of changing shape pays one search a new shape; the caller's cuDNN flags
+    are as they were after every call.  ``conv_autotune`` counts the
+    forwards (``model_probs`` calls; a graph's replay is not one) by input
+    shape: the first of each shape is its search.  ``Trainer`` does not
+    autotune, for its step's peak memory (module docstring)."""
 
     def __init__(self, model: torch.nn.Module, device=None,
                  microbatch: Optional[int] = None,
@@ -150,6 +219,7 @@ class Predictor:
         self._graphs: dict = {}   # (stage, shape, dtype) -> _Captured
         self._pool = None         # the graphs' shared memory pool
         self.input_routes = dict.fromkeys(INPUT_ROUTES, 0)
+        self.conv_autotune: dict = {}   # forward input shape -> forwards
 
     def _input(self, x) -> torch.Tensor:
         """``x`` (a tensor or an array) on ``self.device``, by the route
@@ -171,12 +241,16 @@ class Predictor:
     def model_probs(self, xs: torch.Tensor) -> torch.Tensor:
         """The model's decoder softmax on one batch, on the folded weights
         where ``fold_params`` is on; under a mesh this rank's rows and slab,
-        gathered back, the int8 scales taken over the mesh."""
+        gathered back, the int8 scales taken over the mesh; on cuDNN's
+        measured algorithms (``measured_convs``)."""
+        shape = tuple(xs.shape)
+        self.conv_autotune[shape] = self.conv_autotune.get(shape, 0) + 1
         if self.mesh is None:
-            with layers.folded(self._folded):
+            with measured_convs(), layers.folded(self._folded):
                 return self.model(xs)[0]
         rows = batch_rows(self.mesh, xs.shape[0])
-        with spatial.sharded(spatial.space_shard(self.mesh)), \
+        with measured_convs(), \
+                spatial.sharded(spatial.space_shard(self.mesh)), \
                 spatial.scaled(self.mesh.group):
             y = self.model(xs[rows])[0]
         if rows.stop - rows.start == xs.shape[0]:

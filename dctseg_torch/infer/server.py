@@ -18,8 +18,14 @@ Protocol (v1, numpy ``.npy`` payloads):
   intensity volumes can be posted as they are.
 
 One card serves every request: the handler threads decode and encode off
-the card's critical path, but ``predict`` runs under a device lock, so
+the card's critical path, but every program (the warm-up's, the direct
+path's, the coalescer's groups) runs on the server's one device thread, so
 concurrent clients queue for the card rather than interleave programs.
+PyTorch keeps cuDNN's conv plans per thread, and a bundle's ``predict``
+times each conv's candidates on a thread's first call of a shape
+(``infer/engine.py`` ``measured_convs``): on the one device thread the
+warm-up pays that search once, where a thread per request would pay it in
+every request and could pick other algorithms, and so other bits.
 
 A PAIRED bundle (exported with ``batch_volumes=V``) coalesces: single-volume
 requests from concurrent clients are gathered for up to ``coalesce_wait_s``
@@ -39,6 +45,7 @@ import logging
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 from urllib.parse import parse_qs, urlparse
@@ -101,13 +108,14 @@ class _Coalescer:
     Handler threads ``submit()`` a (1, ...) volume and block; a dispatcher
     thread drains the queue -- waiting up to ``max_wait_s`` after the first
     arrival for the group to fill to the bundle's V -- pads partial groups
-    with zeros, enqueues ONE B=8V program per output mode under the server's
-    device lock, and a fetcher thread copies the results to the host and
+    with zeros, enqueues ONE B=8V program per output mode on the server's
+    device thread, and a fetcher thread copies the results to the host and
     fans the per-volume slices back out.
 
     ``_fetch_q`` has maxsize 1, bounding the in-flight window at one group
-    dispatching and one group fetching.  Grad mode is per thread, so both
-    threads enter ``torch.inference_mode()`` themselves."""
+    dispatching and one group fetching.  Grad mode is per thread, so the
+    fetcher enters ``torch.inference_mode()`` itself; the programs run under
+    the bundle's own."""
 
     def __init__(self, server: "BundleServer", max_wait_s: float = 0.05):
         self.server = server
@@ -148,9 +156,11 @@ class _Coalescer:
         return item["out"]
 
     def stop(self) -> None:
+        """Refuse new submits and wait for the dispatcher's last group."""
         with self._submit_lock:
             self._stopped = True
             self._q.put(None)
+        self._thread.join()
 
     @staticmethod
     def _fail(items, err) -> None:
@@ -161,8 +171,7 @@ class _Coalescer:
 
     def _run(self) -> None:
         try:
-            with torch.inference_mode():
-                self._dispatch_loop()
+            self._dispatch_loop()
         finally:
             # shut the fetcher down after its pending work, then fail any
             # items stranded behind the sentinel (the submit lock ensures
@@ -218,15 +227,19 @@ class _Coalescer:
                         [xs, np.zeros(
                             (self.v - xs.shape[0], *xs.shape[1:]),
                             xs.dtype)], axis=0)
-                with self.server._device_lock:
-                    ys = (self.server.bundle.labels(xs) if output ==
-                          "labels" else self.server.bundle.predict(xs))
-                    ready = _ready_event(ys)
-                pending.append((sub, ys, ready))
+                pending.append((sub, *self.server._on_device(
+                    self._enqueue, xs, output)))
             except Exception as e:  # noqa: BLE001 - fan out to waiters
                 self._fail(sub, e)
         for item in pending:
             self._fetch_q.put(item)   # blocks at the depth-2 window
+
+    def _enqueue(self, xs, output):
+        """On the device thread: the group's program and an event behind
+        it."""
+        bundle = self.server.bundle
+        ys = bundle.labels(xs) if output == "labels" else bundle.predict(xs)
+        return ys, _ready_event(ys)
 
     def _fetch_loop(self) -> None:
         with torch.inference_mode():
@@ -259,7 +272,9 @@ class BundleServer:
                  coalesce: Optional[bool] = None,
                  coalesce_wait_s: float = 0.05):
         self.bundle = bundle
-        self._device_lock = threading.Lock()
+        # every program on one thread (module docstring)
+        self._device = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="dctseg-device")
         self._requests = 0
         self._last_latency_s: Optional[float] = None
         self._started = time.time()
@@ -301,6 +316,11 @@ class BundleServer:
         if self._serving:
             self._httpd.shutdown()
         self._httpd.server_close()
+        self._device.shutdown()
+
+    def _on_device(self, fn, *args):
+        """``fn(*args)`` on the server's device thread, in arrival order."""
+        return self._device.submit(fn, *args).result()
 
     def _warmup(self) -> None:
         """Run one labels() on zeros, so that the first client request
@@ -309,7 +329,7 @@ class BundleServer:
         x = np.zeros((m.get("batch_volumes", 1), *m["input_shape"],
                       m["in_channels"]), np.dtype(m["input_dtype"]))
         t0 = time.time()
-        _to_host(self.bundle.labels(x))
+        self._on_device(lambda: _to_host(self.bundle.labels(x)))
         log.info("warmup predict: %.2f s", time.time() - t0)
 
     # -- request handling --------------------------------------------------
@@ -342,10 +362,9 @@ class BundleServer:
         if coalescing:
             out = self._coalescer.submit(x, output)
         else:
-            with self._device_lock:
-                ys = (self.bundle.labels(x) if output == "labels"
-                      else self.bundle.predict(x))
-                out = _to_host(ys)
+            run = (self.bundle.labels if output == "labels"
+                   else self.bundle.predict)
+            out = self._on_device(lambda: _to_host(run(x)))
         latency = time.time() - t0
         self._last_latency_s = latency
         return _encode_npy(out), latency

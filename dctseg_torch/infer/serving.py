@@ -11,7 +11,9 @@ forward program holds them as graph nodes and launches them on the card.
 
 The stages are the live ``Predictor``'s own functions, so a bundle runs the
 same operators in the same order as the live engine: on one device its
-outputs equal the engine's bit for bit.
+outputs equal the engine's bit for bit.  A program does not keep the
+engine's cuDNN flag, so ``ServingBundle.predict`` runs under the engine's
+``measured_convs`` as ``Predictor.model_probs`` does.
 
 Layout on disk::
 
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from dctseg_torch.device import resolve_device
-from dctseg_torch.infer.engine import FLIP_COMBOS, Predictor
+from dctseg_torch.infer.engine import FLIP_COMBOS, Predictor, measured_convs
 
 MANIFEST_NAME = "MANIFEST.json"
 _FORMAT = 1
@@ -294,6 +296,7 @@ class ServingBundle:
         return x.to(self.device, getattr(torch, self.manifest["input_dtype"]))
 
     @torch.inference_mode()
+    @measured_convs()
     def predict(self, x) -> torch.Tensor:
         x = self._input(x)
         p, s = self._p, self.strategy

@@ -22,6 +22,7 @@ from dctseg.utils.torch_convert import convert_state_dict
 
 from dctseg_torch.config import tiny_model_config
 from dctseg_torch.convert import state_dict_from_jax
+from dctseg_torch.infer import engine
 from dctseg_torch.infer.engine import Predictor, ensemble_probs
 from dctseg_torch.models.clswiseformer import ClsWiseFormer, build_model
 
@@ -239,3 +240,63 @@ def test_non_contiguous_host_input_takes_the_host_route():
     assert got.device.type == "meta" and got.shape == x.shape
     assert pred.input_routes == {"staged": 0, "pinned": 0, "device": 0,
                                  "host": 1}
+
+
+# ---- cuDNN's measured algorithms around every forward (measured_convs)
+
+CUDNN_FLAGS = ("enabled", "benchmark", "deterministic", "allow_tf32",
+               "benchmark_limit")
+
+
+class _Flagged(torch.nn.Module):
+    """The stand-in forward, recording ``probe()`` at each call; ``fail``
+    raises after recording."""
+
+    def __init__(self, probe, fail=False):
+        super().__init__()
+        self.probe, self.fail, self.seen = probe, fail, []
+
+    def forward(self, x):
+        self.seen.append(self.probe())
+        if self.fail:
+            raise RuntimeError("forward failed")
+        return (x * 2.0 + 1.0,)
+
+
+@pytest.mark.parametrize("start, fail", [
+    ({"benchmark": False, "deterministic": False, "allow_tf32": True}, False),
+    ({"enabled": False, "benchmark": True, "deterministic": True,
+      "allow_tf32": False, "benchmark_limit": 3}, False),
+    ({"benchmark": False, "deterministic": True, "allow_tf32": False,
+      "benchmark_limit": 0}, True)],
+    ids=["defaults", "caller_set", "raises"])
+def test_forward_measures_convs_and_restores_flags(start, fail, monkeypatch):
+    cudnn = torch.backends.cudnn
+    # the allocator's switch (CUDA builds only) as a stand-in pair
+    empties = [True]
+    monkeypatch.setattr(engine, "_SEARCH_EMPTIES_CACHE", (
+        lambda: empties[0], lambda v: empties.__setitem__(0, v)))
+    saved = {k: getattr(cudnn, k) for k in CUDNN_FLAGS}
+    try:
+        for k, v in start.items():
+            setattr(cudnn, k, v)
+        before = {k: getattr(cudnn, k) for k in CUDNN_FLAGS}
+        model = _Flagged(lambda: (cudnn.benchmark, cudnn.benchmark_limit,
+                                  empties[0]), fail)
+        pred = Predictor(model, device="cpu")
+        x = torch.ones((1, 4, 4, 4, 2))
+        if fail:
+            with pytest.raises(RuntimeError, match="forward failed"):
+                pred.tta_probs(x)
+        else:
+            # the 8 flips and a B=8 batch: one shape, two forwards
+            pred.tta_probs(x)
+            pred.seg_probs(torch.cat([x] * 8))
+        inside = (True, engine.BENCHMARK_LIMIT, False)
+        assert model.seen == [inside] * (1 if fail else 2)
+        assert pred.conv_autotune == {(8, 4, 4, 4, 2): 1 if fail else 2}
+        assert {k: getattr(cudnn, k) for k in CUDNN_FLAGS} == before
+        assert empties == [True]
+    finally:
+        for k, v in saved.items():
+            setattr(cudnn, k, v)

@@ -377,6 +377,35 @@ def test_coalescer_device_failure_fans_out_and_server_survives():
         server.shutdown()
 
 
+@pytest.mark.parametrize("v", [1, 2], ids=["direct", "coalesced"])
+def test_every_program_runs_on_the_one_device_thread(v):
+    """The warm-up and every request's program run on one thread, not the
+    caller's nor a handler's: cuDNN's conv plans are kept per thread, so
+    the warm-up's search then serves every request."""
+
+    class _Threaded(_FakePairedBundle):
+        def labels(self, x):
+            self.threads.append(threading.get_ident())
+            return super().labels(x)
+
+        predict = labels
+
+    fake = _Threaded(v=v)
+    fake.threads = []
+    server = BundleServer(fake, port=0, coalesce_wait_s=0.05)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        vols = [np.full((1, 4, 4, 4, 2), i, np.float32) for i in range(2)]
+        got = _post_all(f"http://127.0.0.1:{server.port}", vols,
+                        ["labels", "probs"])
+        for vol, out in zip(vols, got):
+            np.testing.assert_array_equal(out, _fingerprint(vol))
+    finally:
+        server.shutdown()
+    assert len(fake.threads) >= 2 and len(set(fake.threads)) == 1
+    assert fake.threads[0] != threading.get_ident()
+
+
 # ---- the drivers ----
 
 
